@@ -1,10 +1,13 @@
-// Fused detection core: background subtract, separable 7x7 matched filter,
-// threshold, steepest-ascent parent race.
+// Fused detection core: background subtract, 7x7 matched filter, threshold,
+// steepest-ascent parent race.
 //
 // Replaces the Pallas TPU kernel debvader_tpu/kernels/detect_fused.py
 // matched_filter_parents (_df_kernel).  For a stack of T fields (F, F):
-//   filt[p]   = sum_dx wx[dx] * sum_dy wy[dy] * fore[p + (dy-3, dx-3)],
-//               fore = image - background, 0 outside the field (SAME pad);
+//   filt[p]   = sum_dx wx[dx] * sum_dy wy[dy] * fore[p + (dy-3, dx-3)]
+//               for a separable (rank-1) filter, else
+//               sum_dy sum_dx k[dy][dx] * fore[p + (dy-3, dx-3)] in row-major
+//               tap order; fore = image - background, 0 outside the field
+//               (SAME pad);
 //   mask[p]   = filt[p] > threshold[t];
 //   parent[p] = the best of p and its 8 neighbours in (value, -index)
 //               order, neighbours taken in (dy, dx) row-major order, masked
@@ -18,8 +21,9 @@
 // about 60 operations a pixel.  Design: one 256-thread block per 32x32
 // output tile; the tile's 40x40 window of image - background (3 pixels of
 // filter halo plus 1 of race halo) is staged in shared memory, filtered
-// down the rows then along the columns into a 34x34 ring, and the race
-// reads the ring, so no intermediate touches device memory.  Row padding
+// (down the rows then along the columns, or with all 49 taps) into a 34x34
+// ring, and the race reads the ring, so no intermediate touches device
+// memory.  Row padding
 // for the TPU's (8, 128) tiling is gone: the grid covers F exactly and
 // masks the ragged edge.
 //
@@ -42,11 +46,11 @@ __global__ void __launch_bounds__(kThreads)
 detect_fused_kernel(const float* __restrict__ img, const float* __restrict__ back,
                     const float* __restrict__ thresholds, const float* __restrict__ taps,
                     float* __restrict__ filt, int32_t* __restrict__ dir,
-                    int32_t* __restrict__ parent, int f) {
+                    int32_t* __restrict__ parent, int f, int separable) {
   __shared__ float fore[kIn][kIn + 1];
   __shared__ float tmp[kExt][kIn + 1];
   __shared__ float mval[kExt][kExt + 1];
-  __shared__ float w[14];  // wy[0..6], wx[0..6]
+  __shared__ float w[49];  // wy[0..6], wx[0..6], or the 49 taps row-major
 
   const int t = blockIdx.z;
   const int r0 = blockIdx.y * kTile;
@@ -60,7 +64,7 @@ detect_fused_kernel(const float* __restrict__ img, const float* __restrict__ bac
   const float thr = thresholds[t];
   const int tid = threadIdx.x;
 
-  if (tid < 14) w[tid] = taps[tid];
+  if (tid < (separable ? 14 : 49)) w[tid] = taps[tid];
   for (int i = tid; i < kIn * kIn; i += kThreads) {
     const int r = i / kIn, c = i % kIn;
     const int gr = r0 - kHalo + r, gc = c0 - kHalo + c;
@@ -74,21 +78,31 @@ detect_fused_kernel(const float* __restrict__ img, const float* __restrict__ bac
   __syncthreads();
 
   // down the rows with wy: ring row e is global row r0 - 1 + e
-  for (int i = tid; i < kExt * kIn; i += kThreads) {
-    const int e = i / kIn, c = i % kIn;
-    float a = 0.f;
+  if (separable) {
+    for (int i = tid; i < kExt * kIn; i += kThreads) {
+      const int e = i / kIn, c = i % kIn;
+      float a = 0.f;
 #pragma unroll
-    for (int dy = 0; dy < 7; ++dy) a = __fadd_rn(a, __fmul_rn(w[dy], fore[e + dy][c]));
-    tmp[e][c] = a;
+      for (int dy = 0; dy < 7; ++dy) a = __fadd_rn(a, __fmul_rn(w[dy], fore[e + dy][c]));
+      tmp[e][c] = a;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
-  // along the columns with wx, then threshold; ring column e is c0 - 1 + e
+  // along the columns with wx (or all 49 taps of a filter that does not
+  // separate), then threshold; ring column e is c0 - 1 + e
   for (int i = tid; i < kExt * kExt; i += kThreads) {
     const int er = i / kExt, ec = i % kExt;
     float a = 0.f;
+    if (separable) {
 #pragma unroll
-    for (int dx = 0; dx < 7; ++dx) a = __fadd_rn(a, __fmul_rn(w[7 + dx], tmp[er][ec + dx]));
+      for (int dx = 0; dx < 7; ++dx) a = __fadd_rn(a, __fmul_rn(w[7 + dx], tmp[er][ec + dx]));
+    } else {
+      for (int dy = 0; dy < 7; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 7; ++dx)
+          a = __fadd_rn(a, __fmul_rn(w[dy * 7 + dx], fore[er + dy][ec + dx]));
+    }
     const int gr = r0 - 1 + er, gc = c0 - 1 + ec;
     const bool inside = gr >= 0 && gr < f && gc >= 0 && gc < f;
     if (inside && er >= 1 && er <= kTile && ec >= 1 && ec <= kTile)
@@ -128,14 +142,14 @@ detect_fused_kernel(const float* __restrict__ img, const float* __restrict__ bac
 }  // namespace
 
 // img, back, filt, dir, parent: (t, f, f) contiguous; thresholds (t,);
-// taps: wy[7] then wx[7], all float32 / int32 on the device.  Returns the
-// cudaError_t of the launch.
+// taps: wy[7] then wx[7] when separable, else the 7x7 filter row-major; all
+// float32 / int32 on the device.  Returns the cudaError_t of the launch.
 extern "C" int dvt_detect_fused(const float* img, const float* back, const float* thresholds,
                                 const float* taps, float* filt, int32_t* dir, int32_t* parent,
-                                int t, int f, void* stream) {
+                                int t, int f, int separable, void* stream) {
   if (t <= 0 || f <= 0) return 0;
   const dim3 grid((f + kTile - 1) / kTile, (f + kTile - 1) / kTile, t);
   detect_fused_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, back, thresholds, taps, filt, dir, parent, f);
+      img, back, thresholds, taps, filt, dir, parent, f, separable);
   return static_cast<int>(cudaGetLastError());
 }

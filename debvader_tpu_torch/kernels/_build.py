@@ -7,10 +7,12 @@ carries a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them.
 
-Every kernel is compiled with ``-fmad=false``: the plain PyTorch versions
-round each multiply and each add on its own, and a fused multiply-add
-would change the last bit of the matched filter and of the clip
-thresholds.  Nothing here runs when a module is imported.
+Kernels held bit for bit against their plain versions are compiled with
+``-fmad=false``: the plain PyTorch versions round each multiply and each
+add on its own, and a fused multiply-add would change the last bit of the
+matched filter and of the clip thresholds.  A source listed in
+``FMAD_SOURCES`` is held to a tolerance instead and builds with
+contraction on.  Nothing here runs when a module is imported.
 """
 
 from __future__ import annotations
@@ -30,10 +32,12 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# sources whose float32 multiply-adds may contract into FMAs
+FMAD_SOURCES = frozenset({"decoder_tail"})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -52,9 +56,14 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    fmad = "true" if name in FMAD_SOURCES else "false"
+    return NVCC_FLAGS + (f"-fmad={fmad}",)
+
+
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -66,7 +75,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -4,9 +4,10 @@ plain version.
 Port of the Pallas kernel debvader_tpu/kernels/detect_fused.py
 (matched_filter_parents).  For a stack of fields (T, F, F):
 
-- filt = the separable 7x7 matched filter of image - background, down the
-  rows with wy, then along the columns with wx, each product and sum
-  rounded on its own, zero outside the field (SAME padding);
+- filt = the 7x7 matched filter of image - background, zero outside the
+  field (SAME padding), each product and sum rounded on its own: for a
+  separable (rank-1) filter down the rows with wy, then along the columns
+  with wx; else all 49 taps in row-major order;
 - mask = filt > threshold[t];
 - the steepest-ascent race over the 3x3 neighbourhood with (value, -index)
   tie-break, neighbours in (dy, dx) row-major order, masked-out and
@@ -31,6 +32,9 @@ from debvader_tpu_torch.kernels import _build
 __all__ = [
     "separate",
     "separable_filter",
+    "full_filter",
+    "filter_taps",
+    "apply_filter",
     "parent_race",
     "matched_filter_parents",
     "matched_filter_parents_plain",
@@ -52,14 +56,16 @@ def separate(kernel: np.ndarray):
     return wy.astype(np.float32), wx.astype(np.float32)
 
 
-def _taps(kernel: np.ndarray):
+def filter_taps(kernel: np.ndarray):
+    """(separable, taps) of a 7x7 filter: wy then wx (14 values) when it is
+    rank 1, else its 49 values in row-major order."""
     kernel = np.asarray(kernel, np.float32)
     if kernel.shape != (7, 7):
-        raise ValueError("the detect core expects a 7x7 filter")
+        raise ValueError("the matched-filter kernels expect a 7x7 filter")
     sep = separate(kernel)
     if sep is None:
-        raise ValueError("the detect core takes a separable (rank-1) filter only")
-    return sep
+        return False, np.ascontiguousarray(kernel.reshape(-1))
+    return True, np.concatenate(sep)
 
 
 def separable_filter(fore: torch.Tensor, wy: np.ndarray, wx: np.ndarray) -> torch.Tensor:
@@ -74,6 +80,27 @@ def separable_filter(fore: torch.Tensor, wy: np.ndarray, wx: np.ndarray) -> torc
     for dx in range(7):
         out = out + float(wx[dx]) * tmp[:, :, dx : dx + f]
     return out
+
+
+def full_filter(fore: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """SAME 7x7 filter of (T, F, F) with all 49 taps, accumulated from 0 in
+    row-major tap order."""
+    t, f, _ = fore.shape
+    p = F.pad(fore, (3, 3, 3, 3))
+    out = torch.zeros((t, f, f), dtype=fore.dtype, device=fore.device)
+    for dy in range(7):
+        for dx in range(7):
+            out = out + float(kernel[dy, dx]) * p[:, dy : dy + f, dx : dx + f]
+    return out
+
+
+def apply_filter(fore: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """The plain 7x7 filter of (T, F, F): separable when the filter is
+    rank 1, else the 49 taps."""
+    separable, taps = filter_taps(kernel)
+    if separable:
+        return separable_filter(fore, taps[:7], taps[7:])
+    return full_filter(fore, taps.reshape(7, 7))
 
 
 def parent_race(filt: torch.Tensor, thresholds: torch.Tensor):
@@ -104,8 +131,7 @@ def parent_race(filt: torch.Tensor, thresholds: torch.Tensor):
 
 def matched_filter_parents_plain(images, backgrounds, kernel, thresholds):
     """Plain PyTorch version of :func:`matched_filter_parents`."""
-    wy, wx = _taps(kernel)
-    filt = separable_filter(images - backgrounds, wy, wx)
+    filt = apply_filter(images - backgrounds, kernel)
     dir_code, parent = parent_race(filt, thresholds)
     return filt, dir_code, parent
 
@@ -113,23 +139,24 @@ def matched_filter_parents_plain(images, backgrounds, kernel, thresholds):
 _device_taps: dict = {}
 
 
-def _taps_on(kernel: np.ndarray, device) -> torch.Tensor:
-    """wy then wx as a (14,) device tensor, decomposed and uploaded once
-    per (filter, device)."""
+def taps_on(kernel: np.ndarray, device):
+    """(separable, taps on ``device``) of :func:`filter_taps`, decomposed
+    and uploaded once per (filter, device)."""
     key = (np.asarray(kernel, np.float32).tobytes(), str(device))
-    taps = _device_taps.get(key)
-    if taps is None:
-        taps = torch.as_tensor(np.concatenate(_taps(kernel)), device=device)
-        _device_taps[key] = taps
-    return taps
+    entry = _device_taps.get(key)
+    if entry is None:
+        separable, taps = filter_taps(kernel)
+        entry = (separable, torch.as_tensor(taps, device=device))
+        _device_taps[key] = entry
+    return entry
 
 
 def _launch(images, backgrounds, kernel, thresholds):
     t, f, _ = images.shape
     if f * f >= 2**31:
         raise ValueError("fields of 2^31 pixels or more overflow the int32 parent index")
-    taps = _taps_on(kernel, images.device)
-    fn = _build.launcher("detect_fused", "dvt_detect_fused", 7, 2)
+    separable, taps = taps_on(kernel, images.device)
+    fn = _build.launcher("detect_fused", "dvt_detect_fused", 7, 3)
     filt = torch.empty_like(images)
     dir_code = torch.empty(images.shape, dtype=torch.int32, device=images.device)
     parent = torch.empty_like(dir_code)
@@ -138,7 +165,7 @@ def _launch(images, backgrounds, kernel, thresholds):
         status = fn(
             images.data_ptr(), backgrounds.data_ptr(), thresholds.data_ptr(),
             taps.data_ptr(), filt.data_ptr(), dir_code.data_ptr(),
-            parent.data_ptr(), t, f, stream,
+            parent.data_ptr(), t, f, int(separable), stream,
         )
     _build.check(status, "detect_fused")
     matched_filter_parents.launches += 1
@@ -154,7 +181,7 @@ def matched_filter_parents(
     """(filt float32, dir_code int32, parent int32), each (T, F, F).
 
     images, backgrounds: (T, F, F) float32 (non-finite pixels already set
-    to the background); kernel: the 7x7 separable matched filter;
+    to the background); kernel: the 7x7 matched filter (separable or not);
     thresholds: (T,) float32.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     if images.ndim != 3 or images.shape[1] != images.shape[2]:

@@ -1,17 +1,21 @@
 """Source detection: SExtractor-equivalent, on the device, in PyTorch.
 
-Port of debvader_tpu.ops.detection along the path a TPU runs by default
-(the fused detect core):
+Port of debvader_tpu.ops.detection for one field:
 
 1. Background and RMS meshes per 64x64 box: sigma-clipped statistics
    (kernels/clipped_stats.py), the SExtractor mode estimator
    (2.5*median - 1.5*mean, the median in crowded boxes), empty boxes
    filled with the median of the others, a 3x3 median filter, and the
    bilinear upsample of ``jax.image.resize``.
-2. The fused core (kernels/detect_fused.py): background subtract,
-   separable 7x7 matched filter, threshold at thresh * globalrms, and the
-   steepest-ascent parent race; then label resolution
-   (kernels/label_select.py).
+2. The device core, one of two (``_fused_enabled``):
+   - the fused core (kernels/detect_fused.py, the default): background
+     subtract, 7x7 matched filter, threshold at thresh * globalrms and the
+     steepest-ascent parent race in one kernel;
+   - the chain ``_detect_core``: the filter as a step of its own, the
+     stand-alone kernel (kernels/matched_filter.py, under
+     ``use_pallas_filter``) or ``F.conv2d`` (any odd ``filter_size``), then
+     the parent race.
+   Either way label resolution follows (kernels/label_select.py).
 3. On the host, over the masked pixels only: the quantized
    multi-threshold merge of watershed segments (deblend_nthresh,
    deblend_cont), minarea, flux-weighted centroids and CLEAN.
@@ -29,8 +33,9 @@ import torch.nn.functional as F
 from debvader_tpu_torch.config import DetectionConfig
 from debvader_tpu_torch.device import fp32_math, resolve_device
 from debvader_tpu_torch.kernels.clipped_stats import sigma_clipped_stats
-from debvader_tpu_torch.kernels.detect_fused import matched_filter_parents
+from debvader_tpu_torch.kernels.detect_fused import matched_filter_parents, parent_race
 from debvader_tpu_torch.kernels.label_select import label_fixpoint
+from debvader_tpu_torch.kernels.matched_filter import matched_filter_threshold
 
 __all__ = [
     "default_filter_kernel",
@@ -142,9 +147,50 @@ def estimate_background(image: torch.Tensor, box: int = 64):
 
 def _threshold_scale(cfg: DetectionConfig) -> float:
     if cfg.threshold_scaling == "matched":
-        k = default_filter_kernel(7, cfg.filter_fwhm)
+        k = default_filter_kernel(cfg.filter_size, cfg.filter_fwhm)
         return float(np.sqrt(np.sum(np.square(k))))
     return 1.0
+
+
+def _conv2d_same(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """SAME zero-padded correlation of a 2D image with an odd square
+    kernel, in full float32."""
+    pad = kernel.shape[0] // 2
+    with fp32_math():
+        return F.conv2d(image[None, None], kernel[None, None], padding=pad)[0, 0]
+
+
+def _fused_enabled(cfg: DetectionConfig) -> bool:
+    """Whether the fused detect core runs: by default (None) on either
+    device, never for a filter that is not 7x7."""
+    if cfg.filter_size != 7:
+        return False
+    return True if cfg.use_pallas_fused is None else bool(cfg.use_pallas_fused)
+
+
+def _detect_core(image: torch.Tensor, cfg: DetectionConfig):
+    """Detection on one 2D band with the filter as a step of its own:
+    (labels, filt, globalrms), labels (F, F) int32 holding each masked
+    pixel's ascent root (flat index) and -1 elsewhere."""
+    f = image.shape[0]
+    back, _, _, grms = estimate_background(image, box=min(cfg.background_box, f))
+    kernel_np = default_filter_kernel(cfg.filter_size, cfg.filter_fwhm)
+    threshold = (cfg.thresh * grms * _threshold_scale(cfg)).reshape(1)
+    finite = torch.isfinite(image)
+    if cfg.use_pallas_filter and cfg.filter_size == 7:
+        # non-finite pixels are set to the background, so they add
+        # nothing to the filter
+        filt, mask = matched_filter_threshold(
+            torch.where(finite, image, back), back, kernel_np, threshold
+        )
+    else:
+        fore = torch.where(finite, image - back, torch.zeros((), dtype=image.dtype, device=image.device))
+        filt = _conv2d_same(fore, torch.as_tensor(kernel_np, device=image.device))
+        mask = filt > threshold
+    dir_code, cur0 = parent_race(filt[None], threshold)
+    roots = label_fixpoint(cur0[0], dir_code[0])
+    labels = torch.where(mask, roots, torch.full_like(roots, -1))
+    return labels, filt, grms
 
 
 def detect_core_stack(xs: torch.Tensor, cfg: DetectionConfig):
@@ -158,7 +204,7 @@ def detect_core_stack(xs: torch.Tensor, cfg: DetectionConfig):
     grms = torch.stack([s[3] for s in stats])
     thr = cfg.thresh * grms * _threshold_scale(cfg)
     guarded = torch.where(torch.isfinite(xs), xs, back)
-    kernel = default_filter_kernel(7, cfg.filter_fwhm)
+    kernel = default_filter_kernel(cfg.filter_size, cfg.filter_fwhm)
     filt, dir_code, cur0 = matched_filter_parents(guarded, back, kernel, thr)
     roots = label_fixpoint(cur0.reshape(t * f, f), dir_code.reshape(t * f, f)).reshape(t, f, f)
     labels = torch.where(filt > thr[:, None, None], roots, torch.full_like(roots, -1))
@@ -380,10 +426,12 @@ def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda"):
             f"detection requires a square 2D field (got {tuple(image.shape)}); "
             f"the centre-offset convention is single-axis"
         )
-    labels, filt, grms = detect_core_stack(image[None], cfg)
-    return _postprocess_core(
-        labels[0].cpu().numpy(), filt[0].cpu().numpy(), float(grms[0]), cfg
-    )
+    if _fused_enabled(cfg) and not cfg.use_pallas_filter:
+        labels, filt, grms = detect_core_stack(image[None], cfg)
+        labels, filt, grms = labels[0], filt[0], grms[0]
+    else:
+        labels, filt, grms = _detect_core(image, cfg)
+    return _postprocess_core(labels.cpu().numpy(), filt.cpu().numpy(), float(grms), cfg)
 
 
 def detect_objects(field_image, cfg: DetectionConfig | None = None, device="cuda") -> np.ndarray:

@@ -200,3 +200,93 @@ def test_merge_roots_equal_jax_merge_segments_py():
         got = td._merge_segments_py(*args, flux.copy(), order, nthr, thr, cont)
         np.testing.assert_array_equal(got, want)
     assert L > 3
+
+
+# ------------------------------------------- single-field detection backends
+
+_BACKENDS = {
+    "filter_kernel": {"use_pallas_filter": True},
+    "chain": {"use_pallas_fused": False},
+    "filter_size_5": {"filter_size": 5},
+    "filter_kernel_matched": {"use_pallas_filter": True, "threshold_scaling": "matched", "thresh": 3.0},
+}
+
+
+@pytest.mark.parametrize("backend", sorted(_BACKENDS))
+@pytest.mark.parametrize("seed", [13, 15])
+def test_detect_sources_backends_equal_jax(backend, seed):
+    """The chain detect core under each backend against the JAX package
+    under the same config (its Pallas filter interpreted): labels, peaks
+    and offsets equal; the flux-weighted columns within 1e-5 relative (the
+    filters sum in different orders, 5e-6 of filt's scale)."""
+    kw = _BACKENDS[backend]
+    img = _field(128, seed, nsrc=12)
+    want = jd.detect_sources(img, JaxDetectionConfig(**kw))
+    got = td.detect_sources(img, DetectionConfig(**kw), device="cpu")
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_array_equal(got["peak_yx"], want["peak_yx"])
+    np.testing.assert_array_equal(got["area"], want["area"])
+    for key in ("y", "x", "flux"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5)
+    np.testing.assert_array_equal(
+        td.detect_objects(img, DetectionConfig(**kw), device="cpu"),
+        jd.detect_objects(img, JaxDetectionConfig(**kw)),
+    )
+    assert len(want["y"]) > 5
+
+
+@pytest.mark.parametrize("backend", ["filter_kernel", "chain"])
+def test_detect_sources_backends_equal_the_fused_route(backend):
+    """At 7x7 every backend of the port finds the fused core's labels."""
+    img = _field(128, 16, nsrc=12)
+    fused = td.detect_sources(img, DetectionConfig(), device="cpu")
+    got = td.detect_sources(img, DetectionConfig(**_BACKENDS[backend]), device="cpu")
+    np.testing.assert_array_equal(got["labels"], fused["labels"])
+    np.testing.assert_array_equal(got["peak_yx"], fused["peak_yx"])
+
+
+def test_detect_core_guards_non_finite_pixels_like_jax():
+    """NaN and inf pixels add nothing to the filter on either filter of
+    the chain, and the labels equal JAX's."""
+    img = _field(128, 17, nsrc=12)
+    img[40, 41] = np.nan
+    img[90:92, 30] = np.inf
+    for kw in ({"use_pallas_filter": True}, {"use_pallas_fused": False}):
+        labels, filt, grms = td._detect_core(torch.from_numpy(img), DetectionConfig(**kw))
+        assert torch.isfinite(filt).all()
+        jlabels, _, jfilt, _, jrms = jd._detect_core(jnp.asarray(img), JaxDetectionConfig(**kw))
+        np.testing.assert_array_equal(labels.numpy(), np.asarray(jlabels))
+        np.testing.assert_allclose(filt.numpy(), np.asarray(jfilt), rtol=0, atol=1e-5 * float(np.abs(jfilt).max()))
+        np.testing.assert_allclose(float(grms), float(jrms), rtol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "kw,fused",
+    [
+        ({}, True),
+        ({"use_pallas_fused": True}, True),
+        ({"use_pallas_fused": False}, False),
+        ({"filter_size": 5}, False),
+        ({"filter_size": 5, "use_pallas_fused": True}, False),
+    ],
+)
+def test_fused_enabled_dispatch(kw, fused):
+    assert td._fused_enabled(DetectionConfig(**kw)) is fused
+
+
+def test_detection_config_carries_the_jax_backend_fields():
+    ours, theirs = DetectionConfig(), JaxDetectionConfig()
+    for name in ("filter_size", "use_pallas_filter", "use_pallas_fused"):
+        assert getattr(ours, name) == getattr(theirs, name)
+    with pytest.raises(ValueError, match="filter_size"):
+        DetectionConfig(filter_size=6)
+
+
+@pytest.mark.parametrize("size", [3, 5, 9])
+def test_conv2d_same_matches_jax(size):
+    rng = np.random.default_rng(size)
+    img = rng.normal(size=(40, 40)).astype(np.float32)
+    k = rng.random((size, size)).astype(np.float32)
+    want = np.asarray(jd._conv2d_same(jnp.asarray(img), jnp.asarray(k)))
+    got = td._conv2d_same(torch.from_numpy(img), torch.from_numpy(k)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6 * np.abs(want).max())

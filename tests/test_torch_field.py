@@ -161,10 +161,128 @@ def test_unported_constructor_options_raise(nets, kwargs):
         dtt.DeblendField(tnet, field, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [{"optimise_positions": True}, {"measure": True}])
-def test_unported_deblend_options_raise(nets, kwargs):
+@pytest.mark.parametrize("method", ["deblend_field", "deblend_and_render"])
+def test_unported_deblend_options_raise(nets, method):
     _, tnet = nets
     field, centers = _blob_field(seed=7)
     df = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        df.deblend_field(centers, **kwargs)
+        getattr(df, method)(centers, optimise_positions=True)
+
+
+def test_deblend_field_measure_matches_jax(nets):
+    """measure=True appends flux, centroid, ellipticity and snr columns of
+    the deblended means: dtype equal, values within 1e-4 of each column's
+    scale (float32 sums of ~2e4 terms over model outputs that differ by
+    2e-5 of theirs)."""
+    import debvader_tpu as dt
+
+    jnet, tnet = nets
+    field, centers = _blob_field(seed=9)
+    want = dt.DeblendField(jnet, field, z_mode="mean").deblend_field(centers, measure=True)
+    got = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu").deblend_field(centers, measure=True)
+    assert got.dtype == want.dtype
+    assert got.dtype.names[-4:] == ("flux", "centroid", "ellipticity", "snr")
+    for col in got.dtype.names[-4:]:
+        _close(np.stack(list(got[col])), np.stack(list(want[col])), 1e-4)
+
+
+def test_source_chunk_recursion_matches_jax(nets):
+    """More sources than source_chunk: extraction, forward and cuts run
+    chunk by chunk, list_idx is shifted by each chunk's start, the counters
+    collapse to one entry a call, and the merged record array equals the
+    JAX package's."""
+    import debvader_tpu as dt
+    from debvader_tpu.config import PipelineConfig as JaxPipelineConfig
+
+    jnet, tnet = nets
+    field, centers = _blob_field(seed=10)
+    centers = np.concatenate([centers[5:], centers[:5]])  # the invalid source leads
+    jdf = dt.DeblendField(jnet, field, z_mode="mean", cfg=JaxPipelineConfig(source_chunk=2))
+    tdf = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu", cfg=dtt.PipelineConfig(source_chunk=2))
+    want = jdf.deblend_field(centers)
+    got = tdf.deblend_field(centers)
+    assert got.dtype == want.dtype and isinstance(got, np.recarray)
+    np.testing.assert_array_equal(got.list_idx, want.list_idx)
+    np.testing.assert_array_equal(got.list_idx, [1, 2, 3, 4, 5])
+    np.testing.assert_array_equal(got.passed_cuts, want.passed_cuts)
+    assert tdf.nb_of_detected_objects == jdf.nb_of_detected_objects == [6]
+    assert tdf.nb_of_deblended_galaxies == jdf.nb_of_deblended_galaxies == [5]
+    _close(np.stack(list(got.output_images_mean)), np.stack(list(want.output_images_mean)), 2e-5)
+    assert tdf._render_cache is None  # chunked results live on the host only
+    _close(tdf.get_residual_field(), jdf.get_residual_field(), 2e-5)
+    # one whole call gives the same stamps
+    whole = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu").deblend_field(centers)
+    np.testing.assert_allclose(
+        np.stack(list(got.output_images_mean)), np.stack(list(whole.output_images_mean)), rtol=0, atol=1e-6
+    )
+
+
+def test_source_chunk_recursion_with_no_survivor_returns_empty(nets):
+    _, tnet = nets
+    field, _ = _blob_field(seed=10)
+    df = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu", cfg=dtt.PipelineConfig(source_chunk=2))
+    res = df.deblend_field(np.array([[79.0, 0.0], [0.0, 79.0], [-79.0, 0.0]]))
+    assert isinstance(res, dict) and res["list_idx"] is None
+    assert df.nb_of_detected_objects == [3] and df.nb_of_deblended_galaxies == [0]
+
+
+def test_device_field_memo_invalidates_on_mutation(nets):
+    """An in-place edit of field_image, even of one pixel or sum-neutral,
+    uploads again; an unchanged field, NaNs included, is served from the
+    memo."""
+    _, tnet = nets
+    field, centers = _blob_field(seed=11)
+    df = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu")
+    dev1 = df._device_field(df.field_image)
+    assert df._device_field(df.field_image) is dev1
+    df.field_image[0, 7, 11, 1] += 0.5
+    dev2 = df._device_field(df.field_image)
+    assert dev2 is not dev1
+    assert dev2[0, 7, 11, 1].item() == df.field_image[0, 7, 11, 1]
+    a, b = df.field_image[0, 3, 3, 0], df.field_image[0, 3, 4, 0]
+    df.field_image[0, 3, 3, 0], df.field_image[0, 3, 4, 0] = b, a  # a swap keeps the sum
+    dev3 = df._device_field(df.field_image)
+    assert dev3 is not dev2 and dev3[0, 3, 3, 0].item() == b
+    df.field_image[0, 2, 2, :] = np.nan
+    dev4 = df._device_field(df.field_image)
+    assert df._device_field(df.field_image) is dev4
+    # the serving path reads the edited field
+    _, residual = df.deblend_and_render(centers)
+    assert np.isnan(residual[0, 2, 2]).all()
+
+
+def test_render_cache_invalidates_on_stamp_edit(nets):
+    """Editing a stamp of the returned record array in place is honoured
+    by the next render: the device copies are served by identity and
+    content checksum, not identity alone."""
+    _, tnet = nets
+    field, centers = _blob_field(seed=12)
+    df = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu", cfg=dtt.PipelineConfig(interp_order=1))
+    res = df.deblend_field(centers)
+    assert df._render_cache is not None
+    assert df._stacked(res, "output_images_mean") is df._render_cache["stamps"]["output_images_mean"]
+    base = df.get_residual_field(res)
+    np.testing.assert_array_equal(df.get_residual_field(res), base)
+    res[1]["output_images_mean"][...] = 0.0  # in place, same cell, same array
+    assert df._stacked(res, "output_images_mean") is not df._render_cache["stamps"]["output_images_mean"]
+    edited = df.get_residual_field(res)
+    assert not np.array_equal(edited, base)
+    df.drop_render_cache()
+    assert df._render_cache is None
+    np.testing.assert_array_equal(df.get_residual_field(res), edited)
+    # another record array never gets the cached stamps
+    df.deblend_field(centers)
+    np.testing.assert_array_equal(df.get_residual_field(res), edited)
+
+
+def test_render_cache_respects_its_byte_cap(nets):
+    _, tnet = nets
+    field, centers = _blob_field(seed=12)
+    cfg = dtt.PipelineConfig(render_cache_bytes=1000)
+    df = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu", cfg=cfg)
+    res = df.deblend_field(centers)
+    assert df._render_cache is None
+    full = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu")
+    full.deblend_field(centers)
+    np.testing.assert_array_equal(df.get_residual_field(res), full.get_residual_field())

@@ -166,10 +166,20 @@ def test_import_pulls_in_no_jax_or_reference_package():
         import sys, numpy as np, torch
         import debvader_tpu_torch as dtt
         from debvader_tpu_torch.kernels import clipped_stats, detect_fused, label_select
+        from debvader_tpu_torch.kernels import decoder_tail, matched_filter, render
+        from debvader_tpu_torch.ops import measure
+        from debvader_tpu_torch.utils import profiling
         net = dtt.DeblenderVAE(dtt.ModelConfig(stamp_size=23, nb_of_bands=3, latent_dim=4,
                                                filters=(8, 16), kernels=(3, 3)))
         dtt.deblend(net, np.zeros((1, 23, 23, 3), np.float32), z_mode="mean", device="cpu")
         dtt.detect_objects(np.zeros((64, 64), np.float32), device="cpu")
+        dtt.detect_objects(np.zeros((64, 64), np.float32),
+                           dtt.DetectionConfig(use_pallas_filter=True), device="cpu")
+        field = np.zeros((1, 64, 64, 3), np.float32)
+        df = dtt.DeblendField(net, field, cutout_size=23, nb_of_bands=3, z_mode="mean",
+                              cfg=dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1),
+                              device="cpu")
+        df.deblend_and_render(np.zeros((1, 2), np.float32), measure=True)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "pandas")
                or m == "debvader_tpu" or m.startswith("debvader_tpu.")]
@@ -228,10 +238,18 @@ def test_fp32_math_is_scoped_to_the_port(monkeypatch, caller_tf32):
 def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     """The kernel modules import without nvcc; CPU tensors never reach
     kernels/_build.py or a launch counter."""
-    from debvader_tpu_torch.kernels import _build, clipped_stats, detect_fused, label_select
+    from debvader_tpu_torch.kernels import (
+        _build,
+        clipped_stats,
+        decoder_tail,
+        detect_fused,
+        label_select,
+        matched_filter,
+        render,
+    )
 
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "clipped_stats", "detect_fused", "label_select",
+        "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "render",
     ]
 
     def no_build(name):
@@ -242,7 +260,17 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         clipped_stats.sigma_clipped_stats,
         detect_fused.matched_filter_parents,
         label_select.label_fixpoint,
+        matched_filter.matched_filter_threshold,
+        render.render_field_kernel,
+        decoder_tail.fused_decoder_tail,
     )
     before = [fn.launches for fn in counters]
-    dtt.detect_objects(np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32), device="cpu")
+    img = np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32)
+    dtt.detect_objects(img, device="cpu")
+    dtt.detect_objects(img, dtt.DetectionConfig(use_pallas_filter=True), device="cpu")
+    dtt.render_field(torch.ones(2, 9, 9, 2), torch.tensor([[0.5, -3.25], [4.0, 7.5]]), 40, order=1)
+    dtt.fused_decoder_tail(
+        torch.ones(1, 8, 8, 4), torch.ones(3, 3, 4, 4), torch.ones(4), torch.ones(8, 8, 4),
+        torch.ones(3, 3, 4, 2), torch.ones(2),
+    )
     assert [fn.launches for fn in counters] == before
