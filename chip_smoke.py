@@ -31,9 +31,26 @@ without printing its last line):
    counts reset before and read after, held against the record-array
    route of the same object; warm stage times, one profiled warm
    deblend_and_render, and the peak device memory of one stream chunk;
-7. both routes on a 256x256 crop on the card and on the CPU (plain
-   versions), which must agree, with TF32 switched on outside the port;
-8. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+7. the fidelity-precision tail pair (csrc/tail_fused.cu) on the real input
+   of dec/ConvT_7 for that batch, under a model whose last two layers run
+   the bf16x3 limb scheme: against its plain version, against the model's
+   own head output, on a constant input (the border case) and on a ragged
+   shape;
+8. the fidelity serving path: load_deblender("sim_demo",
+   cfg=fidelity_serving_config(limb_emulation=True), flux_calibration=True)
+   on the card, its per-band gain, the raw and the calibrated flux error
+   against the float32 model on 64 held-out simulated stamps, then
+   deblend_and_render on the field through it beside the float32 route;
+9. the epistemic path: DeblendField(epistemic_uncertainty_estimation=True)
+   .deblend_and_predict with a seeded generator (three canvases a chunk
+   through the render kernel, counted from 0), twice for the same seed and
+   once for another,
+   deblend_sample_stats against the statistics of deblend_samples, warm
+   time and peak device memory;
+10. both routes, and the fidelity model's forward, on a 256x256 crop on the
+   card and on the CPU (plain versions), which must agree, with TF32
+   switched on outside the port;
+11. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 A fuller report (ptxas output, every timing, the profiled run's top device
@@ -51,10 +68,12 @@ from pathlib import Path
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the float32 rate
-# outside the tensor cores, used for each kernel's lower bound.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate
+# outside the tensor cores and the dense bf16 tensor-core rate, used for
+# each kernel's lower bound.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 REPS = 30
 WARMUP = 3
 # A 5-sigma matched-filter threshold: at the default 1.5 x unfiltered rms
@@ -142,9 +161,9 @@ def profiled_device_ms(torch, fn, kernel_name: str):
     return total / count / 1e3 if count and total > 0 else None
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, peak_ops: float = PEAK_OPS_PER_S):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -437,6 +456,262 @@ def check_decoder_tail(torch, net, stamps: np.ndarray) -> dict:
     }
 
 
+TAIL_LAYERS = {"dec/ConvT_7": "bf16x3", "dec/Conv_0": "bf16x3"}
+
+
+def check_tail_fused(torch, stamps: np.ndarray) -> dict:
+    """Phase 7: the fidelity-precision tail pair on the real input of
+    dec/ConvT_7 for the main path's batch, under a model whose last two
+    layers run the bf16x3 scheme.  The counted launch is one call of the
+    public function on those activations; comparison and timing launches
+    come after the count is read.  Tolerance 5e-6 of the output scale
+    against the plain version: the same limbs and exact products, summed in
+    another order (and by the tensor core, not as a chain of IEEE adds)."""
+    import torch.nn.functional as F
+
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.kernels import tail_fused as tf
+
+    net = dt.load_deblender("sim_demo", device="cuda", cfg=dt.ModelConfig(layer_precision=TAIL_LAYERS))
+    caught = {}
+    pre = net.decoder.convts[-1].register_forward_pre_hook(lambda m, a: caught.update(x=a[0]))
+    post = net.decoder.head.register_forward_hook(lambda m, a, out: caught.update(y=out))
+    dt.deblend(net, stamps, z_mode="mean", device="cuda")
+    pre.remove()
+    post.remove()
+    x = caught["x"].permute(0, 2, 3, 1).contiguous()  # (N, 64, 64, 32)
+    want = F.relu(caught["y"]).permute(0, 2, 3, 1)     # (N, 64, 64, 12)
+    params = dt.tail_pair_params(net.decoder)
+
+    tf.fused_tail_pair.launches = 0
+    got = dt.fused_tail_pair(x, *params)
+    torch.cuda.synchronize()
+    launches = tf.fused_tail_pair.launches
+    if launches <= 0:
+        raise AssertionError("tail_fused: the kernel was not launched")
+    plain = tf.tail_pair_plain(x, *params)
+    scale = float(plain.abs().max())
+    err_plain = float((got - plain).abs().max())
+    if got.shape != plain.shape or not err_plain <= 5e-6 * scale:
+        raise AssertionError(f"tail_fused: off by {err_plain} from the plain version (scale {scale})")
+    err_model = float((got - want).abs().max())
+    if not err_model <= 5e-5 * scale:
+        raise AssertionError(f"tail_fused: off by {err_model} from the model's own head output")
+
+    # the border case (a constant input shows a ring of h1 that is not
+    # zeroed) and a shape that is no multiple of the tile
+    ones = torch.ones_like(x[:2])
+    err_border = float((dt.fused_tail_pair(ones, *params) - tf.tail_pair_plain(ones, *params)).abs().max())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xr = torch.randn((3, 37, 50, 32), generator=gen, device="cuda")
+    ar = 0.2 * torch.randn((37, 50, 32), generator=gen, device="cuda")
+    ragged = (xr, params[0], params[1], ar, params[3][..., :5].contiguous(), params[4][:5].contiguous())
+    plain_r = tf.tail_pair_plain(*ragged)
+    err_ragged = float((dt.fused_tail_pair(*ragged) - plain_r).abs().max())
+    torch.cuda.synchronize()
+    if not err_border <= 5e-6 * scale:
+        raise AssertionError(f"tail_fused: constant input off by {err_border}: the ring of h1 leaks")
+    if not err_ragged <= 5e-6 * float(plain_r.abs().max()):
+        raise AssertionError(f"tail_fused: ragged shape off by {err_ragged}")
+
+    n, height, width, c = x.shape
+    o = want.shape[-1]
+    # the function's own operations are bf16 products: 3 limb terms a
+    # multiply-add, against the dense bf16 tensor-core rate
+    t_bound, by = bound(
+        (x.numel() + want.numel() + sum(p.numel() for p in params)) * 4,
+        3 * n * height * width * 2 * 9 * c * (c + o),
+        PEAK_BF16_OPS_PER_S,
+    )
+    x_nchw = caught["x"]
+    convt, prelu, head = net.decoder.convts[-1], net.decoder.prelus[-1], net.decoder.head
+
+    def library():
+        with torch.no_grad(), fp32_math():
+            return F.relu(head(prelu(convt(x_nchw))))
+
+    return {
+        "name": "tail_fused", "route": "cuda",
+        "source": "debvader_tpu_torch/csrc/tail_fused.cu",
+        "replaces": "debvader_tpu/kernels/tail_fused.py:218",
+        "launches": launches,
+        "launched_by": "one stand-alone call on the main path's dec/ConvT_7 input (no entry point calls it, as in the JAX package)",
+        "max_abs_err": err_plain,
+        "err_vs_plain": err_plain, "err_vs_model_head": err_model,
+        "err_border_case": err_border, "err_ragged_shape": err_ragged,
+        "ragged_output_max_abs": float(plain_r.abs().max()),
+        "ms": cuda_ms(torch, lambda: tf.fused_tail_pair(x, *params)),
+        "device_ms": profiled_device_ms(torch, lambda: tf.fused_tail_pair(x, *params), "tail_fused_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: tf.tail_pair_plain(x, *params)),
+        "library_ms": cuda_ms(torch, library),
+        "library_call": "the model's own two layers under bf16x3 (six float32 cuDNN convs on bf16-valued "
+                        "operands, PReLU, ReLU): the same function through the library, not one call",
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": [n, height, width, c, o],
+        "output_max_abs": scale,
+    }
+
+
+def flux_rel_err(a: np.ndarray, ref: np.ndarray) -> float:
+    """Largest relative error of the per-stamp total flux."""
+    tr = ref.astype(np.float64).sum(axis=(1, 2, 3))
+    return float(np.max(np.abs(a.astype(np.float64).sum(axis=(1, 2, 3)) - tr) / np.abs(tr)))
+
+
+def run_fidelity_path(torch, net, field, centers, catalog, s_residual) -> tuple:
+    """Phase 8: the precision-scheme serving mode at full width on the
+    card.  Returns (the fidelity net, its report)."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import simulate_batch
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.utils.flux_cal import apply_flux_calibration
+
+    t = time.perf_counter()
+    fid = dt.load_deblender(
+        "sim_demo", device="cuda", cfg=dt.fidelity_serving_config(limb_emulation=True), flux_calibration=True
+    )
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    scale = fid.flux_cal_scale.cpu().numpy()
+    if scale.shape != (6,) or not np.isfinite(scale).all():
+        raise AssertionError(f"fidelity: bad flux calibration {scale}")
+
+    held_out = torch.as_tensor(simulate_batch(7, 64)[0], device="cuda")
+    with torch.no_grad(), fp32_math():
+        ref = net(held_out, z_mode="mean")[0].loc.cpu().numpy()
+        dist = fid(held_out, z_mode="mean")[0]
+        raw = dist.loc.cpu().numpy()
+        cal = apply_flux_calibration(dist, fid).loc.cpu().numpy()
+    raw_err, cal_err = flux_rel_err(raw, ref), flux_rel_err(cal, ref)
+    if not (raw_err > 1e-4 > cal_err):
+        raise AssertionError(f"fidelity: raw flux error {raw_err}, calibrated {cal_err}; expected raw > 1e-4 > calibrated")
+
+    dfid = dt.DeblendField(fid, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    f_cat, f_residual, f_model = dfid.deblend_and_render(centers, return_model=True, measure=True)
+    catalogs_agree(f_cat, catalog)
+    field_scale = float(np.abs(field).max())
+    resid_err = float(np.abs(f_residual - s_residual).max())
+    if not (np.isfinite(f_residual).all() and resid_err <= 1e-3 * field_scale):
+        raise AssertionError(f"fidelity: residual differs from the float32 route's by {resid_err}")
+
+    # warm times, the float32 route beside it within this one call
+    df32 = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    df32.deblend_and_render(centers, return_model=True, measure=True)
+    warm = {"float32": [], "fidelity": []}
+    for name, obj in (("float32", df32), ("fidelity", dfid), ("fidelity", dfid), ("float32", df32),
+                      ("float32", df32), ("fidelity", dfid)):
+        timings = {}
+        t = time.perf_counter()
+        obj.deblend_and_render(centers, return_model=True, measure=True, timings=timings)
+        torch.cuda.synchronize()
+        warm[name].append({"total_s": time.perf_counter() - t, **timings})
+    return fid, {
+        "load_s": load_s, "flux_cal_scale": [float(v) for v in scale],
+        "held_out_stamps": 64, "raw_max_rel_flux_err": raw_err, "calibrated_max_rel_flux_err": cal_err,
+        "residual_max_abs_err_vs_float32_route": resid_err, "field_max_abs": field_scale,
+        "deblended": int(len(f_cat)), "warm_deblend_and_render": warm,
+    }
+
+
+def run_epistemic_path(torch, net, field, centers, cutouts: np.ndarray, samples: int = 16) -> dict:
+    """Phase 9: epistemic estimation on the streaming route and the
+    stochastic stamp API, at full width on the card."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.kernels import render as rd
+
+    cfg = dt.PipelineConfig(interp_order=1, source_chunk=128, epistemic_samples=samples)
+
+    def make(seed=1234):
+        return dt.DeblendField(
+            net, field, epistemic_uncertainty_estimation=True, z_mode="mean", cfg=cfg,
+            generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+        )
+
+    rd.render_field_kernel.launches = 0
+    cat, fields = make().deblend_and_predict(centers)
+    torch.cuda.synchronize()
+    launches = rd.render_field_kernel.launches
+    chunks = -(-len(centers) // 128)
+    if launches < 3 * chunks:
+        raise AssertionError(f"epistemic: render kernel launched {launches} times, expected >= {3 * chunks}")
+    epi = fields["predicted_epistemic_field"]
+    if epi is None or epi.shape != field.shape[1:] or not np.isfinite(epi).all():
+        raise AssertionError("epistemic: no finite epistemic field of the field's shape")
+    if epi.min() < 0 or not epi.max() > 0:
+        raise AssertionError(f"epistemic: field range [{epi.min()}, {epi.max()}]")
+    # a bilinear deposit reaches one pixel past the stamp's 59x59 window
+    xy = np.stack([cat.galaxy_distances_to_center_x, cat.galaxy_distances_to_center_y], -1)
+    outside = ~stamp_mask(field.shape[1], xy, size=63)
+    if epi[outside].any():
+        raise AssertionError("epistemic: deposits outside every stamp's window")
+    if not (np.isfinite(cat.epistemic_norm).all() and (cat.epistemic_norm > 0).all()):
+        raise AssertionError("epistemic: epistemic_norm is not positive and finite")
+    # The same seed gives the same draws; cuDNN's transposed convs do not
+    # sum in a fixed order, so two runs agree to float32 rounding, not bit
+    # for bit.  Another seed moves the field by a share of its own size.
+    _, again = make().deblend_and_predict(centers)
+    _, other = make(seed=4321).deblend_and_predict(centers)
+    same_seed = float(np.abs(again["predicted_epistemic_field"] - epi).max())
+    other_seed = float(np.abs(other["predicted_epistemic_field"] - epi).max())
+    if same_seed > 1e-4 * float(epi.max()) or other_seed < 1e-2 * float(epi.max()):
+        raise AssertionError(
+            f"epistemic: same seed differs by {same_seed}, another seed by {other_seed} (field max {epi.max()})"
+        )
+
+    # warm time and peak memory of the call
+    obj = make()
+    obj.deblend_and_predict(centers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    warm = []
+    for _ in range(2):
+        timings = {}
+        t = time.perf_counter()
+        obj.deblend_and_predict(centers, timings=timings)
+        torch.cuda.synchronize()
+        warm.append({"total_s": time.perf_counter() - t, **timings})
+    peak = torch.cuda.max_memory_allocated()
+
+    # the statistics against the sample cube, the same generator state and
+    # the same chunking (two replica chunks: one Welford merge)
+    x32 = cutouts[:32]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(77)  # noqa: E731
+    cube = dt.deblend_samples(net, x32, samples, generator=gen(), max_chunk=256, device="cuda")
+    mean, std = dt.deblend_sample_stats(net, x32, samples, generator=gen(), max_chunk=256, device="cuda")
+    scale = float(cube.abs().max())
+    stats_err = {
+        "mean": float((mean - cube.mean(dim=0)).abs().max()),
+        "std": float((std - cube.std(dim=0, unbiased=False)).abs().max()),
+    }
+    if cube.shape != (samples, 32, 59, 59, 6) or max(stats_err.values()) > 1e-5 * scale:
+        raise AssertionError(f"epistemic: deblend_sample_stats differs from the cube's statistics: {stats_err}")
+
+    # the whole batch at the reference's 100 samples, 1,024 decodes a chunk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_stats = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    _, std_all = dt.deblend_sample_stats(net, cutouts, 100, generator=gen(), max_chunk=1024, device="cuda")
+    torch.cuda.synchronize()
+    stats_s = time.perf_counter() - t
+    peak_stats = torch.cuda.max_memory_allocated()
+    if std_all.shape != (len(cutouts), 59, 59, 6) or not bool(torch.isfinite(std_all).all()):
+        raise AssertionError("epistemic: deblend_sample_stats on the whole batch is not finite")
+    return {
+        "epistemic_samples": samples, "sources": int(len(cat)), "chunks": chunks, "render_launches": launches,
+        "same_seed_max_abs_diff": same_seed, "other_seed_max_abs_diff": other_seed,
+        "epistemic_field_max": float(epi.max()), "epistemic_norm_median": float(np.median(cat.epistemic_norm)),
+        "warm_deblend_and_predict": warm, "baseline_bytes": int(base), "peak_bytes": int(peak),
+        "stats_vs_cube_max_abs_err": stats_err, "cube_max_abs": scale,
+        "sample_stats_whole_batch": {
+            "stamps": int(len(cutouts)), "n_samples": 100, "max_chunk": 1024, "seconds": stats_s,
+            "baseline_bytes": int(base_stats), "peak_bytes": int(peak_stats),
+        },
+    }
+
+
 def serving_cfg(chunk=128):
     import debvader_tpu_torch as dt
 
@@ -538,12 +813,12 @@ def profile_run(torch, fn) -> dict:
 
 
 def stamp_mask(field_size: int, centers: np.ndarray, size: int = 59) -> np.ndarray:
+    """True inside the size x size window of each source, clipped to the field."""
     mask = np.zeros((field_size, field_size), bool)
     half = field_size // 2
     for cy, cx in np.trunc(centers).astype(int):
         y0, x0 = cy + half - size // 2, cx + half - size // 2
-        if 0 <= y0 and y0 + size <= field_size and 0 <= x0 and x0 + size <= field_size:
-            mask[y0 : y0 + size, x0 : x0 + size] = True
+        mask[max(y0, 0) : max(y0 + size, 0), max(x0, 0) : max(x0 + size, 0)] = True
     return mask
 
 
@@ -731,7 +1006,24 @@ def main() -> int:
     for r in s_prof["top_device_events"][:12]:
         print(f"  {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['name'][:100]}")
 
-    # phase 7: a 256^2 crop on the card (TF32 still on outside the port)
+    # phase 7: the fidelity-precision tail pair on this batch's real
+    # dec/ConvT_7 input
+    main_cutouts = np.stack(list(res.cutout_images))
+    tail3 = check_tail_fused(torch, main_cutouts)
+    records.append(tail3)
+    print(json.dumps({"tail_fused": {k: tail3[k] for k in (
+        "shape", "launches", "err_vs_plain", "err_vs_model_head", "err_border_case", "err_ragged_shape",
+        "output_max_abs", "ragged_output_max_abs", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}}))
+
+    # phase 8: the fidelity serving path; phase 9: the epistemic path
+    fid, fidelity = run_fidelity_path(torch, net, field, centers, catalog, s_residual)
+    report["fidelity_path"] = fidelity
+    print(json.dumps({"fidelity_path": fidelity}))
+    epistemic = run_epistemic_path(torch, net, field, centers, main_cutouts)
+    report["epistemic_path"] = epistemic
+    print(json.dumps({"epistemic_path": epistemic}))
+
+    # phase 10: a 256^2 crop on the card (TF32 still on outside the port)
     # and on the CPU must agree; the forward run outside the port's scope,
     # with TF32 on, shows the error the check is there to catch
     crop = np.ascontiguousarray(field[:, 384:640, 384:640, :])
@@ -747,6 +1039,17 @@ def main() -> int:
     with torch.no_grad():
         stamps = torch.as_tensor(np.stack(list(r_cpu.cutout_images)), device="cuda")
         m_tf32 = net(stamps, z_mode="mean")[0].mean().cpu().numpy()
+    # the fidelity model's forward on the crop's stamps, card against CPU
+    # with the card's calibration: the limb products are exact on both, so
+    # the two differ as the float32 route does
+    from debvader_tpu_torch.utils.flux_cal import attach_flux_calibration
+
+    fid_cpu = dt.load_deblender("sim_demo", device="cpu", cfg=fid.cfg)
+    attach_flux_calibration(fid_cpu, scale=fid.flux_cal_scale.cpu())
+    crop_stamps = np.stack(list(r_cpu.cutout_images))
+    f_gpu, _ = dt.deblend(fid, crop_stamps, z_mode="mean", device="cuda")
+    f_cpu, _ = dt.deblend(fid_cpu, crop_stamps, z_mode="mean", device="cpu")
+    fid_err = float(np.abs(f_gpu - f_cpu).max())
     # the streaming route on the crop: the render kernel on the card
     # against its plain version on the CPU
     sg = run_serving_path(torch, net, crop, "cuda")
@@ -754,6 +1057,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     if mean_err > 1e-4 * float(np.abs(m_cpu).max()) or resid_err > 1e-4 * float(np.abs(crop).max()):
         raise AssertionError(f"card and CPU disagree on the crop: means {mean_err}, residual {resid_err}")
+    if fid_err > 1e-4 * float(np.abs(f_cpu).max()):
+        raise AssertionError(f"card and CPU disagree on the fidelity model's forward: {fid_err}")
     if not np.array_equal(sg[1], sc[1]) or not np.array_equal(sg[1], c_cpu):
         raise AssertionError("detection with the filter kernel differs between card and CPU on the crop")
     catalogs_agree(sg[2], sc[2])
@@ -766,7 +1071,7 @@ def main() -> int:
     if max(stream_err["residual"], stream_err["model"], stream_err["stddev"]) > 1e-4 * float(np.abs(crop).max()):
         raise AssertionError(f"card and CPU disagree on the crop's streaming route: {stream_err}")
     small = {"sources": int(len(c_gpu)), "mean_max_abs_err": mean_err, "residual_max_abs_err": resid_err,
-             "streaming_max_abs_err": stream_err,
+             "streaming_max_abs_err": stream_err, "fidelity_forward_max_abs_err": fid_err,
              "tf32_forward_mean_max_abs_err": float(np.abs(m_tf32 - m_cpu).max()),
              "mean_max_abs": float(np.abs(m_cpu).max())}
     print(json.dumps({"crop_vs_cpu": small}))
@@ -774,7 +1079,7 @@ def main() -> int:
 
     # launches: the first three kernels on the record-array path, the
     # filter and the render on the streaming path, each counted from 0;
-    # the decoder tail carries its own
+    # the two tails carry their own
     counted_on = dict.fromkeys(("clipped_stats", "detect_fused", "label_select"), launches)
     counted_on.update(dict.fromkeys(("matched_filter", "render"), serving_launches))
     for rec in records:

@@ -15,6 +15,14 @@ Inputs and outputs are NHWC like the JAX package; the convolutions run
 NCHW.  Flatten and Reshape go through NHWC order so the Dense kernels of
 the checkpoint line up.  Parameters and buffers: 8,318,452 for the default
 configuration.
+
+Every conv, transposed conv and dense layer gets its precision scheme from
+``models.precision.resolve(cfg, key)``, the keys in application order
+('enc/Conv_i', 'enc/Dense_0', 'dec/Dense_0', 'dec/Dense_1', 'dec/ConvT_i',
+'dec/Conv_0'); without a scheme a layer is the plain float32 one.  The
+parameters do not depend on the configuration.  ``DeblenderVAE`` may carry
+a per-band flux calibration (utils/flux_cal.py) as the buffer
+``flux_cal_scale``, which follows ``state_dict()``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from debvader_tpu_torch.models.layers import (
     Dense,
     PReLU,
 )
+from debvader_tpu_torch.models.precision import resolve
 
 __all__ = ["Encoder", "Decoder", "DeblenderVAE"]
 
@@ -53,7 +62,8 @@ class Encoder(nn.Module):
         cin, size = cfg.nb_of_bands, cfg.stamp_size
         for f, k in zip(cfg.filters, cfg.kernels):
             for stride in (1, 2):
-                convs.append(Conv2dSame(cin, f, k, stride))
+                scheme = resolve(cfg, f"enc/Conv_{len(convs)}")[1]
+                convs.append(Conv2dSame(cin, f, k, stride, scheme=scheme))
                 size = -(-size // stride)
                 prelus.append(PReLU((f, size, size)))
                 cin = f
@@ -61,7 +71,9 @@ class Encoder(nn.Module):
         self.prelus = nn.ModuleList(prelus)
         flat = cin * size * size
         self.flat_prelu = PReLU((flat,))
-        self.dense = Dense(flat, mvn_params_size(cfg.latent_dim))
+        self.dense = Dense(
+            flat, mvn_params_size(cfg.latent_dim), scheme=resolve(cfg, "enc/Dense_0")[1]
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.bn(x.permute(0, 3, 1, 2))
@@ -82,21 +94,26 @@ class Decoder(nn.Module):
         hidden = mvn_params_size(cfg.latent_dim)
         top = self.width * self.width * cfg.filters[-1]
         self.prelu_in = PReLU((cfg.latent_dim,))
-        self.dense0 = Dense(cfg.latent_dim, hidden)
+        self.dense0 = Dense(cfg.latent_dim, hidden, scheme=resolve(cfg, "dec/Dense_0")[1])
         self.prelu0 = PReLU((hidden,))
-        self.dense1 = Dense(hidden, top)
+        self.dense1 = Dense(hidden, top, scheme=resolve(cfg, "dec/Dense_1")[1])
         self.prelu1 = PReLU((top,))
         convts, prelus = [], []
         cin, size = cfg.filters[-1], self.width
         for i in range(len(cfg.filters) - 1, -1, -1):
             for stride in (2, 1):
-                convts.append(ConvTranspose2dTF(cin, cfg.filters[i], cfg.kernels[i], stride))
+                scheme = resolve(cfg, f"dec/ConvT_{len(convts)}")[1]
+                convts.append(
+                    ConvTranspose2dTF(cin, cfg.filters[i], cfg.kernels[i], stride, scheme=scheme)
+                )
                 size *= stride
                 prelus.append(PReLU((cfg.filters[i], size, size)))
                 cin = cfg.filters[i]
         self.convts = nn.ModuleList(convts)
         self.prelus = nn.ModuleList(prelus)
-        self.head = Conv2dSame(cin, 2 * cfg.nb_of_bands, 3, 1)
+        self.head = Conv2dSame(
+            cin, 2 * cfg.nb_of_bands, 3, 1, scheme=resolve(cfg, "dec/Conv_0")[1]
+        )
 
     def forward(self, z: torch.Tensor) -> PixelNormal:
         cfg = self.cfg
@@ -131,6 +148,18 @@ class DeblenderVAE(nn.Module):
         self.cfg = cfg or ModelConfig()
         self.encoder = Encoder(self.cfg)
         self.decoder = Decoder(self.cfg)
+        # (bands,) flux gain that utils/flux_cal.apply_flux_calibration
+        # divides out of a served distribution; None = no calibration
+        self.register_buffer("flux_cal_scale", None)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a state dict that carries a calibration brings the buffer with it
+        key = prefix + "flux_cal_scale"
+        if key in state_dict and self.flux_cal_scale is None:
+            self.flux_cal_scale = torch.ones_like(
+                state_dict[key], device=self.encoder.bn.scale.device
+            )
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def encode(self, x: torch.Tensor) -> MultivariateNormalTriL:
         loc, tril = softplus_tril(

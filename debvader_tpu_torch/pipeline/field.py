@@ -21,10 +21,15 @@ the JAX package's pandas ``to_records`` output, built without pandas.
 Eager PyTorch needs no batch buckets, so chunks are not padded; the JAX
 package's donated buffers become in-place accumulation into the canvas.
 
+With ``epistemic_uncertainty_estimation=True`` both routes also compute
+each source's epistemic stddev stamp from ``cfg.epistemic_samples``
+stochastic decodes (api.sample_stats_tensor: one encode, Welford statistics
+on the device), and the serving route renders them into a third canvas.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-position registration, epistemic uncertainty, reduced-precision residency
-of the field (``upload_dtype`` / ``device_dtype``), mesh fan-out, int8
-serving and exported artifacts.
+position registration, reduced-precision residency of the field
+(``upload_dtype`` / ``device_dtype``), mesh fan-out, int8 serving and
+exported artifacts.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from debvader_tpu_torch.api import deblend_tensor
+from debvader_tpu_torch.api import deblend_tensor, sample_stats_tensor
 from debvader_tpu_torch.config import PipelineConfig
 from debvader_tpu_torch.device import resolve_device
 from debvader_tpu_torch.ops.extraction import extract_cutouts, extract_cutouts_np
@@ -122,15 +127,21 @@ def _render_finish(field: torch.Tensor, canvas: torch.Tensor, pad: int, out_dtyp
     return (residual, model) if want_model else residual
 
 
-def _serving_chunk_cap(field_size: int, bands: int, hbm_bytes: int, resident_fields: int = 2) -> int:
+def _serving_chunk_cap(
+    field_size: int, bands: int, hbm_bytes: int, resident_fields: int = 2, replica_chunk: bool = False
+) -> int:
     """Largest forward chunk that fits beside the streaming loop's resident
     buffers: the stream holds the float32 field and its padded render
     canvases (``resident_fields`` full-field buffers) for its whole
     duration, and each source of a chunk takes
-    ``_STREAM_BYTES_PER_SOURCE`` at the chunk's peak."""
+    ``_STREAM_BYTES_PER_SOURCE`` at the chunk's peak.  ``replica_chunk``
+    leaves room for one chunk of epistemic replica decodes of the same
+    size, which runs while the chunk's own stamps are alive: its decodes
+    are budgeted like whole forwards."""
     resident = resident_fields * 4 * field_size * field_size * bands
     budget = hbm_bytes - resident - _STREAM_RESERVE_BYTES
-    return max(budget // _STREAM_BYTES_PER_SOURCE, _MIN_STREAM_CHUNK)
+    per_source = _STREAM_BYTES_PER_SOURCE * (2 if replica_chunk else 1)
+    return max(budget // per_source, _MIN_STREAM_CHUNK)
 
 
 # Period-64 pseudo-random weights for the position-sensitive part of the
@@ -172,15 +183,15 @@ class DeblendField:
         """net: a DeblenderVAE on ``device`` (load_deblender); field_image:
         (1, F, F, B).  ``z_mode`` is 'sample' (the reference's stochastic
         forward, latents from ``generator``, seeded 0 by default) or 'mean'
-        (deterministic)."""
-        if epistemic_uncertainty_estimation:
-            _not_ported("epistemic_uncertainty_estimation=True", _OPTIONS_ITEM)
+        (deterministic).  ``epistemic_uncertainty_estimation=True`` adds the
+        per-source epistemic stddev from ``cfg.epistemic_samples`` stochastic
+        decodes, drawn from the same ``generator``."""
         if mesh is not None:
             _not_ported("mesh=", "8. multi-device")
         if quantized is not None:
             _not_ported("quantized=", "6. quantized")
         if artifact is not None:
-            _not_ported("artifact=", "7. precision and export")
+            _not_ported("artifact=", "7. export and CLI")
         if upload_dtype is not None or device_dtype is not None:
             _not_ported("upload_dtype= / device_dtype=", _OPTIONS_ITEM)
         if z_mode not in ("sample", "mean"):
@@ -195,8 +206,11 @@ class DeblendField:
         self.normalise = normalise
         self.cfg = cfg or PipelineConfig(cutout_size=cutout_size, nb_of_bands=nb_of_bands)
         self.z_mode = z_mode
+        self.epistemic_uncertainty_estimation = bool(epistemic_uncertainty_estimation)
         self.generator = generator
-        if z_mode == "sample" and generator is None:
+        # the epistemic replicas draw even under z_mode='mean': decoding the
+        # posterior mean every time would collapse the uncertainty to zero
+        if (z_mode == "sample" or self.epistemic_uncertainty_estimation) and generator is None:
             self.generator = torch.Generator(device=self.device).manual_seed(0)
         self.nb_of_detected_objects: list[int] = []
         self.nb_of_deblended_galaxies: list[int] = []
@@ -264,6 +278,24 @@ class DeblendField:
         if len(means) == 1:
             return means[0], stds[0]
         return torch.cat(means), torch.cat(stds)
+
+    def _epistemic(self, cutouts: torch.Tensor, max_chunk: int) -> torch.Tensor:
+        """Epistemic stddev stamps (N, S, S, B) on the device: the spread
+        of ``cfg.epistemic_samples`` stochastic decodes a source, at most
+        ``max_chunk`` decodes at a time."""
+        return sample_stats_tensor(
+            self.net,
+            cutouts,
+            self.cfg.epistemic_samples,
+            generator=self.generator,
+            normalise=self.normalise,
+            max_chunk=max_chunk,
+        )[1]
+
+    @property
+    def _band(self) -> int:
+        """The r band where there is one (the reference reads channel 2)."""
+        return 2 if self.nb_of_bands > 2 else 0
 
     # ----------------------------------------------------------- deblending
 
@@ -369,8 +401,17 @@ class DeblendField:
         means_dev, std_dev = self._forward(cutouts)
         means = means_dev.cpu().numpy()
         stddevs = std_dev.cpu().numpy()
-        epistemic = np.zeros_like(means)
-        epi_norm = np.zeros(n)
+        epi_dev = None
+        if self.epistemic_uncertainty_estimation:
+            epi_dev = self._epistemic(cutouts, self.cfg.source_chunk)
+            epistemic = epi_dev.cpu().numpy()
+            band = self._band
+            epi_norm = epistemic[..., band].sum(axis=(1, 2)) / np.maximum(
+                means[..., band].sum(axis=(1, 2)), 1e-30
+            )
+        else:
+            epistemic = np.zeros_like(means)
+            epi_norm = np.zeros(n)
 
         # centre-window mse cut
         w = self.cfg.mse_window
@@ -414,8 +455,10 @@ class DeblendField:
         # The host copies in the record array stay the source of truth:
         # _stacked compares their checksums before it serves the device
         # copies.
-        if 2 * means.nbytes <= self.cfg.render_cache_bytes:
+        if means.nbytes * (2 if epi_dev is None else 3) <= self.cfg.render_cache_bytes:
             cached = {"output_images_mean": means_dev, "output_images_stddev": std_dev}
+            if epi_dev is not None:
+                cached["epistemic_uncertainty"] = epi_dev
             self._render_cache = {
                 "token": self.res_deblend,
                 "stamps": cached,
@@ -520,11 +563,13 @@ class DeblendField:
         Returns (catalog, fields), fields a dict with 'residual_field'
         (shaped like field_image), 'predicted_mean_field',
         'predicted_stddev_field' ((F, F, B)) and
-        'predicted_epistemic_field' (None: epistemic estimation is not
-        ported yet).  The catalog is None and the predictions zero when no
-        source survives extraction.  ``timings`` / ``transfer_dtype`` as in
+        'predicted_epistemic_field' ((F, F, B); None unless the object was
+        built with ``epistemic_uncertainty_estimation=True``).  The catalog
+        is None and the predictions zero when no source survives
+        extraction.  ``timings`` / ``transfer_dtype`` as in
         ``deblend_and_render``."""
         transfer_dtype = _check_reduced_dtype("transfer_dtype", transfer_dtype)
+        want_epi = self.epistemic_uncertainty_estimation
         t = timings if timings is not None else {}
         self.serving_timings = t
         with stage_timer(t, "upload", self.device):
@@ -538,7 +583,9 @@ class DeblendField:
                 mse_criterion=mse_criterion,
                 measure=measure,
                 render_std=True,
-                resident_fields=3,  # field + mean canvas + std canvas
+                render_epistemic=want_epi,
+                # field + mean canvas + std canvas (+ epistemic canvas)
+                resident_fields=3 + int(want_epi),
             )
 
         f = self.field_size
@@ -549,7 +596,7 @@ class DeblendField:
                 "residual_field": self.field_image.copy(),
                 "predicted_mean_field": zero,
                 "predicted_stddev_field": zero.copy(),
-                "predicted_epistemic_field": None,
+                "predicted_epistemic_field": zero.copy() if want_epi else None,
             }
 
         with stage_timer(t, "field_download", self.device):
@@ -557,6 +604,9 @@ class DeblendField:
             # one derived full-field buffer at a time, so the peak stays
             # field + canvases + one derived buffer
             std = self._fetch_field(_crop_canvas(canvases.pop("std"), pad, transfer_dtype))
+            epi = None
+            if want_epi:
+                epi = self._fetch_field(_crop_canvas(canvases.pop("epi"), pad, transfer_dtype))
             mean = self._fetch_field(_crop_canvas(canvases["mean"], pad, transfer_dtype))
             residual = self._fetch_field(
                 _render_finish(field_dev, canvases["mean"], pad, transfer_dtype)
@@ -568,19 +618,21 @@ class DeblendField:
             "residual_field": residual_field,
             "predicted_mean_field": mean,
             "predicted_stddev_field": std,
-            "predicted_epistemic_field": None,
+            "predicted_epistemic_field": epi,
         }
 
     def _stream_chunk(self, resident_fields: int) -> int:
         """Sources per stream chunk: ``source_chunk``, capped on a card by
-        what fits beside the resident full-field buffers."""
+        what fits beside the resident full-field buffers (and, with
+        epistemic estimation, beside one replica chunk of the same size)."""
         if self.device.type != "cuda":
             return self.cfg.source_chunk
         hbm = self.cfg.serving_hbm_bytes
         if hbm is None:
             hbm = torch.cuda.get_device_properties(self.device).total_memory
         cap = _serving_chunk_cap(
-            self.field_size, self.nb_of_bands, hbm, resident_fields=resident_fields
+            self.field_size, self.nb_of_bands, hbm, resident_fields=resident_fields,
+            replica_chunk=self.epistemic_uncertainty_estimation,
         )
         return min(self.cfg.source_chunk, cap)
 
@@ -595,6 +647,7 @@ class DeblendField:
         measure: bool = False,
         resident_fields: int = 2,
         render_std: bool = False,
+        render_epistemic: bool = False,
     ):
         """Streaming core of the serving entry points: chunks of sources
         run extract -> forward -> incremental canvas render against the
@@ -602,11 +655,18 @@ class DeblendField:
         column dict, dict of padded render canvases on the device or None
         when nothing deblended, n_deblended).  The canvases come back
         uncropped so a caller fuses the crop into its subtract
-        (``_render_finish``).  ``render_std`` also accumulates the
-        per-pixel stddev canvas, one more resident full-field buffer that
-        the caller counts in ``resident_fields``."""
+        (``_render_finish``).  ``render_std`` / ``render_epistemic`` also
+        accumulate the per-pixel stddev and epistemic canvases ('std',
+        'epi'), each one more resident full-field buffer that the caller
+        counts in ``resident_fields``."""
         if optimise_positions:
             _not_ported("optimise_positions=True", _OPTIONS_ITEM)
+        if render_epistemic and not self.epistemic_uncertainty_estimation:
+            raise ValueError(
+                "render_epistemic=True requires the pipeline to run with "
+                "epistemic_uncertainty_estimation=True (the epistemic maps "
+                "are only computed then)"
+            )
         field_size = field_dev.shape[1]
         centers = np.asarray(galaxy_distances_to_center, np.float32).reshape(-1, 2)
         order = self.cfg.interp_order
@@ -614,6 +674,8 @@ class DeblendField:
         canvases = {"mean": None}
         if render_std:
             canvases["std"] = None
+        if render_epistemic:
+            canvases["epi"] = None
         names = [
             "shifts",
             "list_idx",
@@ -655,6 +717,17 @@ class DeblendField:
                 torch.square(raw_cutouts[:, c0:c1, c0:c1] - means_dev[:, c0:c1, c0:c1]),
                 dim=(1, 2, 3),
             )
+            epi = None
+            if self.epistemic_uncertainty_estimation:
+                # the replicas take the guarded cutouts themselves and draw
+                # at most one stream chunk of decodes at a time
+                epi = self._epistemic(raw_cutouts, chunk)
+                band = self._band
+                epi_norm_dev = epi[..., band].sum(dim=(1, 2)) / torch.clamp(
+                    means_dev[..., band].sum(dim=(1, 2)), min=1e-30
+                )
+            else:
+                epi_norm_dev = torch.zeros((n,), dtype=torch.float32, device=self.device)
             shifts = np.zeros((n, 2), np.float32)
             offs_dev = torch.as_tensor(dets + shifts, device=self.device)
             canvases["mean"] = render_field(
@@ -667,13 +740,18 @@ class DeblendField:
                     std_dev, offs_dev, field_size, order=order, canvas=canvases["std"], crop=False
                 )
 
+            if render_epistemic:
+                canvases["epi"] = render_field(
+                    epi, offs_dev, field_size, order=order, canvas=canvases["epi"], crop=False
+                )
+
             # per-source scalars only: a few KB a chunk to the host
-            fetch = {"mse_center": mse_center}
+            fetch = {"mse_center": mse_center, "epistemic_norm": epi_norm_dev}
             if measure:
                 m = measure_batch(means_dev, std_dev)
                 fetch.update({k: m[k] for k in _MEASURE_COLUMNS})
             got = {k: v.cpu().numpy() for k, v in fetch.items()}
-            epi_norm = np.zeros((n,), np.float32)
+            epi_norm = got["epistemic_norm"]
             passed = (
                 ~((epi_norm > epistemic_criterion) | (got["mse_center"] > mse_criterion))
                 & np.isfinite(got["mse_center"])
@@ -761,8 +839,9 @@ class DeblendField:
         return deblended_image
 
     def get_predicted_field(self, res_deblend=None) -> dict:
-        """Rendered mean and stddev canvases (the epistemic canvas stays
-        zero: epistemic estimation is not ported yet)."""
+        """Rendered mean, stddev and epistemic canvases, one render a
+        quantity (the epistemic canvas stays zero unless the object runs
+        with ``epistemic_uncertainty_estimation=True``)."""
         res_deblend = self._catalog(res_deblend)
         shape = (self.field_size, self.field_size, self.nb_of_bands)
         out = {
@@ -773,6 +852,8 @@ class DeblendField:
         if res_deblend is not None and len(res_deblend):
             out["predicted_mean_field"] = self._render(res_deblend, "output_images_mean")
             out["predicted_stddev_field"] = self._render(res_deblend, "output_images_stddev")
+            if self.epistemic_uncertainty_estimation:
+                out["predicted_epistemic_field"] = self._render(res_deblend, "epistemic_uncertainty")
         return out
 
     def get_deblending_meta_data(self, res_deblend=None) -> dict:

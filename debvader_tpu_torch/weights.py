@@ -9,6 +9,7 @@ package's checkpoint.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -57,7 +58,9 @@ def _alpha(alpha: np.ndarray) -> np.ndarray:
 def state_dict_from_flax(flat: dict, cfg: ModelConfig | None = None) -> dict:
     """The port's state dict from a flax variable tree given as its flat
     key-path dict (:func:`flatten_flax` of what the JAX package's
-    ``load_deblender`` or ``init_vae`` return, or a packaged npz)."""
+    ``load_deblender`` or ``init_vae`` return, or a packaged npz).  A
+    ``flux_cal/scale`` entry (the JAX package's calibration collection)
+    comes across as the buffer ``flux_cal_scale``."""
     cfg = cfg or ModelConfig()
 
     def get(path):
@@ -91,6 +94,8 @@ def state_dict_from_flax(flat: dict, cfg: ModelConfig | None = None) -> dict:
         sd[f"decoder.convts.{i}.weight"] = _conv(get(f"{dec}/kernel"))
         sd[f"decoder.convts.{i}.bias"] = get(f"{dec}/bias")
         sd[f"decoder.prelus.{i}.alpha"] = _alpha(get(f"params/decoder/PReLU_{i + 3}/alpha"))
+    if "flux_cal/scale" in flat:
+        sd["flux_cal_scale"] = get("flux_cal/scale")
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
 
 
@@ -100,13 +105,34 @@ def load_flax_npz(path) -> dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def load_deblender(survey: str = "sim_demo", device="cuda", weights_dir=None) -> DeblenderVAE:
-    """The packaged deblender for ``survey`` (the default architecture), in
-    eval mode on ``device``."""
+def load_deblender(
+    survey: str = "sim_demo",
+    device="cuda",
+    weights_dir=None,
+    cfg: ModelConfig | None = None,
+    matmul_precision: str | None = None,
+    flux_calibration: bool = False,
+) -> DeblenderVAE:
+    """The packaged deblender for ``survey``, in eval mode on ``device``.
+
+    ``cfg`` selects the precision configuration (the packaged weights have
+    the default architecture); ``matmul_precision`` overrides its rung.
+    ``flux_calibration=True`` measures the built model's per-band flux gain
+    against its own 'highest'-rung forward on ``device`` and attaches the
+    correction (utils/flux_cal.py): the fidelity serving mode is
+    ``cfg=fidelity_serving_config(), flux_calibration=True``."""
     dev = resolve_device(device)
     path = Path(weights_dir or default_weights_dir()) / f"{survey}.npz"
     if not path.exists():
         raise FileNotFoundError(f"no weights for survey {survey!r} at {path}")
-    model = DeblenderVAE()
-    model.load_state_dict(state_dict_from_flax(load_flax_npz(path)))
-    return model.to(dev).eval()
+    cfg = cfg or ModelConfig()
+    if matmul_precision is not None:
+        cfg = dataclasses.replace(cfg, matmul_precision=matmul_precision)
+    model = DeblenderVAE(cfg)
+    model.load_state_dict(state_dict_from_flax(load_flax_npz(path), cfg))
+    model = model.to(dev).eval()
+    if flux_calibration:
+        from debvader_tpu_torch.utils.flux_cal import attach_flux_calibration
+
+        attach_flux_calibration(model)
+    return model

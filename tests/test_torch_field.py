@@ -148,7 +148,7 @@ def test_no_valid_source_returns_empty_and_the_field(nets):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"epistemic_uncertainty_estimation": True},
+        {"upload_dtype": "bfloat16"},
         {"mesh": object()},
         {"quantized": object()},
         {"artifact": b"x"},
@@ -286,3 +286,84 @@ def test_render_cache_respects_its_byte_cap(nets):
     full = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu")
     full.deblend_field(centers)
     np.testing.assert_array_equal(df.get_residual_field(res), full.get_residual_field())
+
+
+def test_deblend_field_epistemic_columns_and_cuts(nets):
+    """epistemic_uncertainty_estimation=True fills the record array's
+    epistemic_uncertainty column with the spread of cfg.epistemic_samples
+    stochastic decodes (always drawn, also under z_mode='mean'), applies
+    epistemic_criterion to its r-band norm, and get_predicted_field renders
+    it.  The JAX package gives the column layout; its threefry draws cannot
+    be matched, so the values are held to the port's own sampling API on
+    the same generator state."""
+    import debvader_tpu as dt
+    from debvader_tpu.config import PipelineConfig as JaxPipelineConfig
+    from debvader_tpu_torch.api import sample_stats_tensor
+
+    jnet, tnet = nets
+    field, centers = _blob_field(seed=9)
+    cfg = dtt.PipelineConfig(epistemic_samples=4)
+
+    def make(seed=3):
+        return dtt.DeblendField(
+            tnet, field, epistemic_uncertainty_estimation=True, z_mode="mean", cfg=cfg,
+            generator=torch.Generator().manual_seed(seed), device="cpu",
+        )
+
+    tdf = make()
+    got = tdf.deblend_field(centers)
+    jdf = dt.DeblendField(
+        jnet, field, epistemic_uncertainty_estimation=True, z_mode="mean", cfg=JaxPipelineConfig(epistemic_samples=2)
+    )
+    want = jdf.deblend_field(centers)
+    assert got.dtype == want.dtype and len(got) == len(want) == 5
+    epi = np.stack(list(got.epistemic_uncertainty))
+    jepi = np.stack(list(want.epistemic_uncertainty))
+    assert epi.shape == jepi.shape == (5, 59, 59, 6) and epi.dtype == jepi.dtype
+    assert np.isfinite(epi).all() and (epi >= 0).all() and epi.max() > 0
+    # same order of magnitude as the JAX package's own draws
+    assert 0.2 < epi.mean() / jepi.mean() < 5.0
+
+    cutouts = torch.from_numpy(np.stack(list(got.cutout_images)))
+    _, std = sample_stats_tensor(tnet, cutouts, 4, generator=torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(epi, std.numpy())
+
+    means = np.stack(list(got.output_images_mean))
+    epi_norm = epi[..., 2].sum(axis=(1, 2)) / np.maximum(means[..., 2].sum(axis=(1, 2)), 1e-30)
+    assert got.passed_cuts.all()
+    crit = float(np.sort(epi_norm)[2])  # two sources lie above it
+    cut = make().deblend_field(centers, epistemic_criterion=crit)
+    np.testing.assert_array_equal(cut.passed_cuts, ~(epi_norm > crit))
+    assert cut.passed_cuts.sum() == 3
+
+    pred = tdf.get_predicted_field()
+    offsets = np.stack([got.galaxy_distances_to_center_x, got.galaxy_distances_to_center_y], -1).astype(np.float32)
+    rendered = render_field(torch.from_numpy(epi), torch.from_numpy(offsets), 160, order=3)
+    _close(pred["predicted_epistemic_field"], rendered.numpy(), 1e-6)
+    assert pred["predicted_epistemic_field"].max() > 0
+    # served from the stamps kept on the device, and from the host copies alike
+    tdf.drop_render_cache()
+    _close(tdf.get_predicted_field()["predicted_epistemic_field"], rendered.numpy(), 1e-6)
+    # without the option the column and the canvas stay zero
+    plain = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu")
+    assert not np.stack(list(plain.deblend_field(centers).epistemic_uncertainty)).any()
+    assert not plain.get_predicted_field()["predicted_epistemic_field"].any()
+
+
+def test_epistemic_draws_are_seeded_and_chunked(nets):
+    """Without a generator the object seeds one with 0, so two objects
+    agree; source_chunk smaller than the batch changes the replica chunks
+    (and so the draws), not the shapes."""
+    _, tnet = nets
+    field, centers = _blob_field(seed=10)
+
+    def run(**kw):
+        cfg = dtt.PipelineConfig(epistemic_samples=3, **kw)
+        df = dtt.DeblendField(tnet, field, epistemic_uncertainty_estimation=True, z_mode="mean", cfg=cfg, device="cpu")
+        assert df.generator is not None
+        return np.stack(list(df.deblend_field(centers).epistemic_uncertainty))
+
+    a, b = run(), run()
+    np.testing.assert_array_equal(a, b)
+    c = run(source_chunk=2)
+    assert c.shape == a.shape and np.isfinite(c).all() and c.max() > 0

@@ -416,7 +416,12 @@ def test_fmad_is_a_per_source_flag_in_the_library_hash():
     assert "-fmad=true" in _build._flags("decoder_tail")
     assert not any(f.startswith("-fmad") for f in _build.NVCC_FLAGS)
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "render"]
+    assert sources == [
+        "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "render", "tail_fused",
+    ]
+    # the tail pair keeps contraction off: its bias, PReLU and limb sums
+    # use rounding intrinsics, and its products run on the tensor cores
+    assert "-fmad=false" in _build._flags("tail_fused")
     paths = {_build._lib_path(name).name for name in sources}
     assert len(paths) == len(sources)
 

@@ -166,9 +166,11 @@ def test_import_pulls_in_no_jax_or_reference_package():
         import sys, numpy as np, torch
         import debvader_tpu_torch as dtt
         from debvader_tpu_torch.kernels import clipped_stats, detect_fused, label_select
-        from debvader_tpu_torch.kernels import decoder_tail, matched_filter, render
+        from debvader_tpu_torch.kernels import decoder_tail, matched_filter, render, tail_fused
+        from debvader_tpu_torch.models import precision
+        from debvader_tpu_torch.data import simulate
         from debvader_tpu_torch.ops import measure
-        from debvader_tpu_torch.utils import profiling
+        from debvader_tpu_torch.utils import flux_cal, profiling
         net = dtt.DeblenderVAE(dtt.ModelConfig(stamp_size=23, nb_of_bands=3, latent_dim=4,
                                                filters=(8, 16), kernels=(3, 3)))
         dtt.deblend(net, np.zeros((1, 23, 23, 3), np.float32), z_mode="mean", device="cpu")
@@ -180,6 +182,14 @@ def test_import_pulls_in_no_jax_or_reference_package():
                               cfg=dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1),
                               device="cpu")
         df.deblend_and_render(np.zeros((1, 2), np.float32), measure=True)
+        emu = dtt.DeblenderVAE(dtt.ModelConfig(stamp_size=23, nb_of_bands=3, latent_dim=4, filters=(8, 16),
+                                               kernels=(3, 3), matmul_precision="high", limb_emulation=True))
+        flux_cal.attach_flux_calibration(emu, n=2)
+        dtt.deblend_sample_stats(emu, np.zeros((2, 23, 23, 3), np.float32), 3, device="cpu")
+        edf = dtt.DeblendField(emu, field, cutout_size=23, nb_of_bands=3, epistemic_uncertainty_estimation=True,
+                               cfg=dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1,
+                                                      epistemic_samples=2), device="cpu")
+        edf.deblend_and_predict(np.zeros((1, 2), np.float32))
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "pandas")
                or m == "debvader_tpu" or m.startswith("debvader_tpu.")]
@@ -246,10 +256,12 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         label_select,
         matched_filter,
         render,
+        tail_fused,
     )
 
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
         "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "render",
+        "tail_fused",
     ]
 
     def no_build(name):
@@ -263,6 +275,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         matched_filter.matched_filter_threshold,
         render.render_field_kernel,
         decoder_tail.fused_decoder_tail,
+        tail_fused.fused_tail_pair,
     )
     before = [fn.launches for fn in counters]
     img = np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32)
@@ -270,6 +283,10 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     dtt.detect_objects(img, dtt.DetectionConfig(use_pallas_filter=True), device="cpu")
     dtt.render_field(torch.ones(2, 9, 9, 2), torch.tensor([[0.5, -3.25], [4.0, 7.5]]), 40, order=1)
     dtt.fused_decoder_tail(
+        torch.ones(1, 8, 8, 4), torch.ones(3, 3, 4, 4), torch.ones(4), torch.ones(8, 8, 4),
+        torch.ones(3, 3, 4, 2), torch.ones(2),
+    )
+    dtt.fused_tail_pair(
         torch.ones(1, 8, 8, 4), torch.ones(3, 3, 4, 4), torch.ones(4), torch.ones(8, 8, 4),
         torch.ones(3, 3, 4, 2), torch.ones(2),
     )

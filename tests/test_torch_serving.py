@@ -285,6 +285,77 @@ def test_get_deblending_meta_data_matches_jax(nets):
         _close(got[key], want[key], 2e-5)
 
 
+# ------------------------------------------------------------ epistemic
+
+
+def _epistemic_field(tnet, field, order, seed=5, chunk=8192, samples=3):
+    cfg = dtt.PipelineConfig(interp_order=order, source_chunk=chunk, epistemic_samples=samples)
+    return dtt.DeblendField(
+        tnet, field, epistemic_uncertainty_estimation=True, z_mode="mean", cfg=cfg,
+        generator=torch.Generator().manual_seed(seed), device="cpu",
+    )
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_epistemic_stream_equals_the_record_array_route(nets, order):
+    """deblend_and_predict's epistemic canvas against get_predicted_field's
+    render of deblend_field's epistemic stamps, the same generator seed and
+    one chunk on both routes (so the same draws); both outputs are the
+    cropped field windows.  1e-5 of the canvas's scale: the render's sum
+    order."""
+    field, centers = _blob_field(seed=11)
+    stream = _epistemic_field(nets[1], field, order)
+    cat, fields = stream.deblend_and_predict(centers, measure=True)
+    record = _epistemic_field(nets[1], field, order)
+    res = record.deblend_field(centers)
+    pred = record.get_predicted_field()
+    epi = fields["predicted_epistemic_field"]
+    assert epi.shape == (160, 160, 6) and epi.dtype == np.float32
+    assert np.isfinite(epi).all() and epi.max() > 0
+    _close(epi, pred["predicted_epistemic_field"], 1e-5)
+    _close(fields["predicted_mean_field"], pred["predicted_mean_field"], 1e-5)
+    stamps = np.stack(list(res.epistemic_uncertainty))
+    means = np.stack(list(res.output_images_mean))
+    epi_norm = stamps[..., 2].sum(axis=(1, 2)) / means[..., 2].sum(axis=(1, 2))
+    np.testing.assert_allclose(cat.epistemic_norm, epi_norm, rtol=1e-5)
+    assert cat.epistemic_norm.dtype == np.float32 and (cat.epistemic_norm > 0).all()
+    # the criterion cuts in the stream as in the record array
+    crit = float(np.sort(epi_norm)[1])
+    cut, _ = _epistemic_field(nets[1], field, order).deblend_and_render(centers, epistemic_criterion=crit)
+    np.testing.assert_array_equal(cut.passed_cuts, ~(cut.epistemic_norm > crit))
+    assert 0 < cut.passed_cuts.sum() < len(cut)
+
+
+def test_epistemic_stream_in_chunks_is_seeded(nets):
+    field, centers = _blob_field(seed=12)
+    a = _epistemic_field(nets[1], field, 1, chunk=2).deblend_and_predict(centers)[1]
+    b = _epistemic_field(nets[1], field, 1, chunk=2).deblend_and_predict(centers)[1]
+    np.testing.assert_array_equal(a["predicted_epistemic_field"], b["predicted_epistemic_field"])
+    assert a["predicted_epistemic_field"].max() > 0
+    # outside every stamp nothing is deposited
+    one = _epistemic_field(nets[1], field, 1, chunk=2)
+    _, fields = one.deblend_and_predict(centers[:1])
+    epi = fields["predicted_epistemic_field"]
+    cy, cx = (80 + centers[0]).astype(int)
+    far = np.ones((160, 160), bool)
+    far[cy - 31 : cy + 32, cx - 31 : cx + 32] = False
+    assert not epi[far].any() and epi[~far].max() > 0
+
+
+def test_epistemic_canvas_needs_the_option(nets):
+    field, centers = _blob_field(seed=11)
+    _, tdf = _pair(nets, field, 1)
+    with pytest.raises(ValueError, match="epistemic_uncertainty_estimation=True"):
+        tdf._stream_deblend(torch.from_numpy(field), centers, render_epistemic=True)
+    # without the option the stream returns no epistemic field and a zero norm
+    cat, fields = tdf.deblend_and_predict(centers)
+    assert fields["predicted_epistemic_field"] is None and not cat.epistemic_norm.any()
+    empty = _epistemic_field(nets[1], field, 1).deblend_and_predict(np.array([[79.0, 0.0]]))[1]
+    assert empty["predicted_epistemic_field"].shape == (160, 160, 6)
+    assert not empty["predicted_epistemic_field"].any()
+    assert dtt.PipelineConfig().epistemic_samples == JaxPipelineConfig().epistemic_samples == 100
+
+
 # ------------------------------------------------------- chunk cap, timer
 
 
@@ -297,6 +368,8 @@ def test_serving_chunk_cap_follows_the_budget():
     assert tfield._serving_chunk_cap(1024, 6, hbm, resident_fields=3) == 1000 - -(-field_bytes // per)
     # the whole card beside a 1024^2 field: far more than any source_chunk in use
     assert tfield._serving_chunk_cap(1024, 6, 80 << 30) > 8192
+    # epistemic estimation leaves room for one replica chunk of the same size
+    assert tfield._serving_chunk_cap(1024, 6, hbm, replica_chunk=True) == 500
     # no room at all: the floor, never 0
     assert tfield._serving_chunk_cap(16384, 6, 1 << 30) == tfield._MIN_STREAM_CHUNK
 
