@@ -13,7 +13,12 @@ without printing its last line):
    statistics, (1, 1024, 1024) for the detect core and the labels,
    (1024, 1024) for the stand-alone matched filter on both of its
    branches, 295 stamps of 59x59x6 for the render), with CUDA-event
-   timings of kernel, plain version and library yardstick;
+   timings of kernel, plain version and library yardstick; the clipped
+   statistics also on edge boxes (ties, signed zeros around the median,
+   an overflowing mean whose first clip is empty, boxes of 50^2, 128^2
+   and 160^2 pixels), the render also at the serving path's shape (one
+   128-source chunk added into a filled canvas window, timed with its own
+   bound), on tile borders, off the field and with two bands;
 4. the record-array path through the public entry points:
    load_deblender("sim_demo") once, then detect_objects ->
    DeblendField(z_mode="mean").deblend_field -> get_residual_field on a
@@ -225,6 +230,7 @@ def check_kernels(torch, field_r: np.ndarray) -> list[dict]:
         "library_call": "torch.sort of the boxes",
         "bound_ms": t_bound, "bound_by": by,
         "shape": [n, p],
+        "edge_boxes": check_clipped_edges(torch, cs, field_r),
     })
 
     # --- fused detect core ------------------------------------------------
@@ -288,6 +294,196 @@ def check_kernels(torch, field_r: np.ndarray) -> list[dict]:
         "path_steps": steps,
     })
     return records
+
+
+def clipped_edge_boxes(rng, field_r: np.ndarray) -> dict:
+    """Boxes for the clipped statistics beyond the field's 64x64 ones:
+    name -> (boxes (n, P) float32, valid (n, P) float32, iters)."""
+    p = 4096
+    ties = rng.integers(0, 4, p).astype(np.float32)
+    ties[:50] = 100.0  # outliers for the first clip to remove
+    # 548 negatives, 1,500 -0.0, 1,500 +0.0, 548 positives: the median
+    # (rank 2,047) is the last -0.0, the next key up the first +0.0
+    zeros = np.concatenate([
+        -rng.uniform(1e-4, 2e-4, 548), np.full(1500, -0.0), np.full(1500, 0.0), rng.uniform(1e-4, 2e-4, 548),
+    ]).astype(np.float32)
+    rng.shuffle(zeros)
+    # the unclipped mean overflows to inf in any order, so the first
+    # round's std is NaN and its clip empty; the next round admits
+    # |x| <= 1e-12, 94 of the 96 small values (with iters=2 the last round)
+    huge = np.concatenate([
+        rng.uniform(1e35, 2e35, 4000), rng.uniform(-1e-12, 1e-12, 90), [-0.0, 0.0, 1e-12, -1e-12, 2e-12, -2e-12],
+    ]).astype(np.float32)
+    rng.shuffle(huge)
+
+    def one(x):
+        return x[None], np.ones((1, x.size), np.float32)
+
+    def field_boxes(box):
+        g = field_r.shape[0] // box
+        crop = field_r[: g * box, : g * box]
+        x = np.ascontiguousarray(crop.reshape(g, box, g, box).transpose(0, 2, 1, 3).reshape(g * g, box * box))
+        return x, np.ones_like(x)
+
+    return {
+        "ties": (*one(ties), 3),
+        "signed_zeros": (*one(zeros), 3),
+        "empty_first_clip": (*one(huge), 3),
+        "empty_first_clip_iters2": (*one(huge), 2),
+        # each of the kernel's variants: 4, 8, 16 or 32 pixels a thread of
+        # its 512 in registers (box32, box50 and the field's box64, box80,
+        # box128), and above 32 x 512 pixels the box in shared memory
+        "box32": (*field_boxes(32), 3),
+        "box50": (*field_boxes(50), 3),
+        "box80": (*field_boxes(80), 3),
+        "box128": (*field_boxes(128), 3),
+        "box160_shared": (*field_boxes(160), 3),
+    }
+
+
+def clipped_agree(torch, got, want, x, v, name: str) -> float:
+    """Medians bit for bit; mean and std NaN where the plain version's are
+    and elsewhere within 1e-5 of each box's scale (its largest valid
+    |value|).  Returns the largest error over that scale."""
+    if not torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)):
+        raise AssertionError(f"clipped_stats ({name}): medians differ from the plain version")
+    scale = torch.where(v > 0, x.abs(), torch.zeros_like(x)).amax(-1).clamp(min=1e-30)
+    worst = 0.0
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"clipped_stats ({name}): NaN outputs differ from the plain version")
+        rel = torch.where(a == b, torch.zeros_like(a), (a - b).abs()) / scale
+        rel = rel[~torch.isnan(b)]
+        e = float(rel.max()) if rel.numel() else 0.0
+        if not e <= 1e-5:
+            raise AssertionError(f"clipped_stats ({name}): mean/std off by {e} of the box scale")
+        worst = max(worst, e)
+    return worst
+
+
+def check_clipped_edges(torch, cs, field_r: np.ndarray) -> dict:
+    """The clipped statistics on the edge boxes, each batch on its own (the
+    overflow box's NaN and 1e35 scale would hide the others)."""
+    out = {}
+    for name, (x, v, iters) in clipped_edge_boxes(np.random.default_rng(11), field_r).items():
+        xt, vt = torch.as_tensor(x, device="cuda"), torch.as_tensor(v, device="cuda")
+        got = cs.sigma_clipped_stats(xt, vt, iters=iters)
+        want = cs.sigma_clipped_stats_plain(xt, vt, iters=iters)
+        torch.cuda.synchronize()
+        out[name] = {"boxes": int(x.shape[0]), "pixels": int(x.shape[1]), "iters": iters,
+                     "max_err_over_scale": clipped_agree(torch, got, want, xt, vt, name),
+                     "device_ms": profiled_device_ms(
+                         torch, lambda: cs.sigma_clipped_stats(xt, vt, iters=iters), "clipped_stats_kernel")}
+    return out
+
+
+def covered_mask(offsets: np.ndarray, mask, s: int, f: int) -> np.ndarray:
+    """(f, f) bool: the field pixels that some listed source's padded patch
+    covers (padded row 0 at (f - s) // 2 + floor(offset) - 1, s + 2 rows
+    and columns); masked and non-finite sources cover nothing."""
+    cov = np.zeros((f, f), bool)
+    pos0 = (f - s) // 2
+    for i, (oy, ox) in enumerate(offsets):
+        if (mask is not None and not mask[i]) or not (np.isfinite(oy) and np.isfinite(ox)):
+            continue
+        y0, x0 = pos0 + int(np.floor(oy)) - 1, pos0 + int(np.floor(ox)) - 1
+        cov[max(y0, 0) : max(y0 + s + 2, 0), max(x0, 0) : max(x0 + s + 2, 0)] = True
+    return cov
+
+
+def render_path_cases(torch, f: int, n: int = 128, s: int = 59, b: int = 6) -> dict:
+    """name -> (stamps, offsets) on the card: one stream chunk of n sources
+    inside the field, as the serving path hands the kernel; sources whose
+    padded patch starts or ends exactly on a 32- or 16-pixel tile border;
+    sources that all lie off the field (with a NaN and a huge offset)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    stamps = torch.rand((n, s, s, b), generator=gen, device="cuda")
+    chunk = (torch.rand((n, 2), generator=gen, device="cuda") - 0.5) * (f - 80)
+    pos0 = (f - s) // 2
+    k = np.arange(1, 17)
+    frac = np.array([0.0, 0.25, 0.5, 0.999] * 4)
+    starts = 32 * k + 1 - pos0 + frac            # padded row 0 on 32 k
+    ends = 16 * (k + 10) - s - 2 + 1 - pos0 + frac  # one past the last row on 16 (k + 10)
+    border = np.stack([np.concatenate([starts, ends]), np.concatenate([ends[::-1], starts])], -1)
+    rng = np.random.default_rng(6)
+    sign = rng.choice([-1.0, 1.0], (32, 2))
+    off = sign * (f / 2 + s + rng.uniform(0, 200, (32, 2)))
+    off[5] = [np.nan, 0.0]
+    off[9] = [1e20, 3.0]
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    return {
+        "chunk": (stamps, chunk),
+        "tile_border": (stamps[:32].contiguous(), as_dev(border)),
+        "off_field": (stamps[:32].contiguous(), as_dev(off)),
+    }
+
+
+def check_render_paths(torch, rd, f: int) -> dict:
+    """The render at the serving path's shape and its edge cases: added
+    with out= into the window of a padded canvas filled with seeded random
+    values; within 1e-5 of the plain version, pixels outside every padded
+    patch unchanged bit for bit, two launches bit-identical; without out=,
+    the same against the plain version.  Times the chunk case with its own
+    bound (the stamps, the offsets, and a read and a write of the covered
+    pixels only)."""
+    pad = 59 + 2
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    canvas0 = torch.randn((f + 2 * pad, f + 2 * pad, 6), generator=gen, device="cuda")
+
+    def window(c):
+        return c[pad : pad + f, pad : pad + f]
+
+    out = {}
+    for name, (stamps, offsets) in render_path_cases(torch, f).items():
+        n, s, _, b = stamps.shape
+        cov = covered_mask(offsets.cpu().numpy(), None, s, f)
+        got, again, plain = canvas0.clone(), canvas0.clone(), canvas0.clone()
+        rd.render_field_kernel(stamps, offsets, f, out=window(got))
+        rd.render_field_kernel(stamps, offsets, f, out=window(again))
+        rd.render_field_plain(stamps, offsets, f, out=window(plain))
+        fresh = rd.render_field_kernel(stamps, offsets, f)
+        fresh_plain = rd.render_field_plain(stamps, offsets, f)
+        torch.cuda.synchronize()
+        tol = 1e-5 * float(stamps.abs().max())
+        err = float((got - plain).abs().max())
+        err_fresh = float((fresh - fresh_plain).abs().max())
+        if not (err <= tol and err_fresh <= tol):
+            raise AssertionError(f"render ({name}): off by {err} (out=) / {err_fresh} from the plain version")
+        if not torch.equal(got, again):
+            raise AssertionError(f"render ({name}): two launches on the same canvas differ")
+        untouched = torch.ones(canvas0.shape[:2], dtype=torch.bool, device="cuda")
+        window(untouched)[torch.as_tensor(cov, device="cuda")] = False
+        if not torch.equal(got[untouched], canvas0[untouched]):
+            raise AssertionError(f"render ({name}): pixels outside every padded patch changed")
+        if name == "off_field" and (cov.any() or fresh.any()):
+            raise AssertionError("render (off_field): sources off the field placed something")
+        rec = {"sources": int(n), "covered_pixels": int(cov.sum()), "max_abs_err": max(err, err_fresh)}
+        if name == "chunk":
+            work = canvas0.clone()
+            t_bound, by = bound(n * s * s * b * 4 + n * 8 + 2 * int(cov.sum()) * b * 4,
+                                n * (s + 2) * (s + 2) * b * 11)
+            rec.update({
+                "ms": cuda_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, f, out=window(work))),
+                "device_ms": profiled_device_ms(
+                    torch, lambda: rd.render_field_kernel(stamps, offsets, f, out=window(work)), "render_"
+                ),
+                "plain_ms": cuda_ms(torch, lambda: rd.render_field_plain(stamps, offsets, f, out=window(work))),
+                "bound_ms": t_bound, "bound_by": by, "shape": [n, s, s, b, f], "pitch": int(work.stride(0)),
+            })
+        out[name] = rec
+
+    # another band count takes the 16x16 tile kernel with the same sums
+    gen2 = torch.Generator(device="cuda").manual_seed(7)
+    st2 = torch.rand((20, 15, 15, 2), generator=gen2, device="cuda")
+    off2 = (torch.rand((20, 2), generator=gen2, device="cuda") - 0.5) * 260
+    got2 = rd.render_field_kernel(st2, off2, 256)
+    again2 = rd.render_field_kernel(st2, off2, 256)
+    err2 = float((got2 - rd.render_field_plain(st2, off2, 256)).abs().max())
+    torch.cuda.synchronize()
+    if not (err2 <= 1e-5 and torch.equal(got2, again2)):
+        raise AssertionError(f"render (2 bands): off by {err2} from the plain version, or not deterministic")
+    out["two_bands"] = {"sources": 20, "max_abs_err": err2}
+    return out
 
 
 def check_filter_and_render(torch, field_r: np.ndarray) -> list[dict]:
@@ -379,12 +575,13 @@ def check_filter_and_render(torch, field_r: np.ndarray) -> list[dict]:
         "replaces": "debvader_tpu/kernels/render.py:149",
         "max_abs_err": err,
         "ms": cuda_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, f, mask)),
-        "device_ms": profiled_device_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, f, mask), "render_kernel"),
+        "device_ms": profiled_device_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, f, mask), "render_"),
         "plain_ms": cuda_ms(torch, lambda: rd.render_field_plain(stamps, offsets, f, mask)),
         "library_ms": None,
         "bound_ms": t_bound, "bound_by": by,
         "shape": [n, s, s, b, f],
         "deterministic": True,
+        "path_cases": check_render_paths(torch, rd, f),
     })
     return records
 
@@ -856,6 +1053,9 @@ def main() -> int:
     records = check_kernels(torch, field[0, :, :, 2])
     records += check_filter_and_render(torch, field[0, :, :, 2])
     print("kernels match their plain versions")
+    by_name = {r["name"]: r for r in records}
+    print(json.dumps({"clipped_stats_edge_boxes": by_name["clipped_stats"]["edge_boxes"],
+                      "render_path_cases": by_name["render"]["path_cases"]}))
 
     import debvader_tpu_torch as dt
 

@@ -3,15 +3,24 @@
 Port of the Pallas kernel debvader_tpu/kernels/clipped_stats.py
 (sigma_clipped_stats_pallas).  Per box: three rounds of clipping to
 median +- (3*std + 1e-12), then (mean, median, std).  The median is the
-exact (count-1)//2 order statistic, found by a 32-bit radix descend over
-monotonic int32 keys of the float bits; -0.0 orders below +0.0.  Two
-quirks are kept: an empty clip admits |x| <= 1e-12 next round, and a zero
-count gives zeros.
+exact (count-1)//2 order statistic of monotonic int32 keys of the float
+bits; -0.0 orders below +0.0.  Two quirks are kept: an empty clip (its
+std NaN after a mean that overflowed) admits |x| <= 1e-12 next round, and
+a zero count gives zeros.
 
-The CUDA kernel (csrc/clipped_stats.cu) is bound by its operations: one
-block per box walks the box 35 times a round from shared memory.  Medians
-are bit-identical to the plain version; mean and std differ only by
-summation order.
+The CUDA kernel (csrc/clipped_stats.cu), one block per box, is bound on
+the H100 by the 8 bytes a pixel it reads; a direct port of the TPU kernel
+is held far above that by about 140 serial block-wide steps a box (a
+32-step one-bit radix descend and three block sums each round).  It keeps
+a box's pixels in registers (in shared memory above ``32 * 512`` pixels),
+selects each round's median as a rank of the valid set through cached
+11/11/10-bit key histograms, and fuses each round's four sums into one
+reduction.
+Medians are bit-identical to the plain version; mean and std differ only
+by summation order.  The plain version below is the 32-step descend.
+No TMA: a box is read once, 4 bytes a thread, straight into registers
+(the 16-byte stride rule that keeps TMA off the render's stamps does not
+bind here, and staging would buy nothing).
 """
 
 from __future__ import annotations
@@ -20,10 +29,14 @@ import torch
 
 from debvader_tpu_torch.kernels import _build
 
-__all__ = ["sigma_clipped_stats", "sigma_clipped_stats_plain"]
+__all__ = ["MAX_BOX_PIXELS", "sigma_clipped_stats", "sigma_clipped_stats_plain"]
 
 _SIGN = torch.tensor(-(2**31), dtype=torch.int32)
 _INT32_MAX = 2**31 - 1
+# Largest box the kernel takes: above 32 * 512 pixels it holds the box in
+# shared memory, 4 bytes a pixel beside 24 KB of histograms and sums, in
+# the 227 KB a block may use.
+MAX_BOX_PIXELS = (232448 - 24 * 1024) // 4
 
 
 def _order_keys(x: torch.Tensor) -> torch.Tensor:
@@ -34,11 +47,13 @@ def _order_keys(x: torch.Tensor) -> torch.Tensor:
 def _subset_stats(y, w, member):
     """(mean_y, med, std, count) over ``member`` of each row; y is x centred
     on the row's unclipped mean, w the order keys."""
-    m = member.to(torch.float32)
+    # sums over members only, as XLA computes the JAX package's y * m (a
+    # select): a non-member whose y overflowed adds nothing, not inf * 0
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
     n = member.sum(-1)
     nf = torch.clamp(n, min=1).to(torch.float32)
-    mean_y = torch.sum(y * m, -1) / nf
-    var = torch.clamp(torch.sum(y * y * m, -1) / nf - mean_y * mean_y, min=0.0)
+    mean_y = torch.sum(torch.where(member, y, zero), -1) / nf
+    var = torch.clamp(torch.sum(torch.where(member, y * y, zero), -1) / nf - mean_y * mean_y, min=0.0)
     k = torch.clamp(n - 1, min=0) // 2
     wm = torch.where(member, w, torch.full_like(w, _INT32_MAX))
     sign = _SIGN.to(w.device)
@@ -70,10 +85,15 @@ def sigma_clipped_stats_plain(x: torch.Tensor, valid: torch.Tensor, iters: int =
     return torch.where(n > 0, mean_y + c, zero), med, std
 
 
+def check_box_pixels(p: int) -> None:
+    """Raise for a box the kernel cannot hold (more than MAX_BOX_PIXELS)."""
+    if p > MAX_BOX_PIXELS:
+        raise ValueError(f"boxes of {p} pixels exceed the kernel's {MAX_BOX_PIXELS}")
+
+
 def _launch(x: torch.Tensor, v: torch.Tensor, iters: int):
     n, p = x.shape
-    if p * 9 > 232448:  # 9 bytes a pixel of shared memory, 227 KB a block
-        raise ValueError(f"boxes of {p} pixels exceed the kernel's shared memory")
+    check_box_pixels(p)
     fn = _build.launcher("clipped_stats", "dvt_clipped_stats", 5, 3)
     mean, med, std = (torch.empty(n, dtype=torch.float32, device=x.device) for _ in range(3))
     with torch.cuda.device(x.device):

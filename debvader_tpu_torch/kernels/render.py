@@ -9,12 +9,22 @@ zero-padded by one pixel) and placed at field centre + floor(offset).
 The plain version shifts every stamp, then scatters all patches into a
 padded canvas with one ``index_put_(accumulate=True)``; on a card that
 scatter adds with atomics, in an order that changes from run to run.  The
-CUDA kernel (csrc/render.cu, bound by bytes) gathers instead: each block
-owns a 16x16 tile of the field and adds the sources that overlap it in
-ascending index, so its output is deterministic.  It writes the field
-window only: the padding ring of a canvas stays zero on this route, where
-the plain route deposits the spill of stamps that hang over the edge.
-Every caller crops the ring away.
+CUDA kernel (csrc/render.cu) gathers instead, so its output is
+deterministic: each output element starts from 0, adds the sources that
+overlap its tile in ascending index and is added into ``out`` once.  It is
+bound on the H100 by bytes (the stamps read once, the covered part of the
+field read and written once).  For B = 6 a block owns a tile of 16 rows x
+32 pixels and keeps its sums in registers; it lists the overlapping sources from the
+offsets, stages each source's window into shared memory with 8-byte
+``cp.async`` copies, double-buffered (TMA cannot address the stamps: a
+59 x 6 float row is 1,416 bytes and a stamp 83,544, and TMA wants global
+strides in multiples of 16 bytes; 16-byte copies would be misaligned on
+every other pixel), and skips tiles that no padded patch touches: with
+``out`` given they are neither read nor written.  Other band counts take a
+16 x 16 tile kernel with the same sums.  The kernel writes the field window
+only: the padding ring of a canvas stays zero on this route, where the
+plain route deposits the spill of stamps that hang over the edge.  Every
+caller crops the ring away.
 """
 
 from __future__ import annotations
