@@ -18,7 +18,11 @@ without printing its last line):
    an overflowing mean whose first clip is empty, boxes of 50^2, 128^2
    and 160^2 pixels), the render also at the serving path's shape (one
    128-source chunk added into a filled canvas window, timed with its own
-   bound), on tile borders, off the field and with two bands;
+   bound), on tile borders, off the field and with two bands; the detect
+   core and the labels, bit for bit and timed with their bounds, on a
+   (16, 1024, 1024) stack with 16 thresholds, ragged fields of 1023 and
+   37 pixels, the 49-tap branch, a plateau of ties and the default
+   threshold (the detect_label_cases line);
 4. the record-array path through the public entry points:
    load_deblender("sim_demo") once, then detect_objects ->
    DeblendField(z_mode="mean").deblend_field -> get_residual_field on a
@@ -241,14 +245,13 @@ def check_kernels(torch, field_r: np.ndarray) -> list[dict]:
     scale = float(np.sqrt(np.sum(np.square(kernel)))) if DETECTION["threshold_scaling"] == "matched" else 1.0
     thr = (DETECTION["thresh"] * grms * scale).reshape(1)
     filt, dirc, parent = df.matched_filter_parents(images, backs, kernel, thr)
-    filt_p, _, _ = df.matched_filter_parents_plain(images, backs, kernel, thr)
-    dir_p, parent_p = df.parent_race(filt, thr)
+    filt_p, dir_p, parent_p = df.matched_filter_parents_plain(images, backs, kernel, thr)
     torch.cuda.synchronize()
     err = float((filt - filt_p).abs().max())
-    if err > 1e-5 * float(filt_p.abs().max()):
-        raise AssertionError(f"detect_fused: filt off by {err}")
+    if not torch.equal(filt.view(torch.int32), filt_p.view(torch.int32)):
+        raise AssertionError(f"detect_fused: filt is not bit-identical to the plain version (off by {err})")
     if not (torch.equal(dirc, dir_p) and torch.equal(parent, parent_p)):
-        raise AssertionError("detect_fused: dir_code/parent differ from the plain race")
+        raise AssertionError("detect_fused: dir_code/parent differ from the plain version")
     t_bound, by = bound(f * f * 20 + 4 + 56, f * f * 54)
     kt = torch.as_tensor(kernel, device=dev)[None, None]
     fore = (images - backs)[None]
@@ -266,7 +269,7 @@ def check_kernels(torch, field_r: np.ndarray) -> list[dict]:
         "library_call": "F.conv2d of the 7x7 filter alone",
         "bound_ms": t_bound, "bound_by": by,
         "shape": [1, f, f],
-        "filt_bit_identical": err == 0.0,
+        "filt_bit_identical": True,
     })
 
     # --- label resolution -------------------------------------------------
@@ -277,6 +280,11 @@ def check_kernels(torch, field_r: np.ndarray) -> list[dict]:
     torch.cuda.synchronize()
     if not torch.equal(labels, labels_p):
         raise AssertionError("label_select: labels differ from the plain fixpoint")
+    # a code outside 0..8 selects nothing in the iteration: a root, as 4 is
+    odd = torch.arange(f * f, device=dev).reshape(f, f) % 2 == 1
+    bad = torch.where(dir2 == 4, torch.where(odd, -1, 9).to(torch.int32), dir2)
+    if not torch.equal(ls.label_fixpoint(cur0, bad), ls.label_fixpoint_plain(cur0, bad)):
+        raise AssertionError("label_select: codes outside 0..8 do not act as roots")
     # data-dependent work: one chase step per pixel per edge on its path
     steps = _path_steps(torch, dir2)
     t_bound, by = bound(f * f * 12, f * f + 4 * steps)
@@ -294,6 +302,90 @@ def check_kernels(torch, field_r: np.ndarray) -> list[dict]:
         "path_steps": steps,
     })
     return records
+
+
+def detect_label_cases(torch, field_r: np.ndarray) -> dict:
+    """Edge cases of the fused detect core and the label resolution: name ->
+    (images (T, F, F), backgrounds, 7x7 filter, thresholds (T,)), on the
+    card.  A (16, 1024, 1024) stack (the field rolled and re-noised, 16
+    thresholds from 1.5 to 7.5 sigma); ragged fields of 1023 and 37 pixels
+    (rows not 16-byte aligned, partial tiles); the 49-tap branch; a plateau
+    (a constant field on its own background filters to exactly 0, above a
+    negative threshold: every race a tie broken by index, every chain runs
+    to pixel 0, up to 2F steps across many tiles); the field at the default
+    DetectionConfig() threshold (11,565 peaks)."""
+    from debvader_tpu_torch.config import DetectionConfig
+    from debvader_tpu_torch.ops.detection import default_filter_kernel, estimate_background
+
+    dev = torch.device("cuda")
+    img = torch.as_tensor(field_r, device=dev)
+    f = img.shape[0]
+    back, _, _, grms = estimate_background(img, box=64)
+    kernel = default_filter_kernel()
+    matched = float(np.sqrt(np.sum(np.square(kernel))))
+    five = (DETECTION["thresh"] * grms * matched).reshape(1)
+    default = (DetectionConfig().thresh * grms).reshape(1)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    stack = torch.stack([
+        torch.roll(img, (97 * i, 53 * i), (0, 1)) + 0.02 * torch.randn((f, f), generator=gen, device=dev)
+        for i in range(16)
+    ])
+    full = (kernel + 0.05 * np.random.default_rng(5).random((7, 7))).astype(np.float32)
+
+    def one(x, b):
+        return x[None].contiguous(), b[None].contiguous()
+
+    return {
+        "stack16": (stack, back.expand(16, f, f).contiguous(), kernel,
+                    grms * torch.linspace(1.5, 7.5, 16, device=dev)),
+        "ragged1023": (*one(img[:1023, :1023], back[:1023, :1023]), kernel, five),
+        "ragged37": (*one(img[500:537, 500:537], back[500:537, 500:537]), kernel, default),
+        "taps49": (*one(img, back), full, five),
+        "plateau": (torch.ones((1, f, f), device=dev), torch.ones((1, f, f), device=dev), kernel,
+                    torch.full((1,), -0.5, device=dev)),
+        "default_threshold": (*one(img, back), kernel, default),
+    }
+
+
+def check_detect_label_cases(torch, df, ls, field_r: np.ndarray) -> dict:
+    """Each case of detect_label_cases: filt, dir_code and parent bit for
+    bit against the plain version, the labels of the kernel's outputs bit
+    for bit against the plain fixpoint on them; each kernel timed (device
+    and per-call) beside its bound."""
+    out = {}
+    for name, (images, backs, kernel, thr) in detect_label_cases(torch, field_r).items():
+        t, f, _ = images.shape
+        filt, dirc, parent = df.matched_filter_parents(images, backs, kernel, thr)
+        filt_p, dir_p, parent_p = df.matched_filter_parents_plain(images, backs, kernel, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(filt.view(torch.int32), filt_p.view(torch.int32)):
+            raise AssertionError(f"detect_fused ({name}): filt is not bit-identical to the plain version")
+        if not (torch.equal(dirc, dir_p) and torch.equal(parent, parent_p)):
+            raise AssertionError(f"detect_fused ({name}): dir_code/parent differ from the plain version")
+        cur0, dir2 = parent.reshape(t * f, f), dirc.reshape(t * f, f)
+        labels = ls.label_fixpoint(cur0, dir2)
+        labels_p = ls.label_fixpoint_plain(cur0, dir2)
+        torch.cuda.synchronize()
+        if not torch.equal(labels, labels_p):
+            raise AssertionError(f"label_select ({name}): labels differ from the plain fixpoint")
+        steps = _path_steps(torch, dir2)
+        det_bound, det_by = bound(t * f * f * 20 + t * 4 + 56, t * f * f * 54)
+        lab_bound, lab_by = bound(t * f * f * 12, t * f * f + 4 * steps)
+        out[name] = {
+            "shape": [t, f, f], "masked_pixels": int((filt > thr.reshape(t, 1, 1)).sum()), "path_steps": steps,
+            "detect_fused": {
+                "device_ms": profiled_device_ms(
+                    torch, lambda: df.matched_filter_parents(images, backs, kernel, thr), "detect_fused_kernel"),
+                "ms": cuda_ms(torch, lambda: df.matched_filter_parents(images, backs, kernel, thr)),
+                "bound_ms": det_bound, "bound_by": det_by,
+            },
+            "label_select": {
+                "device_ms": profiled_device_ms(torch, lambda: ls.label_fixpoint(cur0, dir2), "label_resolve_kernel"),
+                "ms": cuda_ms(torch, lambda: ls.label_fixpoint(cur0, dir2)),
+                "bound_ms": lab_bound, "bound_by": lab_by,
+            },
+        }
+    return out
 
 
 def clipped_edge_boxes(rng, field_r: np.ndarray) -> dict:
@@ -1056,6 +1148,9 @@ def main() -> int:
     by_name = {r["name"]: r for r in records}
     print(json.dumps({"clipped_stats_edge_boxes": by_name["clipped_stats"]["edge_boxes"],
                       "render_path_cases": by_name["render"]["path_cases"]}))
+    cases = check_detect_label_cases(torch, df, ls, field[0, :, :, 2])
+    report["detect_label_cases"] = cases
+    print(json.dumps({"detect_label_cases": cases}))
 
     import debvader_tpu_torch as dt
 

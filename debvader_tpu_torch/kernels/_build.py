@@ -24,7 +24,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load", "check"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load", "launcher", "call", "check"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,6 +42,7 @@ NVCC_FLAGS = (
 FMAD_SOURCES = frozenset({"decoder_tail"})
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_launchers: dict = {}
 
 
 def nvcc_path() -> str:
@@ -114,11 +117,34 @@ def launcher(name: str, symbol: str, n_ptr: int, n_int: int):
     """The C launcher ``symbol`` of ``csrc/<name>.cu``: ``n_ptr`` pointer
     arguments, ``n_int`` int arguments, then the CUDA stream; returns a
     cudaError_t.  Pointers and the stream go as ``c_void_p`` so ctypes does
-    not cut them to 32 bits."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    not cut them to 32 bits.  Looked up and typed once a process."""
+    key = (name, symbol, n_ptr, n_int)
+    fn = _launchers.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launchers[key] = fn
     return fn
+
+
+def _raw_stream(index: int) -> int:
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def call(fn, device, *args) -> int:
+    """``fn(*args, stream)`` with ``stream`` the current CUDA stream of
+    ``device`` and that device current during the call; returns the
+    launcher's status.  The device is switched only when it is not current
+    already, and the stream's raw handle is read without building a
+    ``torch.cuda.Stream``."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, _raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _raw_stream(index))
 
 
 def check(status: int, name: str) -> None:

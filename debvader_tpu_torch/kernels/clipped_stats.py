@@ -96,12 +96,9 @@ def _launch(x: torch.Tensor, v: torch.Tensor, iters: int):
     check_box_pixels(p)
     fn = _build.launcher("clipped_stats", "dvt_clipped_stats", 5, 3)
     mean, med, std = (torch.empty(n, dtype=torch.float32, device=x.device) for _ in range(3))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = fn(
-            x.data_ptr(), v.data_ptr(), mean.data_ptr(), med.data_ptr(),
-            std.data_ptr(), n, p, iters, stream,
-        )
+    status = _build.call(
+        fn, x.device, x.data_ptr(), v.data_ptr(), mean.data_ptr(), med.data_ptr(), std.data_ptr(), n, p, iters,
+    )
     _build.check(status, "clipped_stats")
     sigma_clipped_stats.launches += 1
     return mean, med, std

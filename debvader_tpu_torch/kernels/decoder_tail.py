@@ -71,17 +71,15 @@ def _launch(x, k2, b2, a2, k3, b3):
     w2 = k2.flip(0, 1).permute(0, 1, 3, 2).contiguous()
     fn = _build.launcher("decoder_tail", "dvt_decoder_tail", 7, 4)
     out = torch.empty((n, size, size, o), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        # the grid's last axis holds at most 65535 images
-        for s0 in range(0, n, 65535):
-            xs, outs = x[s0 : s0 + 65535], out[s0 : s0 + 65535]
-            status = fn(
-                xs.data_ptr(), w2.data_ptr(), b2.data_ptr(), a2.data_ptr(), k3.data_ptr(),
-                b3.data_ptr(), outs.data_ptr(), xs.shape[0], size, c, o, stream,
-            )
-            _build.check(status, "decoder_tail")
-            fused_decoder_tail.launches += 1
+    # the grid's last axis holds at most 65535 images
+    for s0 in range(0, n, 65535):
+        xs, outs = x[s0 : s0 + 65535], out[s0 : s0 + 65535]
+        status = _build.call(
+            fn, x.device, xs.data_ptr(), w2.data_ptr(), b2.data_ptr(), a2.data_ptr(), k3.data_ptr(),
+            b3.data_ptr(), outs.data_ptr(), xs.shape[0], size, c, o,
+        )
+        _build.check(status, "decoder_tail")
+        fused_decoder_tail.launches += 1
     return out
 
 

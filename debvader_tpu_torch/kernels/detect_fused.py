@@ -15,13 +15,15 @@ Port of the Pallas kernel debvader_tpu/kernels/detect_fused.py
   per-field flat index.  Unmasked pixels carry dir_code 4 and parent 0.
 
 The CUDA kernel (csrc/detect_fused.cu) is bound by bytes: it reads the
-image and background once and writes the three maps once, staging each
-32x32 tile's 40x40 window in shared memory.  filt is bit-identical to the
-plain version; dir_code and parent are bit-identical to the plain race
-on the same filt.
+image and background once and writes the three maps once; a block stages
+its 32x64 tile's 40x72 window in shared memory with cp.async and takes the
+taps as a by-value parameter (:func:`host_taps`).  filt, dir_code and
+parent are bit-identical to the plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -151,22 +153,37 @@ def taps_on(kernel: np.ndarray, device):
     return entry
 
 
+_host_taps: dict = {}
+
+
+def host_taps(kernel: np.ndarray):
+    """(separable, taps as a ctypes float array) of :func:`filter_taps`, for
+    the kernel's by-value tap parameter: decomposed once per filter, looked
+    up by the filter's bytes (so a filter edited in place is decomposed
+    again)."""
+    key = np.asarray(kernel, np.float32).tobytes()
+    entry = _host_taps.get(key)
+    if entry is None:
+        separable, taps = filter_taps(kernel)
+        entry = (separable, (ctypes.c_float * taps.size)(*taps.tolist()))
+        _host_taps[key] = entry
+    return entry
+
+
 def _launch(images, backgrounds, kernel, thresholds):
     t, f, _ = images.shape
     if f * f >= 2**31:
         raise ValueError("fields of 2^31 pixels or more overflow the int32 parent index")
-    separable, taps = taps_on(kernel, images.device)
+    separable, taps = host_taps(kernel)
     fn = _build.launcher("detect_fused", "dvt_detect_fused", 7, 3)
     filt = torch.empty_like(images)
     dir_code = torch.empty(images.shape, dtype=torch.int32, device=images.device)
     parent = torch.empty_like(dir_code)
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        status = fn(
-            images.data_ptr(), backgrounds.data_ptr(), thresholds.data_ptr(),
-            taps.data_ptr(), filt.data_ptr(), dir_code.data_ptr(),
-            parent.data_ptr(), t, f, int(separable), stream,
-        )
+    status = _build.call(
+        fn, images.device,
+        images.data_ptr(), backgrounds.data_ptr(), thresholds.data_ptr(), ctypes.addressof(taps),
+        filt.data_ptr(), dir_code.data_ptr(), parent.data_ptr(), t, f, int(separable),
+    )
     _build.check(status, "detect_fused")
     matched_filter_parents.launches += 1
     return filt, dir_code, parent

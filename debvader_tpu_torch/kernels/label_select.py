@@ -6,8 +6,9 @@ cur[parent(p)], parent given as a direction code (0..8, 4 = self), until
 nothing changes.  The plain version runs that 9-way select to its
 fixpoint.  The fixpoint is unique, so the CUDA kernel
 (csrc/label_select.cu, bound by bytes) follows each pixel's chain of codes
-to its self-coded root instead, one thread per pixel: the labels are
-bit-identical.
+to its self-coded root instead, one thread a pixel in 2-D blocks (no
+division), a code outside 0..8 ending a chain as it selects nothing in
+the iteration: the labels are bit-identical.
 """
 
 from __future__ import annotations
@@ -44,9 +45,7 @@ def _launch(cur0: torch.Tensor, dir_code: torch.Tensor) -> torch.Tensor:
     h, w = cur0.shape
     fn = _build.launcher("label_select", "dvt_label_resolve", 3, 2)
     out = torch.empty_like(cur0)
-    with torch.cuda.device(cur0.device):
-        stream = torch.cuda.current_stream(cur0.device).cuda_stream
-        status = fn(cur0.data_ptr(), dir_code.data_ptr(), out.data_ptr(), h, w, stream)
+    status = _build.call(fn, cur0.device, cur0.data_ptr(), dir_code.data_ptr(), out.data_ptr(), h, w)
     _build.check(status, "label_select")
     label_fixpoint.launches += 1
     return out

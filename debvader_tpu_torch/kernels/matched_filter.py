@@ -42,12 +42,10 @@ def _launch(image, background, kernel, threshold):
     fn = _build.launcher("matched_filter", "dvt_matched_filter", 6, 2)
     filt = torch.empty_like(image)
     mask = torch.empty(image.shape, dtype=torch.bool, device=image.device)
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        status = fn(
-            image.data_ptr(), background.data_ptr(), threshold.data_ptr(),
-            taps.data_ptr(), filt.data_ptr(), mask.data_ptr(), f, int(separable), stream,
-        )
+    status = _build.call(
+        fn, image.device, image.data_ptr(), background.data_ptr(), threshold.data_ptr(),
+        taps.data_ptr(), filt.data_ptr(), mask.data_ptr(), f, int(separable),
+    )
     _build.check(status, "matched_filter")
     matched_filter_threshold.launches += 1
     return filt, mask

@@ -126,12 +126,10 @@ def _launch(stamps, offsets, field_size, mask, out):
     if out is None:
         out = torch.empty((field_size, field_size, b), dtype=torch.float32, device=stamps.device)
     fn = _build.launcher("render", "dvt_render", 4, 6)
-    with torch.cuda.device(stamps.device):
-        stream = torch.cuda.current_stream(stamps.device).cuda_stream
-        status = fn(
-            stamps.data_ptr(), offsets.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), n, s, b, field_size, out.stride(0), int(accumulate), stream,
-        )
+    status = _build.call(
+        fn, stamps.device, stamps.data_ptr(), offsets.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), n, s, b, field_size, out.stride(0), int(accumulate),
+    )
     _build.check(status, "render")
     render_field_kernel.launches += 1
     return out

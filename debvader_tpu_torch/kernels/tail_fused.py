@@ -103,18 +103,16 @@ def _launch(x, w1, b1, alpha1, w2, b2):
     w2h, w2m = _pack(w2, _C2_PAD)
     fn = _build.launcher("tail_fused", "dvt_tail_fused", 9, 6)
     out = torch.empty((n, height, width, c2), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        # the grid's last axis holds at most 65535 images
-        for s0 in range(0, n, 65535):
-            xs, outs = x[s0 : s0 + 65535], out[s0 : s0 + 65535]
-            status = fn(
-                xs.data_ptr(), w1h.data_ptr(), w1m.data_ptr(), b1.data_ptr(), alpha1.data_ptr(),
-                w2h.data_ptr(), w2m.data_ptr(), b2.data_ptr(), outs.data_ptr(),
-                xs.shape[0], height, width, cin, c1, c2, stream,
-            )
-            _build.check(status, "tail_fused")
-            fused_tail_pair.launches += 1
+    # the grid's last axis holds at most 65535 images
+    for s0 in range(0, n, 65535):
+        xs, outs = x[s0 : s0 + 65535], out[s0 : s0 + 65535]
+        status = _build.call(
+            fn, x.device, xs.data_ptr(), w1h.data_ptr(), w1m.data_ptr(), b1.data_ptr(), alpha1.data_ptr(),
+            w2h.data_ptr(), w2m.data_ptr(), b2.data_ptr(), outs.data_ptr(),
+            xs.shape[0], height, width, cin, c1, c2,
+        )
+        _build.check(status, "tail_fused")
+        fused_tail_pair.launches += 1
     return out
 
 
