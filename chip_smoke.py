@@ -22,14 +22,22 @@ without printing its last line):
    core and the labels, bit for bit and timed with their bounds, on a
    (16, 1024, 1024) stack with 16 thresholds, ragged fields of 1023 and
    37 pixels, the 49-tap branch, a plateau of ties and the default
-   threshold (the detect_label_cases line);
+   threshold, with F.conv2d's time beside the detect core (the
+   detect_label_cases line); on the same cases the chain route's matched
+   filter and parent race, bit for bit, timed (the chain_cases line); the
+   order-3 place kernel bit for bit against its plain version on the CPU
+   (the place_cases line);
 4. the record-array path through the public entry points:
    load_deblender("sim_demo") once, then detect_objects ->
    DeblendField(z_mode="mean").deblend_field -> get_residual_field on a
    seeded 1024x1024x6 field of ~300 simulated galaxies, with every kernel's
-   launch count reset before and read after; then warm runs timed per
+   launch count reset before and read after; two residuals of one record
+   array, bit-identical; then warm runs timed per
    stage, one warm run under torch.profiler (the device's idle share), and
-   detection at the default threshold;
+   detection at the default threshold; warm deblend_s, the streaming
+   deblend_and_render and the epistemic deblend_and_predict with cuDNN's
+   deterministic algorithms off and on, in 10 alternating pairs (the
+   cudnn_determinism line);
 5. the decoder-tail kernel on the real tail input of that path's batch
    (caught by a hook on the decoder's last transposed conv) against the
    decoder's own output before the crop;
@@ -40,6 +48,8 @@ without printing its last line):
    counts reset before and read after, held against the record-array
    route of the same object; warm stage times, one profiled warm
    deblend_and_render, and the peak device memory of one stream chunk;
+   the launches and uploads of one chain-route detection core, profiled
+   (the chain_route line);
 7. the fidelity-precision tail pair (csrc/tail_fused.cu) on the real input
    of dec/ConvT_7 for that batch, under a model whose last two layers run
    the bf16x3 limb scheme: against its plain version, against the model's
@@ -52,8 +62,8 @@ without printing its last line):
    deblend_and_render on the field through it beside the float32 route;
 9. the epistemic path: DeblendField(epistemic_uncertainty_estimation=True)
    .deblend_and_predict with a seeded generator (three canvases a chunk
-   through the render kernel, counted from 0), twice for the same seed and
-   once for another,
+   through the render kernel, counted from 0), twice for the same seed
+   (bit-identical) and once for another,
    deblend_sample_stats against the statistics of deblend_samples, warm
    time and peak device memory;
 10. both routes, and the fidelity model's forward, on a 256x256 crop on the
@@ -73,6 +83,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -370,6 +381,8 @@ def check_detect_label_cases(torch, df, ls, field_r: np.ndarray) -> dict:
             raise AssertionError(f"label_select ({name}): labels differ from the plain fixpoint")
         steps = _path_steps(torch, dir2)
         det_bound, det_by = bound(t * f * f * 20 + t * 4 + 56, t * f * f * 54)
+        fore = (images - backs)[:, None]
+        kt = torch.as_tensor(kernel, device="cuda")[None, None]
         lab_bound, lab_by = bound(t * f * f * 12, t * f * f + 4 * steps)
         out[name] = {
             "shape": [t, f, f], "masked_pixels": int((filt > thr.reshape(t, 1, 1)).sum()), "path_steps": steps,
@@ -377,6 +390,8 @@ def check_detect_label_cases(torch, df, ls, field_r: np.ndarray) -> dict:
                 "device_ms": profiled_device_ms(
                     torch, lambda: df.matched_filter_parents(images, backs, kernel, thr), "detect_fused_kernel"),
                 "ms": cuda_ms(torch, lambda: df.matched_filter_parents(images, backs, kernel, thr)),
+                "library_ms": cuda_ms(torch, lambda: conv2d_fp32(torch, fore, kt)),
+                "library_call": "F.conv2d of the 7x7 filter alone (float32)",
                 "bound_ms": det_bound, "bound_by": det_by,
             },
             "label_select": {
@@ -386,6 +401,15 @@ def check_detect_label_cases(torch, df, ls, field_r: np.ndarray) -> dict:
             },
         }
     return out
+
+
+def conv2d_fp32(torch, fore, kt):
+    import torch.nn.functional as F
+
+    from debvader_tpu_torch.device import fp32_math
+
+    with fp32_math():
+        return F.conv2d(fore, kt, padding=kt.shape[-1] // 2)
 
 
 def clipped_edge_boxes(rng, field_r: np.ndarray) -> dict:
@@ -576,6 +600,273 @@ def check_render_paths(torch, rd, f: int) -> dict:
         raise AssertionError(f"render (2 bands): off by {err2} from the plain version, or not deterministic")
     out["two_bands"] = {"sources": 20, "max_abs_err": err2}
     return out
+
+
+def place_inputs(torch, stamps, offsets, f: int, mask=None):
+    """The order-3 render's shift step on the card, as ops/shift.render_field
+    takes it: (patches (N, 79, 79, B), y, x, visible, canvas size) for
+    stamps of 59 pixels padded by 10 on a canvas padded by 79."""
+    from debvader_tpu_torch.kernels.render import place_corners, shift_patches
+    from debvader_tpu_torch.ops.spline import subpixel_shift_spline_const
+
+    interp_pad = 10
+    patches, int_off = shift_patches(stamps, offsets, interp_pad, subpixel_shift_spline_const)
+    p = patches.shape[1]
+    y, x, visible = place_corners(int_off, mask, f, stamps.shape[1], interp_pad, f + 2 * p)
+    return patches.contiguous(), y, x, visible, f + 2 * p
+
+
+def place_agrees(torch, rd, canvas0, patches, y, x, visible, name: str) -> int:
+    """The place kernel on the card against the plain version on the CPU
+    (serial index_put_, source order) on the same patches and corners, the
+    canvas bit for bit; two launches bit-identical.  Returns the number of
+    canvas elements that changed."""
+    got, again = canvas0.clone(), canvas0.clone()
+    rd.place_patches(got, patches, y, x, visible)
+    rd.place_patches(again, patches, y, x, visible)
+    base = canvas0.cpu().clone()
+    want = base.clone()
+    rd.place_patches_plain(want, patches.cpu(), y.cpu(), x.cpu(), visible.cpu())
+    torch.cuda.synchronize()
+    got_cpu = got.cpu()
+    if not torch.equal(got_cpu.view(torch.int32), want.view(torch.int32)):
+        diff = int((got_cpu.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"place ({name}): {diff} canvas elements differ from the CPU plain version")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"place ({name}): two launches on the same canvas differ")
+    return int((got_cpu.view(torch.int32) != base.view(torch.int32)).sum())
+
+
+def footprint_elements(y, x, p: int, c: int, b: int) -> int:
+    """Canvas elements that some patch's P x P footprint covers (visible or
+    not: an invisible patch adds +0.0 there)."""
+    cov = np.zeros((c, c), bool)
+    for yy, xx in zip(y.tolist(), x.tolist()):
+        cov[yy : yy + p, xx : xx + p] = True
+    return int(cov.sum()) * b
+
+
+def check_place(torch, f: int) -> dict:
+    """The order-3 place kernel (csrc/render.cu dvt_place): bit for bit
+    against the CPU plain version on render_path_cases at order 3 and on
+    the record-array route's shape (295 stamps over the whole field, some
+    hanging over its edge, one masked), each into a canvas filled with
+    seeded random values; the latter timed against its bound."""
+    from debvader_tpu_torch.kernels import render as rd
+
+    dev = torch.device("cuda")
+    cases = {}
+    for name, (stamps, offsets) in render_path_cases(torch, f).items():
+        patches, y, x, visible, c = place_inputs(torch, stamps, offsets, f)
+        canvas0 = torch.randn((c, c, 6), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+        changed = place_agrees(torch, rd, canvas0, patches, y, x, visible, name)
+        cases[name] = {"sources": int(len(y)), "visible": int(visible.sum()), "changed_elements": changed}
+    if cases["off_field"]["visible"] != 0 or cases["chunk"]["changed_elements"] == 0:
+        raise AssertionError(f"place: unexpected visibility or coverage {cases}")
+    # another band count takes the 16x16 tile kernel with the same sums
+    gen2 = torch.Generator(device=dev).manual_seed(7)
+    st2 = torch.rand((20, 15, 15, 2), generator=gen2, device=dev)
+    off2 = (torch.rand((20, 2), generator=gen2, device=dev) - 0.5) * 260
+    patches, y, x, visible, c = place_inputs(torch, st2, off2, 256)
+    canvas0 = torch.randn((c, c, 2), generator=gen2, device=dev)
+    cases["two_bands"] = {"sources": 20, "changed_elements": place_agrees(
+        torch, rd, canvas0, patches, y, x, visible, "two_bands")}
+
+    n, s, b = 295, 59, 6
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stamps = torch.rand((n, s, s, b), generator=gen, device=dev)
+    offsets = (torch.rand((n, 2), generator=gen, device=dev) - 0.5) * (f + 40)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[7] = False
+    patches, y, x, visible, c = place_inputs(torch, stamps, offsets, f, mask)
+    canvas0 = torch.zeros((c, c, b), device=dev)
+    cases["record_array"] = {"sources": n, "changed_elements": place_agrees(
+        torch, rd, canvas0, patches, y, x, visible, "record_array")}
+    p = patches.shape[1]
+    covered = footprint_elements(y.cpu(), x.cpu(), p, c, b)
+    # the patches read once, corners and flags once, every covered canvas
+    # element read and written once; one add a patch element
+    t_bound, by = bound(patches.numel() * 4 + n * 9 + covered * 8, patches.numel())
+    work = canvas0.clone()
+    # the library call: the earlier port's order-3 place, one atomic
+    # index_put_(accumulate=True) of the masked patches at the flat canvas
+    # indices of their footprints (both made before the clock starts)
+    ar = torch.arange(p, device=dev)
+    flat = ((y[:, None] + ar)[:, :, None] * c + (x[:, None] + ar)[:, None, :]).reshape(-1)
+    masked = torch.where(visible[:, None, None, None], patches, torch.zeros((), device=dev)).reshape(-1, b)
+    lib, mine = canvas0.clone(), canvas0.clone()
+    lib.view(-1, b).index_put_((flat,), masked, accumulate=True)
+    rd.place_patches(mine, patches, y, x, visible)
+    lib_err = float((lib - mine).abs().max())
+    return {
+        "name": "place", "route": "cuda",
+        "source": "debvader_tpu_torch/csrc/render.cu",
+        "replaces": "debvader_tpu/ops/shift.py:209 (render_field's order-3 scan, XLA; no Pallas kernel)",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: rd.place_patches(work, patches, y, x, visible)),
+        "device_ms": profiled_device_ms(
+            torch, lambda: rd.place_patches(work, patches, y, x, visible), "place_tile_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: rd.place_patches_plain(work, patches, y, x, visible)),
+        "library_ms": cuda_ms(torch, lambda: work.view(-1, b).index_put_((flat,), masked, accumulate=True)),
+        "library_max_abs_err": lib_err,
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": [n, p, p, b, c], "covered_elements": covered,
+        "cases": cases,
+    }
+
+
+def check_chain_cases(torch, field_r: np.ndarray) -> tuple[dict, dict]:
+    """The chain route's two kernels on every case of detect_label_cases:
+    the stand-alone matched filter (a field at a time: filt and mask bit for
+    bit against the plain version) and the parent race (on the plain
+    filter's filt: dir_code and parent bit for bit against parent_race),
+    each timed with its bound.  Returns the race's record at the main case
+    (the field at the 5-sigma threshold) and every case."""
+    import torch.nn.functional as F
+
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.kernels import detect_fused as df
+    from debvader_tpu_torch.kernels import matched_filter as mf
+    from debvader_tpu_torch.kernels import parent_race as pr
+    from debvader_tpu_torch.ops.detection import default_filter_kernel, estimate_background
+
+    dev = torch.device("cuda")
+    img = torch.as_tensor(field_r, device=dev)
+    back, _, _, grms = estimate_background(img, box=64)
+    kernel = default_filter_kernel()
+    five = (DETECTION["thresh"] * grms * float(np.sqrt(np.sum(np.square(kernel))))).reshape(1)
+    cases = {"main": (img[None], back[None], kernel, five), **detect_label_cases(torch, field_r)}
+    out = {}
+    for name, (images, backs, k, thr) in cases.items():
+        t, f, _ = images.shape
+        filt = df.apply_filter(images - backs, k)
+        dirc, parent = pr.parent_race_kernel(filt, thr)
+        dir_p, parent_p = df.parent_race(filt, thr)
+        torch.cuda.synchronize()
+        if not (torch.equal(dirc, dir_p) and torch.equal(parent, parent_p)):
+            raise AssertionError(f"parent_race ({name}): dir_code/parent differ from the plain version")
+        race_bound, race_by = bound(t * f * f * 12 + t * 4, t * f * f * 20)
+        rec = {
+            "shape": [t, f, f], "masked_pixels": int((filt > thr.reshape(t, 1, 1)).sum()),
+            "parent_race": {
+                "device_ms": profiled_device_ms(torch, lambda: pr.parent_race_kernel(filt, thr), "parent_race_kernel"),
+                "ms": cuda_ms(torch, lambda: pr.parent_race_kernel(filt, thr)),
+                "plain_ms": cuda_ms(torch, lambda: df.parent_race(filt, thr)),
+                "bound_ms": race_bound, "bound_by": race_by,
+            },
+        }
+        if t == 1:
+            im, bk, th = images[0], backs[0], thr
+            mfilt, mmask = mf.matched_filter_threshold(im, bk, k, th)
+            pfilt, pmask = mf.matched_filter_threshold_plain(im, bk, k, th)
+            torch.cuda.synchronize()
+            if not torch.equal(mfilt.view(torch.int32), pfilt.view(torch.int32)):
+                raise AssertionError(f"matched_filter ({name}): filt is not bit-identical to the plain version")
+            if not torch.equal(mmask, pmask):
+                raise AssertionError(f"matched_filter ({name}): mask differs from the plain version")
+            separable = df.filter_taps(k)[0]
+            mf_bound, mf_by = bound(f * f * 13 + 4 + 56, f * f * (28 if separable else 98))
+            kt = torch.as_tensor(k, device=dev)[None, None]
+
+            def library():
+                with fp32_math():
+                    return F.conv2d((im - bk)[None, None], kt, padding=3) > th
+
+            rec["matched_filter"] = {
+                "device_ms": profiled_device_ms(
+                    torch, lambda: mf.matched_filter_threshold(im, bk, k, th), "matched_filter_kernel"),
+                "ms": cuda_ms(torch, lambda: mf.matched_filter_threshold(im, bk, k, th)),
+                "plain_ms": cuda_ms(torch, lambda: mf.matched_filter_threshold_plain(im, bk, k, th)),
+                "library_ms": cuda_ms(torch, library),
+                "bound_ms": mf_bound, "bound_by": mf_by, "separable": bool(separable),
+            }
+        out[name] = rec
+    main = out["main"]
+    race = {
+        "name": "parent_race", "route": "cuda",
+        "source": "debvader_tpu_torch/csrc/parent_race.cu",
+        "replaces": "debvader_tpu/ops/detection.py:281 (_detect_core's parent race, XLA; no Pallas kernel)",
+        "max_abs_err": 0.0, **main["parent_race"], "library_ms": None, "shape": main["shape"],
+    }
+    return race, out
+
+
+def chain_route_launches(torch, field_r: np.ndarray) -> dict:
+    """One chain-route detection core (``_detect_core`` with the
+    stand-alone filter kernel, the serving path's) under torch.profiler:
+    the port's kernel launches by counter, every device kernel by name and
+    the host-to-device copies; beside it the plain race alone on the same
+    filt, for the launches and uploads the race kernel replaces.  Fails
+    unless filter, race and labels launch once each and the race adds
+    nothing to the core but its kernel: no eager op, no upload."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from debvader_tpu_torch.config import DetectionConfig
+    from debvader_tpu_torch.kernels import clipped_stats as cs
+    from debvader_tpu_torch.kernels import detect_fused as df
+    from debvader_tpu_torch.kernels import label_select as ls
+    from debvader_tpu_torch.kernels import matched_filter as mf
+    from debvader_tpu_torch.kernels import parent_race as pr
+    from debvader_tpu_torch.ops import detection as td
+
+    img = torch.as_tensor(field_r, device="cuda")
+    cfg = DetectionConfig(use_pallas_filter=True, **DETECTION)
+
+    counters = (cs.sigma_clipped_stats, mf.matched_filter_threshold, pr.parent_race_kernel, ls.label_fixpoint)
+
+    def events(fn):
+        fn()
+        torch.cuda.synchronize()
+        for counter in counters:
+            counter.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kernels, uploads = {}, 0
+        for e in prof.key_averages():
+            if not str(e.device_type).endswith("CUDA"):
+                continue
+            if "Memcpy HtoD" in e.key:
+                uploads += int(e.count)
+            elif "Memcpy" not in e.key and "Memset" not in e.key:
+                kernels[e.key[:80]] = int(e.count)
+        return out, kernels, uploads
+
+    (labels, filt, grms), core_kernels, core_uploads = events(lambda: td._detect_core(img, cfg))
+    counts = {fn.__name__: fn.launches for fn in counters}
+    thr = (cfg.thresh * grms * td._threshold_scale(cfg)).reshape(1)
+    _, race_kernels, race_uploads = events(lambda: df.parent_race(filt[None], thr))
+    if counts["matched_filter_threshold"] != 1 or counts["parent_race_kernel"] != 1 or counts["label_fixpoint"] != 1:
+        raise AssertionError(f"chain route: port kernel launches {counts}, expected one each")
+    # the same core with the race stubbed out (its outputs made before the
+    # profile) launches everything the core launches but the race: the
+    # difference must be the race kernel alone, with no upload of its own
+    race_out = pr.parent_race_kernel(filt[None], thr)
+    torch.cuda.synchronize()
+    try:
+        td.parent_race_kernel = lambda filt, thresholds: race_out
+        _, rest_kernels, rest_uploads = events(lambda: td._detect_core(img, cfg))
+    finally:
+        td.parent_race_kernel = pr.parent_race_kernel
+    extra = Counter(core_kernels)
+    extra.subtract(rest_kernels)
+    extra = {k: v for k, v in extra.items() if v}
+    if list(extra.values()) != [1] or "parent_race" not in next(iter(extra)) or core_uploads != rest_uploads:
+        raise AssertionError(
+            f"chain route: the race adds kernels {extra} and {core_uploads - rest_uploads} host-to-device "
+            "copies to the core, expected the race kernel alone and no copy"
+        )
+    return {
+        "port_launches_per_detection": counts,
+        "port_launches_after_background": sum(counts[k] for k in (
+            "matched_filter_threshold", "parent_race_kernel", "label_fixpoint")),
+        "device_kernels_per_detection": sum(core_kernels.values()),
+        "host_to_device_copies_per_detection": core_uploads,
+        "plain_race_device_kernels": sum(race_kernels.values()),
+        "plain_race_host_to_device_copies": race_uploads,
+        "race_kernels_and_copies_beyond_the_rest": {"kernels": extra, "copies": core_uploads - rest_uploads},
+        "kernels_by_name": core_kernels,
+    }
 
 
 def check_filter_and_render(torch, field_r: np.ndarray) -> list[dict]:
@@ -936,16 +1227,20 @@ def run_epistemic_path(torch, net, field, centers, cutouts: np.ndarray, samples:
         raise AssertionError("epistemic: deposits outside every stamp's window")
     if not (np.isfinite(cat.epistemic_norm).all() and (cat.epistemic_norm > 0).all()):
         raise AssertionError("epistemic: epistemic_norm is not positive and finite")
-    # The same seed gives the same draws; cuDNN's transposed convs do not
-    # sum in a fixed order, so two runs agree to float32 rounding, not bit
-    # for bit.  Another seed moves the field by a share of its own size.
+    # The same seed gives the same draws, and the forward runs on cuDNN's
+    # deterministic algorithms (device.fp32_math), so every field of two
+    # runs is bit-identical.  Another seed moves the field by a share of
+    # its own size.
     _, again = make().deblend_and_predict(centers)
     _, other = make(seed=4321).deblend_and_predict(centers)
     same_seed = float(np.abs(again["predicted_epistemic_field"] - epi).max())
     other_seed = float(np.abs(other["predicted_epistemic_field"] - epi).max())
-    if same_seed > 1e-4 * float(epi.max()) or other_seed < 1e-2 * float(epi.max()):
+    differ = [k for k, v in fields.items() if v is not None and not np.array_equal(
+        np.asarray(v).view(np.int32), np.asarray(again[k]).view(np.int32))]
+    if differ or other_seed < 1e-2 * float(epi.max()):
         raise AssertionError(
-            f"epistemic: same seed differs by {same_seed}, another seed by {other_seed} (field max {epi.max()})"
+            f"epistemic: same seed not bit-identical on {differ} (epistemic field off by {same_seed}), "
+            f"another seed off by {other_seed} (field max {epi.max()})"
         )
 
     # warm time and peak memory of the call
@@ -999,6 +1294,58 @@ def run_epistemic_path(torch, net, field, centers, cutouts: np.ndarray, samples:
             "baseline_bytes": int(base_stats), "peak_bytes": int(peak_stats),
         },
     }
+
+
+def time_cudnn_determinism(torch, net, field, centers, pairs: int = 10) -> dict:
+    """What cuDNN's deterministic algorithms (on inside device.fp32_math)
+    cost: warm deblend_s of the record-array route, the warm streaming
+    deblend_and_render (the serving call) and the warm epistemic
+    deblend_and_predict (16 samples), each warmed once under each setting,
+    then ``pairs`` off/on pairs, the order within a pair alternating (off,
+    on / on, off / ...).  Per route and setting: the seconds of every run,
+    their median, least and largest; and the median of the pairs' on / off
+    ratios."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch import device as dv
+
+    cfg = dt.PipelineConfig(interp_order=1, source_chunk=128, epistemic_samples=16)
+    record = dt.DeblendField(net, field, z_mode="mean", device="cuda")
+    stream = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    epi = dt.DeblendField(net, field, epistemic_uncertainty_estimation=True, z_mode="mean", cfg=cfg,
+                          generator=torch.Generator(device="cuda").manual_seed(1234), device="cuda")
+    routes = {
+        "deblend_s": lambda: record.deblend_field(centers),
+        "streaming_deblend_and_render_s": lambda: stream.deblend_and_render(
+            centers, return_model=True, measure=True),
+        "epistemic_deblend_and_predict_s": lambda: epi.deblend_and_predict(centers),
+    }
+    runs = {name: {"off": [], "on": []} for name in routes}
+    order = [("off", "on") if i % 2 == 0 else ("on", "off") for i in range(pairs)]
+    try:
+        for setting in ("off", "on"):
+            dv._CUDNN_DETERMINISTIC = setting == "on"
+            for fn in routes.values():
+                fn()
+        for pair in order:
+            for setting in pair:
+                dv._CUDNN_DETERMINISTIC = setting == "on"
+                for name, fn in routes.items():
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    runs[name][setting].append(time.perf_counter() - t)
+    finally:
+        dv._CUDNN_DETERMINISTIC = True
+    out = {}
+    for name, r in runs.items():
+        out[name] = {
+            **{setting: {"median": float(np.median(v)), "min": min(v), "max": max(v), "runs": v}
+               for setting, v in r.items()},
+            "pairs": pairs,
+            "median_on_over_off": float(np.median(np.array(r["on"]) / np.array(r["off"]))),
+        }
+    return out
 
 
 def serving_cfg(chunk=128):
@@ -1123,6 +1470,7 @@ def main() -> int:
     from debvader_tpu_torch.kernels import detect_fused as df
     from debvader_tpu_torch.kernels import label_select as ls
     from debvader_tpu_torch.kernels import matched_filter as mf
+    from debvader_tpu_torch.kernels import parent_race as pr
     from debvader_tpu_torch.kernels import render as rd
 
     report = {}
@@ -1151,6 +1499,13 @@ def main() -> int:
     cases = check_detect_label_cases(torch, df, ls, field[0, :, :, 2])
     report["detect_label_cases"] = cases
     print(json.dumps({"detect_label_cases": cases}))
+    race, chain = check_chain_cases(torch, field[0, :, :, 2])
+    records.append(race)
+    report["chain_cases"] = chain
+    print(json.dumps({"chain_cases": chain}))
+    place = check_place(torch, field.shape[1])
+    records.append(place)
+    print(json.dumps({"place_cases": place["cases"], "place_library_max_abs_err": place["library_max_abs_err"]}))
 
     import debvader_tpu_torch as dt
 
@@ -1169,7 +1524,9 @@ def main() -> int:
         "detect_fused": df.matched_filter_parents,
         "label_select": ls.label_fixpoint,
         "matched_filter": mf.matched_filter_threshold,
+        "parent_race": pr.parent_race_kernel,
         "render": rd.render_field_kernel,
+        "place": rd.place_patches,
     }
 
     def reset_counts():
@@ -1187,7 +1544,7 @@ def main() -> int:
 
     reset_counts()
     centers, res, residual, times = run_main_path(torch, net, field, "cuda")
-    launches = read_counts("record-array", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1})
+    launches = read_counts("record-array", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1, "place": 1})
     if not (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32):
         raise AssertionError("the main path changed the caller's TF32 flags")
     print(f"tf32 outside the port: cudnn {torch.backends.cudnn.allow_tf32} "
@@ -1209,6 +1566,16 @@ def main() -> int:
     }
     print(json.dumps({"main_path": main}))
     report["main_path"] = main
+
+    # the order-3 render adds in source order: two residuals of one record
+    # array are bit-identical
+    again = dt.DeblendField(net, field, z_mode="mean", device="cuda")
+    again.deblend_field(centers)
+    first, second = again.get_residual_field(), again.get_residual_field()
+    if not np.array_equal(first.view(np.int32), second.view(np.int32)):
+        raise AssertionError("two residuals of one record array differ")
+    if not np.array_equal(first.view(np.int32), residual.view(np.int32)):
+        raise AssertionError("the residual of a second DeblendField differs from the first's")
 
     # warm runs: stage times, then one profiled run for the device's idle
     # share; and detection at the default threshold for its host cost
@@ -1236,7 +1603,7 @@ def main() -> int:
     reset_counts()
     dfield, s_centers, catalog, s_residual, s_model, s_fields, s_times = run_serving_path(torch, net, field, "cuda")
     serving_launches = read_counts(
-        "streaming", {"clipped_stats": 1, "label_select": 1, "matched_filter": 1, "render": 3}
+        "streaming", {"clipped_stats": 1, "label_select": 1, "matched_filter": 1, "parent_race": 1, "render": 3}
     )
     if not np.array_equal(s_centers, centers):
         raise AssertionError("detection with the stand-alone filter kernel differs from the fused core")
@@ -1300,6 +1667,9 @@ def main() -> int:
           f"{s_prof['device_busy_ms']} ms, idle share {s_prof['device_idle_share']}")
     for r in s_prof["top_device_events"][:12]:
         print(f"  {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['name'][:100]}")
+    chain_launches = chain_route_launches(torch, field[0, :, :, 2])
+    serving["chain_route"] = chain_launches
+    print(json.dumps({"chain_route": chain_launches}))
 
     # phase 7: the fidelity-precision tail pair on this batch's real
     # dec/ConvT_7 input
@@ -1317,6 +1687,9 @@ def main() -> int:
     epistemic = run_epistemic_path(torch, net, field, centers, main_cutouts)
     report["epistemic_path"] = epistemic
     print(json.dumps({"epistemic_path": epistemic}))
+    determinism = time_cudnn_determinism(torch, net, field, centers)
+    report["cudnn_determinism"] = determinism
+    print(json.dumps({"cudnn_determinism": determinism}))
 
     # phase 10: a 256^2 crop on the card (TF32 still on outside the port)
     # and on the CPU must agree; the forward run outside the port's scope,
@@ -1375,8 +1748,8 @@ def main() -> int:
     # launches: the first three kernels on the record-array path, the
     # filter and the render on the streaming path, each counted from 0;
     # the two tails carry their own
-    counted_on = dict.fromkeys(("clipped_stats", "detect_fused", "label_select"), launches)
-    counted_on.update(dict.fromkeys(("matched_filter", "render"), serving_launches))
+    counted_on = dict.fromkeys(("clipped_stats", "detect_fused", "label_select", "place"), launches)
+    counted_on.update(dict.fromkeys(("matched_filter", "parent_race", "render"), serving_launches))
     for rec in records:
         if rec["name"] in counted_on:
             rec["launches"] = counted_on[rec["name"]][rec["name"]]

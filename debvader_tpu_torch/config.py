@@ -140,19 +140,34 @@ class DetectionConfig:
     ``threshold_scaling`` is 'sep_conv' (thresh * rms, the reference's
     behaviour) or 'matched' (thresh * rms * ||k||_2).
 
-    The three backend fields keep the JAX package's names, so a config
-    carries over; what they select here:
+    Every field of the JAX package's ``DetectionConfig`` is here, under
+    its name and with its default, so a JAX config carries over
+    (``DetectionConfig(**dataclasses.asdict(jax_cfg))``).  What the backend
+    fields select in the port:
 
-    - ``use_pallas_fused``: None (default) or True runs the fused detect
-      core (kernels/detect_fused.py: filter, threshold and parent race in
-      one kernel) on either device, since every kernel wrapper of the port
-      takes its plain version on the CPU itself.  False runs the chain
-      background -> filter -> race -> labels step by step.  The fused core
-      takes a 7x7 filter only; any other ``filter_size`` runs the chain.
+    - ``use_pallas_fused``: True runs the fused detect core
+      (kernels/detect_fused.py: filter, threshold and parent race in one
+      kernel); False runs the chain background -> filter -> race -> labels
+      step by step.  None (default) is the JAX package's auto mode, with
+      "on the accelerator" read as "on either device" (every kernel
+      wrapper of the port takes its plain version on the CPU itself): the
+      fused core runs iff ``use_pallas_select``, since in the JAX package
+      it feeds the Pallas label step that this field switches off.  The
+      fused core takes a 7x7 filter only; any other ``filter_size`` runs
+      the chain.
     - ``use_pallas_filter``: True runs the chain with the stand-alone
       matched-filter kernel (kernels/matched_filter.py) as its filter, and
       wins over the fused core.  Otherwise the chain filters with
-      ``F.conv2d``, as it does for any ``filter_size`` other than 7."""
+      ``F.conv2d``, as it does for any ``filter_size`` other than 7.  The
+      chain's parent race is a kernel of its own (kernels/parent_race.py).
+    - ``use_pallas_select`` and ``use_pallas_clip`` change no backend
+      beyond the auto rule above: the port has no XLA chain to fall back
+      to, so a card always runs the label kernel (kernels/label_select.py)
+      and the clipped-statistics kernel (kernels/clipped_stats.py), and
+      the CPU their plain versions.
+    - ``deblend_algo``: 'watershed' (default) or 'lutz'; 'lutz' (the
+      JAX package's native multi-threshold tree) is not ported yet and
+      detection raises ``NotImplementedError`` for it."""
 
     thresh: float = 1.5
     minarea: int = 4
@@ -165,10 +180,18 @@ class DetectionConfig:
     threshold_scaling: str = "sep_conv"
     use_pallas_filter: bool = False
     use_pallas_fused: bool | None = None
+    use_pallas_select: bool = True
+    use_pallas_clip: bool | None = None
     clean: bool = True
     clean_param: float = 1.0
+    deblend_algo: str = "watershed"
 
     def __post_init__(self):
+        if self.deblend_algo not in ("watershed", "lutz"):
+            raise ValueError(
+                f"deblend_algo must be 'watershed' or 'lutz', got "
+                f"{self.deblend_algo!r}"
+            )
         if self.threshold_scaling not in ("sep_conv", "matched"):
             raise ValueError(
                 f"unknown threshold_scaling {self.threshold_scaling!r}"

@@ -51,6 +51,28 @@
 // Any other band count, and stamps or outputs not aligned to 8 bytes, take
 // render_generic_kernel: 16x16 tiles, a shared-memory sum per element and
 // gathers behind bounds tests, the same sums bit for bit.
+//
+// dvt_place, the second step of the order-3 render (no Pallas kernel: the
+// JAX package adds the patches by a sequential lax.scan, ops/shift.py
+// render_field): the stamps arrive already shifted by the PyTorch spline
+// as (N, P, P, B) patches with integer canvas corners (y, x), and each is
+// added into the padded canvas in place,
+//   canvas[y + a, x + b, c] = (...(canvas + q_0) + q_1) + ... ,
+// the patches covering the element in ascending source index, q_i the
+// patch's value, or +0.0 where the source is not visible (the plain
+// version adds where(visible, patch, 0)): the scan's order exactly, so the
+// canvas is bit-identical to the plain version's loop of slice adds.
+// Bound: bytes (the patches read once, the covered canvas elements read and
+// written once; one add a patch element).  The same design as the order-1
+// kernel for B = 6 (place_tile_kernel<6>): 16 x 32-pixel tiles over the
+// whole canvas, each element's sum in a register that starts from the
+// canvas's own value, the ordered ballot list of the patches that overlap
+// the tile, each patch's part of the tile staged by 8-byte cp.async,
+// double-buffered (zero-filled outside the patch and for a source that is
+// not visible), and tiles that no patch touches neither read nor written.
+// An element adds a patch only where the patch covers it.  Other B take
+// place_generic_kernel (16 x 16 tiles, sums in shared memory, direct
+// loads), with the same sums.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,8 +109,8 @@ __device__ __forceinline__ bool place(const float* __restrict__ offsets,
 // Ordered compaction of one batch of blockDim.x sources into `list`;
 // returns the number listed.  Two barriers; the caller keeps the list's
 // readers ahead of the next batch's writers.
-template <int kWarps>
-__device__ __forceinline__ int compact(bool hit, const Placed& p, Placed* list, int* warp_count) {
+template <int kWarps, typename Item>
+__device__ __forceinline__ int compact(bool hit, const Item& p, Item* list, int* warp_count) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned ballot = __ballot_sync(0xffffffffu, hit);
   if (lane == 0) warp_count[warp] = __popc(ballot);
@@ -316,7 +338,212 @@ int launch_tile(const float* stamps, const float* offsets, const uint8_t* mask, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- order-3 place
+
+struct Patch {
+  int src;      // source index
+  int y0;       // canvas row of patch row 0
+  int x0;
+  int visible;  // 0: the patch adds +0.0
+};
+
+// Source i's patch and whether it overlaps [ty0, ty0 + th) x [tx0, tx0 + tw).
+__device__ __forceinline__ bool patch_hit(const int32_t* __restrict__ corners,
+                                          const uint8_t* __restrict__ visible, int i, int n,
+                                          int p, int ty0, int tx0, int th, int tw, Patch* q) {
+  if (i >= n) return false;
+  q->src = i;
+  q->y0 = corners[2 * i];
+  q->x0 = corners[2 * i + 1];
+  q->visible = visible == nullptr || visible[i];
+  return q->y0 < ty0 + th && q->y0 + p > ty0 && q->x0 < tx0 + tw && q->x0 + p > tx0;
+}
+
+template <int B>
+struct PlaceShape {
+  static_assert(B % 2 == 0, "a pixel must be whole band pairs (8-byte copies)");
+  static constexpr int kThreads = kTileCols * B;  // one thread a row element
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kWinRow = kTileCols * B;   // floats in a window row
+  static constexpr int kWinFloats = kTileRows * kWinRow;
+  static constexpr int kPairsPerRow = kWinRow / 2;
+  static constexpr int kWinPairs = kTileRows * kPairsPerRow;
+  static constexpr size_t kShared = 2 * kWinFloats * sizeof(float);
+};
+
+// Stage patch rows a0 .. a0 + kTileRows - 1 and columns b0 .. b0 +
+// kTileCols - 1 (all bands) of patch `pt` into `win`; zero outside the
+// patch, and everywhere when the source is not visible.
+template <int B>
+__device__ __forceinline__ void place_stage(float* win, const float* __restrict__ pt, int p,
+                                            int a0, int b0, bool visible) {
+  using T = PlaceShape<B>;
+  for (int w = threadIdx.x; w < T::kWinPairs; w += T::kThreads) {
+    const int r = w / T::kPairsPerRow, q = w - r * T::kPairsPerRow;
+    const int c = q / (B / 2), part = q - c * (B / 2);
+    const int a = a0 + r, bb = b0 + c;
+    const bool ok = visible && a >= 0 && a < p && bb >= 0 && bb < p;
+    const float* src = ok ? pt + (static_cast<long long>(a) * p + bb) * B + 2 * part : pt;
+    cp_async8(win + 2 * w, src, ok);
+  }
+}
+
+template <int B>
+__global__ void __launch_bounds__(PlaceShape<B>::kThreads)
+place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__ corners,
+                  const uint8_t* __restrict__ visible, float* __restrict__ canvas, int n, int p,
+                  int c) {
+  using T = PlaceShape<B>;
+  extern __shared__ __align__(16) float win[];  // two windows
+  __shared__ Patch list[T::kThreads];
+  __shared__ int warp_count[T::kWarps];
+
+  const int tid = threadIdx.x;
+  const int ty0 = blockIdx.y * kTileRows, tx0 = blockIdx.x * kTileCols;
+  const size_t patch_floats = static_cast<size_t>(p) * p * B;
+  const long long pitch = static_cast<long long>(c) * B;
+  const int col = tid / B;  // this thread's pixel in the tile row
+  const bool col_ok = tx0 + col < c;
+  float* o = canvas + static_cast<long long>(tx0) * B + tid;
+
+  float acc[kTileRows];
+  bool touched = false;
+
+  for (int base = 0; base < n; base += T::kThreads) {
+    Patch q;
+    const bool hit = patch_hit(corners, visible, base + tid, n, p, ty0, tx0, kTileRows, kTileCols, &q);
+    const int total = compact<T::kWarps>(hit, q, list, warp_count);
+    if (total == 0) continue;
+    if (!touched) {
+      // each sum starts from the canvas's own value
+      touched = true;
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r)
+        acc[r] = (col_ok && ty0 + r < c) ? o[(ty0 + r) * pitch] : 0.f;
+    }
+
+    place_stage<B>(win, patches + list[0].src * patch_floats, p, ty0 - list[0].y0,
+                   tx0 - list[0].x0, list[0].visible);
+    cp_async_commit();
+    for (int k = 0; k < total; ++k) {
+      if (k + 1 < total) {
+        const Patch& nx = list[k + 1];
+        place_stage<B>(win + ((k + 1) & 1) * T::kWinFloats, patches + nx.src * patch_floats, p,
+                       ty0 - nx.y0, tx0 - nx.x0, nx.visible);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      // window row r is patch row a0 + r; only elements the patch covers add
+      const int a0 = ty0 - list[k].y0;
+      const int bcol = tx0 - list[k].x0 + col;
+      const float* wb = win + (k & 1) * T::kWinFloats + tid;
+      if (bcol >= 0 && bcol < p) {
+#pragma unroll
+        for (int r = 0; r < kTileRows; ++r) {
+          if (a0 + r >= 0 && a0 + r < p) acc[r] = __fadd_rn(acc[r], wb[r * T::kWinRow]);
+        }
+      }
+      __syncthreads();  // this window is restaged two patches on
+    }
+  }
+
+  if (!touched || !col_ok) return;
+#pragma unroll
+  for (int r = 0; r < kTileRows; ++r) {
+    if (ty0 + r < c) o[(ty0 + r) * pitch] = acc[r];
+  }
+}
+
+__global__ void __launch_bounds__(kGenThreads)
+place_generic_kernel(const float* __restrict__ patches, const int32_t* __restrict__ corners,
+                     const uint8_t* __restrict__ visible, float* __restrict__ canvas, int n, int p,
+                     int b, int c) {
+  extern __shared__ float acc_s[];  // kGenTile * kGenTile * b
+  __shared__ Patch list[kGenThreads];
+  __shared__ int warp_count[kGenWarps];
+
+  const int tid = threadIdx.x;
+  const int ty0 = blockIdx.y * kGenTile, tx0 = blockIdx.x * kGenTile;
+  const int row_elems = kGenTile * b;
+  const int tile_elems = kGenTile * row_elems;
+  const long long pitch = static_cast<long long>(c) * b;
+  bool touched = false;
+
+  for (int base = 0; base < n; base += kGenThreads) {
+    Patch q;
+    const bool hit = patch_hit(corners, visible, base + tid, n, p, ty0, tx0, kGenTile, kGenTile, &q);
+    const int total = compact<kGenWarps>(hit, q, list, warp_count);
+    if (total == 0) continue;
+    // a thread reads and adds only its own elements e = tid + k * threads
+    if (!touched) {
+      touched = true;
+      for (int e = tid; e < tile_elems; e += kGenThreads) {
+        const int r = e / row_elems, rem = e - r * row_elems;
+        const int y = ty0 + r, x = tx0 + rem / b;
+        acc_s[e] = (y < c && x < c) ? canvas[y * pitch + static_cast<long long>(tx0) * b + rem] : 0.f;
+      }
+    }
+    for (int k = 0; k < total; ++k) {
+      const Patch pq = list[k];
+      const float* pt = patches + static_cast<size_t>(pq.src) * p * p * b;
+      for (int e = tid; e < tile_elems; e += kGenThreads) {
+        const int r = e / row_elems, rem = e - r * row_elems;
+        const int cc = rem / b, ch = rem - cc * b;
+        const int a = ty0 + r - pq.y0, bb = tx0 + cc - pq.x0;
+        if (a < 0 || a >= p || bb < 0 || bb >= p) continue;
+        const float v = pq.visible ? pt[(static_cast<long long>(a) * p + bb) * b + ch] : 0.f;
+        acc_s[e] = __fadd_rn(acc_s[e], v);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!touched) return;
+  for (int e = tid; e < tile_elems; e += kGenThreads) {
+    const int r = e / row_elems, rem = e - r * row_elems;
+    const int y = ty0 + r, x = tx0 + rem / b;
+    if (y < c && x < c) canvas[y * pitch + static_cast<long long>(tx0) * b + rem] = acc_s[e];
+  }
+}
+
+template <int B>
+int launch_place(const float* patches, const int32_t* corners, const uint8_t* visible, float* canvas,
+                 int n, int p, int c, cudaStream_t stream) {
+  using T = PlaceShape<B>;
+  if constexpr (T::kShared > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        place_tile_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(T::kShared));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((c + kTileCols - 1) / kTileCols, (c + kTileRows - 1) / kTileRows);
+  place_tile_kernel<B><<<grid, T::kThreads, T::kShared, stream>>>(patches, corners, visible, canvas,
+                                                                   n, p, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// patches (n, p, p, b) float32 contiguous; corners (n, 2) int32, the
+// canvas row and column of each patch's element (0, 0); visible n bytes (0:
+// the patch adds +0.0) or null; canvas (c, c, b) float32 contiguous, added
+// into in place.  Returns the cudaError_t of the launch.
+extern "C" int dvt_place(const float* patches, const int32_t* corners, const uint8_t* visible,
+                         float* canvas, int n, int p, int b, int c, void* stream) {
+  if (n <= 0 || c <= 0 || b <= 0 || p <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b == 6 && (reinterpret_cast<uintptr_t>(patches) & 7u) == 0) {
+    return launch_place<6>(patches, corners, visible, canvas, n, p, c, st);
+  }
+  const size_t shared = static_cast<size_t>(kGenTile) * kGenTile * b * sizeof(float);
+  if (shared > 40 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((c + kGenTile - 1) / kGenTile, (c + kGenTile - 1) / kGenTile);
+  place_generic_kernel<<<grid, kGenThreads, shared, st>>>(patches, corners, visible, canvas, n, p, b, c);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // stamps (n, s, s, b) float32 contiguous; offsets (n, 2) float32; mask n
 // bytes (0 drops the source) or null; out: the (f, f, b) window, element

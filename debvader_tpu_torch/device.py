@@ -27,20 +27,30 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+# A measurement hook, not an option: chip_smoke.py alone sets it False, in
+# turns with True, to time what cuDNN's deterministic algorithms cost.
+_CUDNN_DETERMINISTIC = True
+
+
 @contextlib.contextmanager
 def fp32_math():
-    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside the block,
-    the caller's settings restored after it.
+    """TF32 off for cuDNN convolutions and cuBLAS matmuls, and cuDNN's
+    deterministic algorithms on, inside the block; the caller's settings
+    restored after it.
 
     The model and background paths are float32; TF32 keeps about three
     decimal digits (the same class of error as a TPU's default one-pass
-    precision).  Scoped, so the port never changes the numerics of the
-    caller's other code."""
+    precision).  Deterministic algorithms make two runs of a forward on
+    the same inputs bit-identical, as the JAX package's are.  Scoped, so
+    the port never changes the numerics of the caller's other code."""
     cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = _CUDNN_DETERMINISTIC
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn
         torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.deterministic = deterministic

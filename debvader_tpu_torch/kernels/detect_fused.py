@@ -138,21 +138,6 @@ def matched_filter_parents_plain(images, backgrounds, kernel, thresholds):
     return filt, dir_code, parent
 
 
-_device_taps: dict = {}
-
-
-def taps_on(kernel: np.ndarray, device):
-    """(separable, taps on ``device``) of :func:`filter_taps`, decomposed
-    and uploaded once per (filter, device)."""
-    key = (np.asarray(kernel, np.float32).tobytes(), str(device))
-    entry = _device_taps.get(key)
-    if entry is None:
-        separable, taps = filter_taps(kernel)
-        entry = (separable, torch.as_tensor(taps, device=device))
-        _device_taps[key] = entry
-    return entry
-
-
 _host_taps: dict = {}
 
 

@@ -11,21 +11,24 @@ that ``DetectionConfig.use_pallas_filter`` selects.  For one field (F, F):
 - mask = filt > threshold.
 
 The CUDA kernel (csrc/matched_filter.cu) is bound by bytes: it reads the
-image and the background once and writes filt and a one-byte mask once,
-staging each 32x32 tile's 38x38 window in shared memory.  filt is
-bit-identical to the plain version, and the mask is ``filt > threshold`` of
-that filt; a pixel whose filt sits within an ulp of the threshold can
-still differ from a convolution library's answer, which sums in another
-order.
+image and the background once and writes filt and a one-byte mask once.
+It is the filter half of the fused detect core's design: a block stages
+its 32x64 tile's 38x72 window with cp.async and takes the taps as a
+by-value parameter (``detect_fused.host_taps``); the threshold stays on
+the device.  filt and the mask are bit-identical to the plain version; a
+pixel whose filt sits within an ulp of the threshold can still differ from
+a convolution library's answer, which sums in another order.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from debvader_tpu_torch.kernels import _build
-from debvader_tpu_torch.kernels.detect_fused import apply_filter, taps_on
+from debvader_tpu_torch.kernels.detect_fused import apply_filter, host_taps
 
 __all__ = ["matched_filter_threshold", "matched_filter_threshold_plain"]
 
@@ -38,13 +41,13 @@ def matched_filter_threshold_plain(image, background, kernel, threshold):
 
 def _launch(image, background, kernel, threshold):
     f = image.shape[0]
-    separable, taps = taps_on(kernel, image.device)
+    separable, taps = host_taps(kernel)
     fn = _build.launcher("matched_filter", "dvt_matched_filter", 6, 2)
     filt = torch.empty_like(image)
     mask = torch.empty(image.shape, dtype=torch.bool, device=image.device)
     status = _build.call(
         fn, image.device, image.data_ptr(), background.data_ptr(), threshold.data_ptr(),
-        taps.data_ptr(), filt.data_ptr(), mask.data_ptr(), f, int(separable),
+        ctypes.addressof(taps), filt.data_ptr(), mask.data_ptr(), f, int(separable),
     )
     _build.check(status, "matched_filter")
     matched_filter_threshold.launches += 1
@@ -69,7 +72,16 @@ def matched_filter_threshold(
         raise ValueError("background must match image")
     image = image.to(torch.float32).contiguous()
     background = background.to(torch.float32).contiguous()
-    threshold = torch.as_tensor(threshold, dtype=torch.float32, device=image.device).reshape(1)
+    # a one-element float32 tensor on the image's device (the detection
+    # chain's, computed there) goes to the kernel as it is
+    if not (
+        isinstance(threshold, torch.Tensor)
+        and threshold.dtype == torch.float32
+        and threshold.device == image.device
+        and threshold.ndim <= 1
+        and threshold.numel() == 1
+    ):
+        threshold = torch.as_tensor(threshold, dtype=torch.float32, device=image.device).reshape(1)
     if image.device.type == "cpu":
         return matched_filter_threshold_plain(image, background, kernel, threshold)
     if image.device.type == "cuda":

@@ -14,7 +14,7 @@ Port of debvader_tpu.ops.detection for one field:
    - the chain ``_detect_core``: the filter as a step of its own, the
      stand-alone kernel (kernels/matched_filter.py, under
      ``use_pallas_filter``) or ``F.conv2d`` (any odd ``filter_size``), then
-     the parent race.
+     the parent race (kernels/parent_race.py).
    Either way label resolution follows (kernels/label_select.py).
 3. On the host, over the masked pixels only: the quantized
    multi-threshold merge of watershed segments (deblend_nthresh,
@@ -33,9 +33,10 @@ import torch.nn.functional as F
 from debvader_tpu_torch.config import DetectionConfig
 from debvader_tpu_torch.device import fp32_math, resolve_device
 from debvader_tpu_torch.kernels.clipped_stats import sigma_clipped_stats
-from debvader_tpu_torch.kernels.detect_fused import matched_filter_parents, parent_race
+from debvader_tpu_torch.kernels.detect_fused import matched_filter_parents
 from debvader_tpu_torch.kernels.label_select import label_fixpoint
 from debvader_tpu_torch.kernels.matched_filter import matched_filter_threshold
+from debvader_tpu_torch.kernels.parent_race import parent_race_kernel
 
 __all__ = [
     "default_filter_kernel",
@@ -161,11 +162,14 @@ def _conv2d_same(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def _fused_enabled(cfg: DetectionConfig) -> bool:
-    """Whether the fused detect core runs: by default (None) on either
-    device, never for a filter that is not 7x7."""
+    """Whether the fused detect core runs: never for a filter that is not
+    7x7; in auto mode (None) on either device iff ``use_pallas_select``, the
+    JAX package's rule; an explicit ``use_pallas_fused`` wins."""
     if cfg.filter_size != 7:
         return False
-    return True if cfg.use_pallas_fused is None else bool(cfg.use_pallas_fused)
+    if cfg.use_pallas_fused is None:
+        return bool(cfg.use_pallas_select)
+    return bool(cfg.use_pallas_fused)
 
 
 def _detect_core(image: torch.Tensor, cfg: DetectionConfig):
@@ -187,7 +191,7 @@ def _detect_core(image: torch.Tensor, cfg: DetectionConfig):
         fore = torch.where(finite, image - back, torch.zeros((), dtype=image.dtype, device=image.device))
         filt = _conv2d_same(fore, torch.as_tensor(kernel_np, device=image.device))
         mask = filt > threshold
-    dir_code, cur0 = parent_race(filt[None], threshold)
+    dir_code, cur0 = parent_race_kernel(filt[None], threshold)
     roots = label_fixpoint(cur0[0], dir_code[0])
     labels = torch.where(mask, roots, torch.full_like(roots, -1))
     return labels, filt, grms
@@ -419,6 +423,11 @@ def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda"):
     """Full detection on a square 2D band: dict with 'y', 'x' (float
     barycentres), 'area', 'flux', 'peak_yx', 'labels', 'globalrms'."""
     cfg = cfg or DetectionConfig()
+    if cfg.deblend_algo == "lutz":
+        raise NotImplementedError(
+            "deblend_algo='lutz' is not ported to the PyTorch package yet "
+            "(ROADMAP.md Queue 1, item: 3. tiles and batched detection)"
+        )
     dev = resolve_device(device)
     image = torch.as_tensor(np.asarray(image_2d, np.float32), device=dev)
     if image.ndim != 2 or image.shape[0] != image.shape[1]:

@@ -7,9 +7,11 @@ part places the shifted patch on a padded canvas.
 
 At order 1, CUDA tensors render through the hand-written kernel of
 kernels/render.py, which gathers into the field window of the canvas; CPU
-tensors take its plain version's scatter.  Order 3 (no kernel in the JAX
-package either) is the PyTorch prefilter and one
-``index_put_(accumulate=True)`` on both devices.
+tensors take its plain version.  Order 3 (an XLA scan in the JAX
+package, no Pallas kernel) shifts with the PyTorch spline on both devices,
+then places the patches with ``place_patches``: on a card its kernel adds
+them in source order, as the scan does, so the canvas is the same from run
+to run; on the CPU its plain version, a loop in the same order.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from debvader_tpu_torch.kernels.render import (
+    place_patches,
     render_field_kernel,
     render_into_canvas,
     subpixel_shift_const,
@@ -58,7 +61,8 @@ def render_field(
     hand it to the next call's ``canvas``, and crop the last one.  The
     canvas is accumulated into in place: keep only the returned tensor.
     The canvas's padding ring is scratch (the order-1 kernel leaves it
-    zero, the scatter deposits the stamps' spill there)."""
+    zero, the order-3 place and the plain versions deposit the stamps' spill
+    there)."""
     s, b = stamps.shape[1], stamps.shape[-1]
     dev = stamps.device
     pad = render_pad(s, order)
@@ -85,5 +89,5 @@ def render_field(
     if canvas is None:
         canvas = torch.zeros((canvas_size, canvas_size, b), dtype=torch.float32, device=dev)
     interp = subpixel_shift_const if order == 1 else subpixel_shift_spline_const
-    render_into_canvas(canvas, stamps, offsets, mask, field_size, (pad - s) // 2, interp)
+    render_into_canvas(canvas, stamps, offsets, mask, field_size, (pad - s) // 2, interp, place_patches)
     return window(canvas) if crop else canvas

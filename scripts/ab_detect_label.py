@@ -1,5 +1,5 @@
-"""Time the fused detect core and the label resolution of two checkouts of
-the port on one card, in turns.
+"""Time the fused detect core, the label resolution and the stand-alone
+matched filter of two checkouts of the port on one card, in turns.
 
     python3 scripts/ab_detect_label.py --parent DIR [--out FILE]
 
@@ -11,7 +11,9 @@ parent, this tree, this tree, parent; each worker imports
 times ``matched_filter_parents`` and ``label_fixpoint`` on the same seeded
 inputs (chip_smoke.make_field's r band): at the main path's shape
 (1, 1024, 1024), 5-sigma matched threshold, and on a (16, 1024, 1024)
-stack of that field rolled and re-noised.  Per kernel and shape it prints
+stack of that field rolled and re-noised; and ``matched_filter_threshold``
+on that field, with the separable filter and with a 49-tap one.  Per
+kernel and shape it prints
 the device time (torch.profiler, mean of 30 launches), the per-call time
 (CUDA events around the wrapper, median of 30) and, for the main shape,
 the host time of the wrapper's pieces.  Outputs of the two trees are held
@@ -50,11 +52,12 @@ def worker(tree: Path) -> dict:
     from debvader_tpu_torch.kernels import _build
     from debvader_tpu_torch.kernels import detect_fused as df
     from debvader_tpu_torch.kernels import label_select as ls
+    from debvader_tpu_torch.kernels import matched_filter as mf
     from debvader_tpu_torch.ops.detection import default_filter_kernel, estimate_background
 
     if not Path(df.__file__).resolve().is_relative_to(tree.resolve()):
         raise RuntimeError(f"imported {df.__file__}, not from {tree}")
-    _build.build_all(["detect_fused", "label_select"])
+    _build.build_all(["detect_fused", "label_select", "matched_filter"])
     dev = torch.device("cuda")
     img = torch.as_tensor(smoke.make_field()[0, :, :, 2], device=dev)
     f = img.shape[0]
@@ -91,6 +94,16 @@ def worker(tree: Path) -> dict:
                 "ms": smoke.cuda_ms(torch, lambda: ls.label_fixpoint(cur0, dir2)),
             },
         }
+    full = (kernel + 0.05 * np.random.default_rng(5).random((7, 7))).astype(np.float32)
+    for name, k in (("matched_filter_separable", kernel), ("matched_filter_taps49", full)):
+        filt, mask = mf.matched_filter_threshold(img, back, k, thr1)
+        torch.cuda.synchronize()
+        outputs[name] = [hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest() for a in (filt, mask)]
+        result[name] = {
+            "device_ms": smoke.profiled_device_ms(
+                torch, lambda: mf.matched_filter_threshold(img, back, k, thr1), "matched_filter_kernel"),
+            "ms": smoke.cuda_ms(torch, lambda: mf.matched_filter_threshold(img, back, k, thr1)),
+        }
     # host microseconds of the wrapper's pieces at the main shape, each the
     # median of 2,000 calls on the host clock (nothing synchronises)
     images, backs, thr = shapes["main_1x1024"]
@@ -110,13 +123,10 @@ def worker(tree: Path) -> dict:
         "cuda_device_context_and_stream": lambda: _stream_in_context(torch, images.device),
         "matched_filter_parents": lambda: df.matched_filter_parents(images, backs, kernel, thr),
         "label_fixpoint": lambda: ls.label_fixpoint(*lab_args["main_1x1024"]),
+        "matched_filter_threshold": lambda: mf.matched_filter_threshold(img, back, kernel, thr1),
     }
-    if hasattr(df, "host_taps"):
-        pieces["host_taps"] = lambda: df.host_taps(kernel)
-    else:
-        pieces["taps_on"] = lambda: df.taps_on(kernel, images.device)
-    if hasattr(_build, "call"):
-        pieces["raw_stream"] = lambda: _build._raw_stream(images.device.index or 0)
+    pieces["host_taps"] = lambda: df.host_taps(kernel)
+    pieces["raw_stream"] = lambda: _build._raw_stream(images.device.index or 0)
     result["host_us"] = {k: host_us(fn) for k, fn in pieces.items()}
     result["sha256"] = outputs
     return result

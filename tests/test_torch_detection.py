@@ -209,6 +209,7 @@ _BACKENDS = {
     "chain": {"use_pallas_fused": False},
     "filter_size_5": {"filter_size": 5},
     "filter_kernel_matched": {"use_pallas_filter": True, "threshold_scaling": "matched", "thresh": 3.0},
+    "select_off": {"use_pallas_select": False},
 }
 
 
@@ -268,10 +269,21 @@ def test_detect_core_guards_non_finite_pixels_like_jax():
         ({"use_pallas_fused": False}, False),
         ({"filter_size": 5}, False),
         ({"filter_size": 5, "use_pallas_fused": True}, False),
+        ({"use_pallas_select": False}, False),
+        ({"use_pallas_select": False, "use_pallas_fused": True}, True),
+        ({"use_pallas_select": False, "use_pallas_fused": False}, False),
+        ({"filter_size": 5, "use_pallas_select": False}, False),
+        ({"use_pallas_clip": True}, True),
+        ({"use_pallas_clip": False, "use_pallas_select": False}, False),
     ],
 )
-def test_fused_enabled_dispatch(kw, fused):
+def test_fused_enabled_dispatch(kw, fused, monkeypatch):
+    """The port's rule, and the JAX rule on an accelerator (auto mode runs
+    the fused core iff use_pallas_select; an explicit use_pallas_fused
+    wins; a filter other than 7x7 never runs it)."""
     assert td._fused_enabled(DetectionConfig(**kw)) is fused
+    monkeypatch.setattr(jd.jax, "default_backend", lambda: "tpu")
+    assert bool(jd._fused_enabled(JaxDetectionConfig(**kw))) is fused
 
 
 def test_detection_config_carries_the_jax_backend_fields():

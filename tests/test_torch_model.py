@@ -255,13 +255,14 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         detect_fused,
         label_select,
         matched_filter,
+        parent_race,
         render,
         tail_fused,
     )
 
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "render",
-        "tail_fused",
+        "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "parent_race",
+        "render", "tail_fused",
     ]
 
     def no_build(name):
@@ -273,7 +274,9 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         detect_fused.matched_filter_parents,
         label_select.label_fixpoint,
         matched_filter.matched_filter_threshold,
+        parent_race.parent_race_kernel,
         render.render_field_kernel,
+        render.place_patches,
         decoder_tail.fused_decoder_tail,
         tail_fused.fused_tail_pair,
     )
@@ -282,6 +285,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     dtt.detect_objects(img, device="cpu")
     dtt.detect_objects(img, dtt.DetectionConfig(use_pallas_filter=True), device="cpu")
     dtt.render_field(torch.ones(2, 9, 9, 2), torch.tensor([[0.5, -3.25], [4.0, 7.5]]), 40, order=1)
+    dtt.render_field(torch.ones(2, 9, 9, 2), torch.tensor([[0.5, -3.25], [4.0, 7.5]]), 40, order=3)
     dtt.fused_decoder_tail(
         torch.ones(1, 8, 8, 4), torch.ones(3, 3, 4, 4), torch.ones(4), torch.ones(8, 8, 4),
         torch.ones(3, 3, 4, 2), torch.ones(2),
