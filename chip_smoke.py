@@ -38,9 +38,13 @@ without printing its last line):
    deblend_and_render and the epistemic deblend_and_predict with cuDNN's
    deterministic algorithms off and on, in 10 alternating pairs (the
    cudnn_determinism line);
-5. the decoder-tail kernel on the real tail input of that path's batch
-   (caught by a hook on the decoder's last transposed conv) against the
-   decoder's own output before the crop;
+5. the decoder-tail kernels on the real tail input of that path's batch
+   (caught by a hook on the decoder's last transposed conv): float32
+   (csrc/decoder_tail.cu) against the decoder's own output before the crop
+   and against its plain version, bfloat16 (the same input cast; the
+   one-limb instance of csrc/tail_fused.cu) against its plain version to
+   one bf16 ulp of the output scale, with the share of elements that
+   differ; both also on a constant input and a batch of 1;
 6. the streaming serving path: detect_objects with the stand-alone filter
    kernel (the same offsets as the fused core), then
    DeblendField(cfg=PipelineConfig(interp_order=1, source_chunk=128))
@@ -969,12 +973,50 @@ def check_filter_and_render(torch, field_r: np.ndarray) -> list[dict]:
     return records
 
 
-def check_decoder_tail(torch, net, stamps: np.ndarray) -> dict:
+def bf16_ulp(scale: float) -> float:
+    """The spacing of bfloat16 values at ``scale``."""
+    return float(2.0 ** (np.floor(np.log2(scale)) - 7))
+
+
+# The bfloat16 decoder tail may differ from its plain version by one bf16 ulp
+# of the output scale (the two sum their float32 products in other orders,
+# so a value may round to its neighbour) on at most this share of the
+# elements.  The ulp alone cannot reject the unrepaired arithmetic (the
+# float32 chain cast at the end is within one ulp too); the share does:
+# phase 5 holds that control to the same check and fails if it passes.
+BF16_SHARE_LIMIT = 0.01
+
+
+def tail_agreement(got, plain, tol: float | None, held_to_share: bool = True) -> tuple[float, float, str | None]:
+    """(max abs error, share of elements that differ, the fault or None) of a
+    tail's output against its plain version: within ``tol`` of the output
+    scale, or for ``tol=None`` (bfloat16) within one bf16 ulp of the scale
+    and, where ``held_to_share``, on at most ``BF16_SHARE_LIMIT`` of the
+    elements."""
+    diff = (got.float() - plain.float()).abs()
+    scale = float(plain.float().abs().max())
+    err, share = float(diff.max()), float((diff > 0).float().mean())
+    limit = bf16_ulp(scale) if tol is None else tol * scale
+    if not err <= limit:
+        return err, share, f"off by {err} (limit {limit} at a scale of {scale})"
+    if tol is None and held_to_share and not share <= BF16_SHARE_LIMIT:
+        return err, share, f"{share:.4%} of the elements differ (limit {BF16_SHARE_LIMIT:.0%})"
+    return err, share, None
+
+
+def check_decoder_tail(torch, net, stamps: np.ndarray) -> list[dict]:
     """Phase 5: the fused decoder tail on the real tail input of the main
-    path's batch against the decoder's own output before the crop.  The
-    launch that is counted is one call of the public function on those
+    path's batch, float32 against the decoder's own output before the crop
+    and against the plain version (5e-5 of the output scale), bfloat16 (the
+    same input cast) against the plain version (one bf16 ulp of the scale on
+    at most ``BF16_SHARE_LIMIT`` of the elements); both also on a constant
+    input (the ring of h; one ulp only, since its interior holds one value
+    a channel), a batch of 1 and a ragged (3, 37, 37, 32) -> 5 with seeded
+    weights.  A control, the float32 chain on the same bfloat16 x cast to
+    bfloat16 at the end, must fail the bfloat16 check.  The launches that
+    are counted are one call of the public function a dtype on those
     activations; comparison and timing launches come after the count is
-    read."""
+    read.  Returns the float32 and the bfloat16 records."""
     import torch.nn.functional as F
 
     import debvader_tpu_torch as dt
@@ -990,50 +1032,114 @@ def check_decoder_tail(torch, net, stamps: np.ndarray) -> dict:
     x = caught["x"].permute(0, 2, 3, 1).contiguous()  # (N, 64, 64, 32)
     want = F.relu(caught["y"]).permute(0, 2, 3, 1)     # (N, 64, 64, 12)
     params = dt.decoder_tail_params(net.decoder)
+    xb = x.to(torch.bfloat16)
 
-    dtl.fused_decoder_tail.launches = 0
-    got = dt.fused_decoder_tail(x, *params)
-    torch.cuda.synchronize()
-    launches = dtl.fused_decoder_tail.launches
-    if launches <= 0:
-        raise AssertionError("decoder_tail: the kernel was not launched")
+    def counted(xi):
+        dtl.fused_decoder_tail.launches = 0
+        got = dt.fused_decoder_tail(xi, *params)
+        torch.cuda.synchronize()
+        if dtl.fused_decoder_tail.launches <= 0:
+            raise AssertionError(f"decoder_tail: the {xi.dtype} kernel was not launched")
+        return got, dtl.fused_decoder_tail.launches
+
+    got, launches = counted(x)
+    got_b, launches_b = counted(xb)
     err = float((got - want).abs().max())
     if got.shape != want.shape or err > 5e-5 * float(want.abs().max()):
         raise AssertionError(f"decoder_tail: off by {err} from the decoder's own output")
-    plain = dtl.decoder_tail_plain(x, *params)
-    err_plain = float((got - plain).abs().max())
-    if err_plain > 5e-5 * float(plain.abs().max()):
-        raise AssertionError(f"decoder_tail: off by {err_plain} from the plain version")
+
+    def agree(xi, got_i=None, p=params, held_to_share=True):
+        """Max abs error and differing share of the kernel against the plain
+        version on xi; raises beyond the tolerance."""
+        got_i = dt.fused_decoder_tail(xi, *p) if got_i is None else got_i
+        plain = dtl.decoder_tail_plain(xi, *p)
+        if got_i.dtype != xi.dtype or got_i.shape != plain.shape:
+            raise AssertionError(f"decoder_tail: {got_i.dtype} {tuple(got_i.shape)} for {xi.dtype} x")
+        low = xi.dtype == torch.bfloat16
+        e, share, fault = tail_agreement(got_i, plain, None if low else 5e-5, held_to_share)
+        if fault is not None:
+            raise AssertionError(f"decoder_tail ({xi.dtype}, {tuple(xi.shape)}) against the plain version: {fault}")
+        return e, share
+
+    err_plain, _ = agree(x, got)
+    err_b, share_b = agree(xb, got_b)
+    control = dtl.decoder_tail_plain(xb.float(), *params).to(torch.bfloat16)
+    control_err, control_share, control_fault = tail_agreement(control, dtl.decoder_tail_plain(xb, *params), None)
+    if control_fault is None:
+        raise AssertionError(f"decoder_tail: the bfloat16 check passes the float32 chain cast at the end "
+                             f"(off by {control_err}, {control_share:.4%} of the elements differ)")
+
+    rng = np.random.default_rng(37)
+    n_r, s_r, c_r, o_r = 3, 37, 32, 5
+    ragged_x, *ragged_p = (torch.as_tensor(a.astype(np.float32), device="cuda") for a in (
+        rng.normal(size=(n_r, s_r, s_r, c_r)), rng.normal(size=(3, 3, c_r, c_r)) * 0.06,
+        rng.normal(size=(c_r,)) * 0.05, rng.uniform(0.0, 0.3, size=(s_r, s_r, c_r)),
+        rng.normal(size=(3, 3, c_r, o_r)) * 0.06, rng.normal(size=(o_r,)) * 0.05))
+    ones = torch.ones_like(x[:2])
+    cases = {  # (max abs error, differing share) a case
+        "float32": {"constant": agree(ones), "batch1": agree(x[:1]),
+                    "ragged_3x37x37x32_to_5": agree(ragged_x, p=ragged_p)},
+        "bfloat16": {"constant": agree(ones.to(torch.bfloat16), held_to_share=False), "batch1": agree(xb[:1]),
+                     "ragged_3x37x37x32_to_5": agree(ragged_x.to(torch.bfloat16), p=ragged_p)},
+    }
 
     n, size, _, c = x.shape
     o = want.shape[-1]
-    t_bound, by = bound(
-        (x.numel() + want.numel() + sum(p.numel() for p in params)) * 4,
-        n * size * size * 2 * 9 * c * (c + o),
-    )
+    param_bytes = sum(p.numel() for p in params) * 4
+    ops = n * size * size * 2 * 9 * c * (c + o)
+    t_bound, by = bound((x.numel() + want.numel()) * 4 + param_bytes, ops)
+    t_bound_b, by_b = bound((x.numel() + want.numel()) * 2 + param_bytes, ops, PEAK_BF16_OPS_PER_S)
     x_nchw = caught["x"]
     convt, prelu, head = net.decoder.convts[-1], net.decoder.prelus[-1], net.decoder.head
+    xb_nchw = x_nchw.to(torch.bfloat16)
+    k2b, b2b = convt.weight.detach().to(torch.bfloat16), convt.bias.detach().to(torch.bfloat16)
+    a2b = prelu.alpha.detach().to(torch.bfloat16)
+    k3b, b3b = head.weight.detach().to(torch.bfloat16), head.bias.detach().to(torch.bfloat16)
 
     def library():
         with torch.no_grad(), fp32_math():
             return F.relu(head(prelu(convt(x_nchw))))
 
-    return {
-        "name": "decoder_tail", "route": "cuda",
-        "source": "debvader_tpu_torch/csrc/decoder_tail.cu",
-        "replaces": "debvader_tpu/kernels/decoder_tail.py:105",
-        "launches": launches,
-        "launched_by": "one stand-alone call on the main path's tail input (no entry point calls it, as in the JAX package)",
-        "max_abs_err": max(err, err_plain),
+    def library_bf16():
+        with torch.no_grad():
+            h = F.conv_transpose2d(xb_nchw, k2b, b2b, padding=1)
+            h = torch.clamp(h, min=0) + a2b * torch.clamp(h, max=0)
+            return F.relu(F.conv2d(h, k3b, b3b, padding=1))
+
+    common = {
+        "route": "cuda", "launched_by": "one stand-alone call on the main path's tail input (no entry point "
+                                        "calls it, as in the JAX package)",
+        "replaces": "debvader_tpu/kernels/decoder_tail.py:105", "shape": [n, size, size, c, o],
+    }
+    f32 = {
+        **common, "name": "decoder_tail", "source": "debvader_tpu_torch/csrc/decoder_tail.cu",
+        "launches": launches, "max_abs_err": max(err, err_plain),
         "ms": cuda_ms(torch, lambda: dtl.fused_decoder_tail(x, *params)),
         "device_ms": profiled_device_ms(torch, lambda: dtl.fused_decoder_tail(x, *params), "decoder_tail_kernel"),
         "plain_ms": cuda_ms(torch, lambda: dtl.decoder_tail_plain(x, *params)),
         "library_ms": cuda_ms(torch, library),
         "library_call": "the decoder's own layers (conv_transpose2d, PReLU, conv2d, ReLU on cuDNN, float32)",
         "bound_ms": t_bound, "bound_by": by,
-        "shape": [n, size, size, c, o],
-        "output_max_abs": float(want.abs().max()),
+        "output_max_abs": float(want.abs().max()), "cases_max_abs_err": {k: v[0] for k, v in cases["float32"].items()},
     }
+    bf16 = {
+        **common, "name": "decoder_tail_bf16", "source": "debvader_tpu_torch/csrc/tail_fused.cu",
+        "launches": launches_b, "max_abs_err": err_b, "differing_share": share_b,
+        "differing_share_limit": BF16_SHARE_LIMIT,
+        "control_f32_chain_cast": {"max_abs_err": control_err, "differing_share": control_share,
+                                   "rejected_by": control_fault},
+        "ulp_at_scale": bf16_ulp(float(got_b.float().abs().max())),
+        "ms": cuda_ms(torch, lambda: dtl.fused_decoder_tail(xb, *params)),
+        "device_ms": profiled_device_ms(torch, lambda: dtl.fused_decoder_tail(xb, *params), "tail_pair_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: dtl.decoder_tail_plain(xb, *params)),
+        "library_ms": cuda_ms(torch, library_bf16),
+        "library_call": "the same layers in bfloat16 on cuDNN (conv_transpose2d, PReLU, conv2d, ReLU)",
+        "bound_ms": t_bound_b, "bound_by": by_b,
+        "output_max_abs": float(got_b.float().abs().max()),
+        "cases_max_abs_err": {k: v[0] for k, v in cases["bfloat16"].items()},
+        "cases_differing_share": {k: v[1] for k, v in cases["bfloat16"].items()},
+    }
+    return [f32, bf16]
 
 
 TAIL_LAYERS = {"dec/ConvT_7": "bf16x3", "dec/Conv_0": "bf16x3"}
@@ -1122,7 +1228,7 @@ def check_tail_fused(torch, stamps: np.ndarray) -> dict:
         "err_border_case": err_border, "err_ragged_shape": err_ragged,
         "ragged_output_max_abs": float(plain_r.abs().max()),
         "ms": cuda_ms(torch, lambda: tf.fused_tail_pair(x, *params)),
-        "device_ms": profiled_device_ms(torch, lambda: tf.fused_tail_pair(x, *params), "tail_fused_kernel"),
+        "device_ms": profiled_device_ms(torch, lambda: tf.fused_tail_pair(x, *params), "tail_pair_kernel"),
         "plain_ms": cuda_ms(torch, lambda: tf.tail_pair_plain(x, *params)),
         "library_ms": cuda_ms(torch, library),
         "library_call": "the model's own two layers under bf16x3 (six float32 cuDNN convs on bf16-valued "
@@ -1594,10 +1700,16 @@ def main() -> int:
     for r in prof["top_device_events"][:12]:
         print(f"  {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['name'][:100]}")
 
-    # phase 5: the decoder tail on this batch's real tail input
-    tail = check_decoder_tail(torch, net, np.stack(list(res.cutout_images)))
-    records.append(tail)
-    print(json.dumps({"decoder_tail": {k: tail[k] for k in ("shape", "launches", "max_abs_err", "output_max_abs")}}))
+    # phase 5: the decoder tail on this batch's real tail input, float32
+    # and bfloat16
+    tails = check_decoder_tail(torch, net, np.stack(list(res.cutout_images)))
+    records += tails
+    for tail in tails:
+        print(json.dumps({tail["name"]: {k: tail[k] for k in (
+            "shape", "launches", "max_abs_err", "output_max_abs", "cases_max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "bound_ms") + (("differing_share", "cases_differing_share", "ulp_at_scale",
+                                          "control_f32_chain_cast")
+                                         if "ulp_at_scale" in tail else ())}}))
 
     # phase 6: the streaming serving path, counts from 0
     reset_counts()

@@ -17,11 +17,13 @@ As in the JAX package the function stands alone: ``Decoder.forward`` does
 not call it.
 
 The CUDA kernel (csrc/tail_fused.cu) is bound by operations; it runs the
-limb products on the tensor cores (``mma.sync`` m16n8k16, bf16 in, float32
-out), one block per (image, 16x16 tile).  It takes c_in = c1 = 32 and
+limb products on the tensor cores (``wgmma``, bf16 in, float32 out), a
+persistent grid whose blocks keep the weight limbs in shared memory and
+walk 16x16 output tiles.  It takes c_in = c1 = 32 and
 c2 <= 16 (the default model has 32, 32, 12) and is held to the plain
 version within a tolerance: same limbs, same exact products, another order
-of the float32 sums.
+of the float32 sums.  The same source holds the one-limb instance that
+runs the bfloat16 decoder tail (kernels/decoder_tail.py).
 """
 
 from __future__ import annotations
@@ -33,12 +35,9 @@ from debvader_tpu_torch.device import fp32_math
 from debvader_tpu_torch.kernels import _build
 from debvader_tpu_torch.models.precision import apply_scheme, split_limbs
 
-__all__ = ["fused_tail_pair", "tail_pair_plain", "tail_pair_params"]
+__all__ = ["fused_tail_pair", "tail_pair_plain", "tail_pair_params", "pack_b_operand"]
 
 _SCHEME = "bf16x3"
-# a weight row in the kernel's shared memory: 9 taps x 32 channels and 8
-# values of padding (csrc/tail_fused.cu kKs)
-_K_PAD = 9 * 32 + 8
 _C2_PAD = 16
 
 
@@ -78,18 +77,31 @@ def tail_pair_plain(x, w1, b1, alpha1, w2, b2):
     return h.permute(0, 2, 3, 1).contiguous()
 
 
-def _pack(w_hwio: torch.Tensor, rows: int):
-    """The two bf16 limbs of a (3, 3, cin, cout) kernel as (rows, _K_PAD)
-    bfloat16 matrices [cout][tap * cin + ci], zero beyond cout and beyond
-    9 * cin: the layout the kernel copies into shared memory."""
+def pack_b_operand(w_hwio: torch.Tensor, n_pad: int, limbs: int) -> torch.Tensor:
+    """The ``limbs`` bf16 limbs of a (3, 3, cin, cout) kernel (round to
+    nearest even, as models.precision.split_limbs) as the B operand of the
+    kernel's tensor-core products, in the layout ``wgmma`` reads without
+    swizzling.  B[n][k] has n = l * n_pad + o for limb l and output channel
+    o (zero from cout up to n_pad) and k = tap * cin + ci (zero up to a
+    multiple of 16); it is cut into 8x8 core matrices of 128 contiguous
+    bytes (8 rows n, 16 bytes of k each), element (n, k) at
+
+        (k // 16) * N * 16 + (n // 8) * 128 + ((k % 16) // 8) * 64 + (n % 8) * 8 + k % 8
+
+    with N = limbs * n_pad, so that one k-step of 16 is N * 32 contiguous
+    bytes (leading byte offset 128 between the two k halves, stride byte
+    offset 256 between groups of 8 rows) and one product of N columns
+    gives the high x limb times every weight limb at once.  The kernel
+    copies it into shared memory as it is."""
     cout = w_hwio.shape[-1]
-    flat = w_hwio.permute(3, 0, 1, 2).reshape(cout, -1)
-    out = []
-    for limb in split_limbs(flat, 2, "rne"):
-        m = torch.zeros((rows, _K_PAD), dtype=torch.bfloat16, device=flat.device)
-        m[:cout, : flat.shape[1]] = limb.to(torch.bfloat16)  # exact: the limb is bf16-valued
-        out.append(m)
-    return out
+    flat = w_hwio.to(torch.float32).permute(3, 0, 1, 2).reshape(cout, -1)
+    k = flat.shape[1]
+    k_pad = -(-k // 16) * 16
+    m = torch.zeros((limbs, n_pad, k_pad), dtype=torch.bfloat16, device=flat.device)
+    for l, limb in enumerate(split_limbs(flat, limbs, "rne")):
+        m[l, :cout, :k] = limb.to(torch.bfloat16)  # exact: the limb is bf16-valued
+    core = m.reshape(limbs * n_pad // 8, 8, k_pad // 16, 2, 8).permute(2, 0, 3, 1, 4)
+    return core.contiguous().reshape(-1)
 
 
 def _launch(x, w1, b1, alpha1, w2, b2):
@@ -99,20 +111,15 @@ def _launch(x, w1, b1, alpha1, w2, b2):
         raise ValueError(
             f"the CUDA tail pair takes c_in = c1 = 32 and c2 <= 16, got {cin}, {c1}, {c2}"
         )
-    w1h, w1m = _pack(w1, c1)
-    w2h, w2m = _pack(w2, _C2_PAD)
-    fn = _build.launcher("tail_fused", "dvt_tail_fused", 9, 6)
+    wb1, wb2 = pack_b_operand(w1, c1, 2), pack_b_operand(w2, _C2_PAD, 2)
+    fn = _build.launcher("tail_fused", "dvt_tail_fused", 7, 6)
     out = torch.empty((n, height, width, c2), dtype=torch.float32, device=x.device)
-    # the grid's last axis holds at most 65535 images
-    for s0 in range(0, n, 65535):
-        xs, outs = x[s0 : s0 + 65535], out[s0 : s0 + 65535]
-        status = _build.call(
-            fn, x.device, xs.data_ptr(), w1h.data_ptr(), w1m.data_ptr(), b1.data_ptr(), alpha1.data_ptr(),
-            w2h.data_ptr(), w2m.data_ptr(), b2.data_ptr(), outs.data_ptr(),
-            xs.shape[0], height, width, cin, c1, c2,
-        )
-        _build.check(status, "tail_fused")
-        fused_tail_pair.launches += 1
+    status = _build.call(
+        fn, x.device, x.data_ptr(), wb1.data_ptr(), b1.data_ptr(), alpha1.data_ptr(), wb2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), n, height, width, cin, c1, c2,
+    )
+    _build.check(status, "tail_fused")
+    fused_tail_pair.launches += 1
     return out
 
 

@@ -429,8 +429,17 @@ def test_fmad_is_a_per_source_flag_in_the_library_hash():
 
 
 @pytest.mark.parametrize(
-    "fn",
-    [matched_filter_threshold, render_field_kernel, fused_decoder_tail],
+    "fn,dtype",
+    [
+        (matched_filter_threshold, torch.float32),
+        (render_field_kernel, torch.float32),
+        (fused_decoder_tail, torch.float32),
+        (fused_decoder_tail, torch.bfloat16),
+    ],
+    ids=["fn0", "fn1", "fn2", "fn2-bfloat16"],
 )
-def test_cpu_calls_do_not_count_as_launches(fn):
+def test_cpu_calls_do_not_count_as_launches(fn, dtype):
+    if dtype == torch.bfloat16:  # a bfloat16 decoder tail on the CPU: the plain version
+        x, *rest = (torch.from_numpy(a) for a in _tail_inputs(n=2, c=32, o=12))
+        assert fn(x.to(dtype), *rest).dtype == dtype
     assert fn.launches == 0
