@@ -73,7 +73,28 @@ without printing its last line):
 10. both routes, and the fidelity model's forward, on a 256x256 crop on the
    card and on the CPU (plain versions), which must agree, with TF32
    switched on outside the port;
-11. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+11. the registration kernel (csrc/registration.cu) against its plain
+   version on the record-array route's real inputs (the r band of the
+   field and of every deblended source's mean) and on sources flush
+   against each border, a NaN pixel, the +-bound clip, the full-field
+   branch at a 64-pixel field and a known (0.37, -0.62) px offset, timed
+   with its bound (the registration line);
+12. the bfloat16 instances of the render and place kernels, bit for bit
+   against their plain versions on filled bf16 canvases at the bfloat16
+   stream's chunk shape, timed with their bounds;
+13. optimise_positions=True on both routes at interp_order=1 in 128-source
+   chunks (launch counts from 0), the routes' shifts and residuals held
+   against each other, each timed beside the same call without it
+   (the registration_routes line);
+14. device_dtype='bfloat16' serving at orders 1 and 3 against the float32
+   route (launch counts from 0), upload_dtype alone, the resident field's
+   and canvases' dtypes and bytes, and the peak memory of a float32 and a
+   bfloat16 serving call (the device_dtype line);
+15. IterativeDeblendField.iterative_deblending(optimise_positions=True) on a
+   259x259 crop at the default threshold (launch counts from 0), twice,
+   bit-identical, step 1's detections equal to the CPU's (the iterative
+   line);
+16. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 A fuller report (ptxas output, every timing, the profiled run's top device
@@ -1454,6 +1475,379 @@ def time_cudnn_determinism(torch, net, field, centers, pairs: int = 10) -> dict:
     return out
 
 
+# ------------------------------------- registration, residency, iteration
+
+REG_BOUND = 3.0
+REG_ITERATIONS = 20
+# One pixel of one Gauss-Newton step in csrc/registration.cu: the two
+# blends (6), the output (3), the two Jacobian columns (6), the residual
+# (1), the window mask (4), two negations and the five products and sums
+# (10 + 2); the base's blend takes 11 a padded-window pixel, once.
+REG_OPS_PER_PIXEL_STEP = 32
+
+
+def registration_bound(n: int, s: int, band_pixels: int, full: bool = False):
+    """(ms, bound_by) of the registration of n stamps of s pixels: the
+    stamps, the band, the offsets and the shifts moved once, and each
+    source's window (or the whole band, ``full``) through every step."""
+    win = s + 2 * (int(np.ceil(REG_BOUND)) + 3)
+    pixels = band_pixels if full else win * win
+    pw = win + 2 * (int(np.ceil(REG_BOUND)) + 1)
+    ops = n * REG_ITERATIONS * pixels * REG_OPS_PER_PIXEL_STEP + n * (pixels if full else pw * pw) * 11
+    return bound(n * s * s * 4 + band_pixels * 4 + n * 16, ops)
+
+
+def registration_cases(torch, band: np.ndarray, preds: np.ndarray, dets: np.ndarray) -> dict:
+    """name -> (band, stamps, offsets, windowed) on the card, beside the
+    record-array route's real inputs: sources flush against each border of
+    the field, a NaN pixel in the band under a source, sources driven to
+    the +-bound clip (the field holds them 5 px away), the full-field
+    branch at a 64-pixel field, and the recovery of a stamp placed at
+    (0.37, -0.62) px from an integer detection in a zero field."""
+    import debvader_tpu_torch as dt
+
+    dev = torch.device("cuda")
+    f, s = band.shape[0], preds.shape[1]
+    as_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)  # noqa: E731
+    half = f / 2
+    edge = np.array([[-half, 3.2], [half - 1.5, -40.6], [17.3, -half], [-8.8, half - 0.5],
+                     [-half + 10.0, -half + 10.0], [half - 20.0, half - 20.0]], np.float32)
+    k = len(edge)
+    nan_band = band.copy()
+    y0, x0 = (f - s) // 2 + np.floor(dets[0]).astype(int) + s // 2
+    nan_band[y0, x0] = np.nan
+    nan_band[y0 + 2, x0 - 3] = np.inf
+    render = lambda st, off, size: dt.render_field(as_dev(st[..., None]), as_dev(off), size)[..., 0]  # noqa: E731
+    clip_off = np.array([[-f / 10, f / 20], [f / 5, -f / 4], [10.0, 10.0]], np.float32)
+    clip_band = render(preds[:3], clip_off + np.array([[5.0, -5.0], [-5.0, 5.0], [5.0, 5.0]], np.float32), f)
+    small = render(preds[:4], np.array([[0.3, -0.6], [1.2, 1.9], [-2.2, 0.4], [0.0, 0.0]], np.float32), 64)
+    det = np.round(np.array([[0.0, 0.0], [f / 5, -f / 7]], np.float32))
+    truth = np.array([0.37, -0.62], np.float32)
+    recover = render(preds[:2], det + truth, f)
+    return {
+        "borders": (as_dev(band), as_dev(preds[:k]), as_dev(edge)),
+        "nan_pixel": (as_dev(nan_band), as_dev(preds[:1]), as_dev(dets[:1])),
+        "clip": (clip_band, as_dev(preds[:3]), as_dev(clip_off)),
+        "full_field_64": (small, as_dev(preds[:4]), torch.zeros((4, 2), device=dev)),
+        "recovery": (recover, as_dev(preds[:2]), as_dev(det)),
+    }
+
+
+def check_registration(torch, field: np.ndarray, res) -> dict:
+    """Phase 11: csrc/registration.cu against its plain version on the
+    record-array route's real inputs (the smoke field's r band, the means'
+    r band of every deblended source, their offsets) and on the edge cases
+    of ``registration_cases``, each within 1e-4 px; the clip case on the
+    bound and the recovery within 0.01 px of the truth; timed with its
+    bound."""
+    from debvader_tpu_torch.kernels import registration as kr
+    from debvader_tpu_torch.ops.registration import position_optimization_batch_windowed as windowed
+
+    dev = torch.device("cuda")
+    band = np.ascontiguousarray(field[0, :, :, 2])
+    preds = np.ascontiguousarray(np.stack(list(res.output_images_mean))[..., 2])
+    dets = np.stack([res.galaxy_distances_to_center_x, res.galaxy_distances_to_center_y], -1).astype(np.float32)
+    b, p, o = (torch.as_tensor(a, device=dev) for a in (band, preds, dets))
+    cases, worst = {}, 0.0
+    runs = {"real": (b, p, o)}
+    runs.update(registration_cases(torch, band, preds, dets))
+    for name, (bb, pp, oo) in runs.items():
+        got = windowed(bb, pp, oo, REG_BOUND, REG_ITERATIONS)
+        full = bb.shape[0] < kr.registration_window(pp.shape[1], REG_BOUND)
+        plain = (kr.register_full_plain if full else kr.register_windowed_plain)(bb, pp, oo, REG_BOUND, REG_ITERATIONS)
+        one = windowed(bb, pp, oo, REG_BOUND, 1)
+        one_plain = (kr.register_full_plain if full else kr.register_windowed_plain)(bb, pp, oo, REG_BOUND, 1)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        err1 = float((one - one_plain).abs().max())
+        if not (err <= 1e-4 and err1 <= 1e-5 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"registration ({name}): off by {err} px (20 steps) / {err1} px (1 step)")
+        rec = {"sources": int(pp.shape[0]), "max_abs_err_px": err, "one_step_max_abs_err_px": err1,
+               "max_abs_shift": float(got.abs().max())}
+        if name == "clip" and not bool((got.abs() == REG_BOUND).all()):
+            raise AssertionError(f"registration (clip): shifts {got.tolist()} did not end on the bound")
+        if name == "recovery":
+            miss = float((got - torch.tensor([0.37, -0.62], device=dev)).abs().max())
+            rec["recovery_err_px"] = miss
+            if not miss <= 0.01:
+                raise AssertionError(f"registration (recovery): {got.tolist()} misses (0.37, -0.62) by {miss} px")
+        cases[name] = rec
+        worst = max(worst, err)
+    n, s = preds.shape[:2]
+    t_bound, by = registration_bound(n, s, band.size)
+    return {
+        "name": "registration", "route": "cuda",
+        "source": "debvader_tpu_torch/csrc/registration.cu",
+        "replaces": "debvader_tpu/ops/registration.py:106 (position_optimization_batch_windowed, XLA; no Pallas kernel)",
+        "max_abs_err": worst,
+        "ms": cuda_ms(torch, lambda: kr.register_windowed(b, p, o, REG_BOUND, REG_ITERATIONS)),
+        "device_ms": profiled_device_ms(
+            torch, lambda: kr.register_windowed(b, p, o, REG_BOUND, REG_ITERATIONS), "register_windowed_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: kr.register_windowed_plain(b, p, o, REG_BOUND, REG_ITERATIONS)),
+        "library_ms": None,
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": [n, s, s, band.shape[0]], "iterations": REG_ITERATIONS,
+        "full_field_64_ms": cuda_ms(torch, lambda: kr.register_full(*runs["full_field_64"], REG_BOUND, REG_ITERATIONS)),
+        "full_field_64_bound_ms": registration_bound(4, s, 64 * 64, full=True)[0],
+        "cases": cases,
+    }
+
+
+def check_bf16_canvases(torch, f: int, n: int = 128, s: int = 59, b: int = 6) -> list[dict]:
+    """Phase 12: the bfloat16 instances of csrc/render.cu at the bfloat16
+    stream's shapes (one 128-source chunk): dvt_render_bf16 into the window
+    of a padded bf16 canvas filled with seeded random values, dvt_place_bf16
+    of the order-3 patches into a filled bf16 canvas, each bit for bit
+    against its plain version (on the card and on the CPU), two launches
+    bit-identical, and timed with its bound; also on two bands (the
+    generic kernels)."""
+    from debvader_tpu_torch.kernels import render as rd
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(14)
+    stamps = torch.rand((n, s, s, b), generator=gen, device=dev).to(bf)
+    offsets = (torch.rand((n, 2), generator=gen, device=dev) - 0.5) * (f - 80)
+    pad = s + 2
+
+    def window(c):
+        return c[pad : pad + f, pad : pad + f]
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    canvas0 = torch.randn((f + 2 * pad, f + 2 * pad, b), generator=gen, device=dev).to(bf)
+    got, again, plain = canvas0.clone(), canvas0.clone(), canvas0.clone()
+    rd.render_field_kernel(stamps, offsets, f, out=window(got))
+    rd.render_field_kernel(stamps, offsets, f, out=window(again))
+    rd.render_field_plain(stamps, offsets, f, out=window(plain))
+    cpu = canvas0.cpu()
+    rd.render_field_plain(stamps.cpu(), offsets.cpu(), f, out=window(cpu))
+    st2 = torch.rand((20, 15, 15, 2), generator=gen, device=dev).to(bf)
+    of2 = (torch.rand((20, 2), generator=gen, device=dev) - 0.5) * 260
+    c2 = torch.randn((256, 256, 2), generator=gen, device=dev).to(bf)
+    p2 = c2.cpu()
+    rd.render_field_kernel(st2, of2, 256, out=c2)
+    rd.render_field_plain(st2.cpu(), of2.cpu(), 256, out=p2)
+    torch.cuda.synchronize()
+    for what, a, z in (("plain on the card", got, plain), ("two launches", got, again), ("plain on the CPU", got.cpu(), cpu),
+                       ("two bands", c2.cpu(), p2)):
+        if not torch.equal(bits(a), bits(z)):
+            raise AssertionError(f"render_bf16: {int((bits(a) != bits(z)).sum())} elements differ ({what})")
+    cov = covered_mask(offsets.cpu().numpy(), None, s, f)
+    work = canvas0.clone()
+    t_bound, by = bound(n * s * s * b * 2 + n * 8 + 2 * int(cov.sum()) * b * 2, n * (s + 2) * (s + 2) * b * 11)
+    render_rec = {
+        "name": "render_bf16", "route": "cuda",
+        "source": "debvader_tpu_torch/csrc/render.cu",
+        "replaces": "debvader_tpu/kernels/render.py:149 (render_field_pallas) on a bfloat16 canvas "
+                    "(debvader_tpu/ops/shift.py:209, the scan's bf16 adds)",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, f, out=window(work))),
+        "device_ms": profiled_device_ms(
+            torch, lambda: rd.render_field_kernel(stamps, offsets, f, out=window(work)), "render_tile_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: rd.render_field_plain(stamps, offsets, f, out=window(work))),
+        "library_ms": None,
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": [n, s, s, b, f], "covered_pixels": int(cov.sum()),
+    }
+
+    patches, y, x, visible, c = place_inputs(torch, stamps.float(), offsets, f)
+    patches = patches.to(bf).contiguous()
+    canvas0 = torch.randn((c, c, b), generator=gen, device=dev).to(bf)
+    got, again = canvas0.clone(), canvas0.clone()
+    rd.place_patches(got, patches, y, x, visible)
+    rd.place_patches(again, patches, y, x, visible)
+    plain, cpu = canvas0.clone(), canvas0.cpu()
+    rd.place_patches_plain(plain, patches, y, x, visible)
+    rd.place_patches_plain(cpu, patches.cpu(), y.cpu(), x.cpu(), visible.cpu())
+    torch.cuda.synchronize()
+    for what, a, z in (("plain on the card", got, plain), ("two launches", got, again), ("plain on the CPU", got.cpu(), cpu)):
+        if not torch.equal(bits(a), bits(z)):
+            raise AssertionError(f"place_bf16: {int((bits(a) != bits(z)).sum())} elements differ ({what})")
+    p = patches.shape[1]
+    covered = footprint_elements(y.cpu(), x.cpu(), p, c, b)
+    t_bound, by = bound(patches.numel() * 2 + n * 9 + covered * 4, patches.numel())
+    ar = torch.arange(p, device=dev)
+    flat = ((y[:, None] + ar)[:, :, None] * c + (x[:, None] + ar)[:, None, :]).reshape(-1)
+    masked = torch.where(visible[:, None, None, None], patches, torch.zeros((), device=dev, dtype=bf)).reshape(-1, b)
+    work = canvas0.clone()
+    place_rec = {
+        "name": "place_bf16", "route": "cuda",
+        "source": "debvader_tpu_torch/csrc/render.cu",
+        "replaces": "debvader_tpu/ops/shift.py:209 (render_field's order-3 scan on a bfloat16 canvas, XLA; "
+                    "no Pallas kernel)",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: rd.place_patches(work, patches, y, x, visible)),
+        "device_ms": profiled_device_ms(
+            torch, lambda: rd.place_patches(work, patches, y, x, visible), "place_tile_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: rd.place_patches_plain(work, patches, y, x, visible)),
+        "library_ms": cuda_ms(torch, lambda: work.view(-1, b).index_put_((flat,), masked, accumulate=True)),
+        "library_call": "index_put_(accumulate=True) of the masked bf16 patches",
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": [n, p, p, b, c], "covered_elements": covered,
+    }
+    return [render_rec, place_rec]
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """Median host seconds of ``fn`` (ending in a synchronise) over reps."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times))
+
+
+def run_registration_routes(torch, net, field: np.ndarray, centers: np.ndarray) -> dict:
+    """Phase 13 (its launches counted by the caller): optimise_positions=True
+    on the record-array route (deblend_field, then get_residual_field) and
+    on the streaming route (deblend_and_render), both at interp_order=1 in
+    128-source chunks; the two routes' shifts and residuals held against
+    each other; then warm times of each beside the same call without
+    registration, in turns (6 pairs, the order swapped each pair)."""
+    import debvader_tpu_torch as dt
+
+    rec_df = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    res = rec_df.deblend_field(centers, optimise_positions=True)
+    r_residual = rec_df.get_residual_field()
+    st_df = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    cat, s_residual = st_df.deblend_and_render(centers, optimise_positions=True)
+    torch.cuda.synchronize()
+    catalogs_agree(cat, res)
+    shifts_r, shifts_s = np.stack(list(res.shifts)), np.stack(list(cat.shifts))
+    shift_err = float(np.abs(shifts_r - shifts_s).max())
+    scale = float(np.abs(field).max())
+    resid_err = float(np.abs(r_residual - s_residual).max())
+    if not (shift_err <= 1e-4 and resid_err <= 1e-5 * scale and np.isfinite(s_residual).all()):
+        raise AssertionError(f"registration routes disagree: shifts {shift_err} px, residuals {resid_err}")
+    if not (np.abs(shifts_s) <= REG_BOUND).all() or not np.abs(shifts_s).max() > 0:
+        raise AssertionError("registration gave no shift, or one beyond the bound")
+    times = {"record_array_s": {False: [], True: []}, "deblend_and_render_s": {False: [], True: []}}
+    for i in range(6):
+        for opt in ((False, True) if i % 2 == 0 else (True, False)):
+            times["record_array_s"][opt].append(median_s(
+                lambda: (rec_df.deblend_field(centers, optimise_positions=opt), rec_df.get_residual_field()), 1))
+            times["deblend_and_render_s"][opt].append(median_s(
+                lambda: st_df.deblend_and_render(centers, optimise_positions=opt), 1))
+    summary = {k: {"off": float(np.median(v[False])), "on": float(np.median(v[True])), "runs_off": v[False],
+                   "runs_on": v[True]} for k, v in times.items()}
+    return {"sources": int(len(centers)), "deblended": int(len(res)), "max_abs_shift_px": float(np.abs(shifts_s).max()),
+            "routes_shift_max_abs_err_px": shift_err, "routes_residual_max_abs_err": resid_err,
+            "field_max_abs": scale, "warm": summary}
+
+
+def run_device_dtype(torch, net, field: np.ndarray, centers: np.ndarray) -> dict:
+    """Phase 14 (its launches counted by the caller): device_dtype='bfloat16'
+    serving at orders 1 and 3 (deblend_and_render and deblend_and_predict in
+    128-source chunks) against the float32 route, within 2e-2 of its scale
+    (the JAX package's own bound); upload_dtype='bfloat16' alone; the
+    memoized field's and the canvases' dtypes and bytes against float32;
+    and the peak device memory of one float32 and one bfloat16 serving
+    call."""
+    import debvader_tpu_torch as dt
+
+    out = {}
+    for order in (1, 3):
+        cfg = dt.PipelineConfig(interp_order=order, source_chunk=128)
+        ref = dt.DeblendField(net, field, z_mode="mean", cfg=cfg, device="cuda")
+        low = dt.DeblendField(net, field, z_mode="mean", cfg=cfg, device="cuda", device_dtype="bfloat16")
+        _, r_res = ref.deblend_and_render(centers)
+        _, l_res = low.deblend_and_render(centers)
+        _, r_f = ref.deblend_and_predict(centers)
+        _, l_f = low.deblend_and_predict(centers)
+        errs = {"residual": (l_res, r_res)}
+        errs.update({k: (l_f[k], r_f[k]) for k in ("residual_field", "predicted_mean_field", "predicted_stddev_field")})
+        rec = {}
+        for name, (a, z) in errs.items():
+            if a.dtype != np.float32 or not np.isfinite(a).all():
+                raise AssertionError(f"device_dtype order {order}: {name} is not finite float32")
+            rel = float(np.abs(a - z).max()) / float(np.abs(z).max())
+            if not rel < 2e-2:
+                raise AssertionError(f"device_dtype order {order}: {name} off the float32 route by {rel} of its scale")
+            rec[name] = rel
+        out[f"order{order}_rel_err_vs_float32"] = rec
+    up = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda", upload_dtype="bfloat16")
+    _, u_res = up.deblend_and_render(centers)
+    ref = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    _, r_res = ref.deblend_and_render(centers)
+    out["upload_dtype_rel_err_vs_float32"] = float(np.abs(u_res - r_res).max()) / float(np.abs(r_res).max())
+    if up._device_field(up.field_image).dtype != torch.float32:
+        raise AssertionError("upload_dtype alone must widen the field back to float32 on the device")
+
+    low = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda", device_dtype="bfloat16")
+    f_low, f_ref = low._device_field(low.field_image), ref._device_field(ref.field_image)
+    _, c_low, _ = low._stream_deblend(f_low, centers, render_std=True, resident_fields=3)
+    _, c_ref, _ = ref._stream_deblend(f_ref, centers, render_std=True, resident_fields=3)
+    resident = {}
+    for name, a, z in [("field", f_low, f_ref)] + [(k, c_low[k], c_ref[k]) for k in ("mean", "std")]:
+        nb_low, nb_ref = a.numel() * a.element_size(), z.numel() * z.element_size()
+        if a.dtype != torch.bfloat16 or 2 * nb_low != nb_ref:
+            raise AssertionError(f"device_dtype: the resident {name} is {a.dtype}, {nb_low} bytes against {nb_ref}")
+        resident[name] = {"dtype": str(a.dtype), "bytes": nb_low, "float32_bytes": nb_ref}
+    out["resident"] = resident
+    del c_low, c_ref
+    peaks = {}
+    for name, obj in (("float32", ref), ("bfloat16", low)):
+        obj.deblend_and_render(centers)  # warm, field memoized
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        obj.deblend_and_render(centers)
+        torch.cuda.synchronize()
+        peaks[name] = {"baseline_bytes": int(base), "peak_bytes": int(torch.cuda.max_memory_allocated()),
+                       "serving_s": median_s(lambda obj=obj: obj.deblend_and_render(centers))}
+    out["serving_peak_memory"] = peaks
+    return out
+
+
+def run_iterative(torch, net, field: np.ndarray, read_counts) -> dict:
+    """Phase 15: IterativeDeblendField.iterative_deblending(
+    optimise_positions=True) with z_mode='mean' on a 259x259x6 crop of the
+    smoke field (the reference's DC2 field size), at the default detection
+    threshold: the steps, the sources of each step, the mse list and the
+    wall time; two runs bit-identical; step 1's detections on the card equal
+    to the CPU's. The caller sets the counts to 0; read_counts() is called
+    right after the two iterative runs, before the card-against-CPU
+    detection that would otherwise add its own launches."""
+    import debvader_tpu_torch as dt
+
+    c0 = (field.shape[1] - 259) // 2
+    crop = np.ascontiguousarray(field[:, c0 : c0 + 259, c0 : c0 + 259, :])
+    runs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        idf = dt.IterativeDeblendField(net, crop, z_mode="mean", device="cuda")
+        res = idf.iterative_deblending(optimise_positions=True)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t, idf, res))
+    launches = read_counts()
+    (t1, a, ra), (t2, b, rb) = runs
+    if a.mse != b.mse or a.nb_of_detected_objects != b.nb_of_detected_objects:
+        raise AssertionError("two iterative runs differ in their steps or mse")
+    for col in ("output_images_mean", "shifts"):
+        x, y = np.stack(list(ra[col])), np.stack(list(rb[col]))
+        if not np.array_equal(x.view(np.int32), y.view(np.int32)):
+            raise AssertionError(f"two iterative runs differ in {col}")
+    if not np.array_equal(np.asarray(ra["list_idx"]), np.asarray(rb["list_idx"])):
+        raise AssertionError("two iterative runs differ in list_idx")
+    card = dt.detect_objects(crop, device="cuda")
+    cpu = dt.detect_objects(crop, device="cpu")
+    if not np.array_equal(card, cpu) or len(card) != a.nb_of_detected_objects[0]:
+        raise AssertionError("step 1's detections differ between the card and the CPU")
+    means = np.stack(list(ra["output_images_mean"]))
+    if not np.isfinite(means).all() or not np.all(np.abs(np.stack(list(ra["shifts"]))) <= REG_BOUND):
+        raise AssertionError("the iterative run gave non-finite means or shifts beyond the bound")
+    return {"field": list(crop.shape), "steps": len(a.mse), "detected_per_step": a.nb_of_detected_objects,
+            "deblended_per_step": a.nb_of_deblended_galaxies, "rows": int(len(ra)), "mse": a.mse,
+            "wall_s": [t1, t2], "step1_detections_equal_cpu": True, "two_runs_bit_identical": True,
+            "launches": launches}
+
+
 def serving_cfg(chunk=128):
     import debvader_tpu_torch as dt
 
@@ -1577,6 +1971,7 @@ def main() -> int:
     from debvader_tpu_torch.kernels import label_select as ls
     from debvader_tpu_torch.kernels import matched_filter as mf
     from debvader_tpu_torch.kernels import parent_race as pr
+    from debvader_tpu_torch.kernels import registration as kr
     from debvader_tpu_torch.kernels import render as rd
 
     report = {}
@@ -1625,22 +2020,26 @@ def main() -> int:
     # and phase 7 holds its outputs to the CPU's.
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    # each kernel's launch count: (its wrapper, the attribute it adds to)
     counters = {
-        "clipped_stats": cs.sigma_clipped_stats,
-        "detect_fused": df.matched_filter_parents,
-        "label_select": ls.label_fixpoint,
-        "matched_filter": mf.matched_filter_threshold,
-        "parent_race": pr.parent_race_kernel,
-        "render": rd.render_field_kernel,
-        "place": rd.place_patches,
+        "clipped_stats": (cs.sigma_clipped_stats, "launches"),
+        "detect_fused": (df.matched_filter_parents, "launches"),
+        "label_select": (ls.label_fixpoint, "launches"),
+        "matched_filter": (mf.matched_filter_threshold, "launches"),
+        "parent_race": (pr.parent_race_kernel, "launches"),
+        "render": (rd.render_field_kernel, "launches"),
+        "place": (rd.place_patches, "launches"),
+        "registration": (kr.register_windowed, "launches"),
+        "render_bf16": (rd.render_field_kernel, "launches_bf16"),
+        "place_bf16": (rd.place_patches, "launches_bf16"),
     }
 
     def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read_counts(path, needed):
-        counts = {k: fn.launches for k, fn in counters.items()}
+        counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
         for name, least in needed.items():
             if counts[name] < least:
                 raise AssertionError(
@@ -1857,11 +2256,51 @@ def main() -> int:
     print(json.dumps({"crop_vs_cpu": small}))
     report["crop_vs_cpu"] = small
 
+    # phase 11: the registration kernel on the record-array route's real
+    # inputs and its edge cases; phase 12: the bfloat16 canvas instances
+    reg = check_registration(torch, field, res)
+    records.append(reg)
+    print(json.dumps({"registration": {k: reg[k] for k in (
+        "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "full_field_64_ms",
+        "full_field_64_bound_ms", "cases")}}))
+    bf16_recs = check_bf16_canvases(torch, field.shape[1])
+    records += bf16_recs
+    for rec in bf16_recs:
+        print(json.dumps({rec["name"]: {k: rec[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}))
+
+    # phase 13: registration on both routes, counts from 0
+    reset_counts()
+    reg_routes = run_registration_routes(torch, net, field, centers)
+    reg_launches = read_counts("registration", {"registration": 2, "render": 1})
+    reg_routes["launches"] = reg_launches
+    report["registration_routes"] = reg_routes
+    print(json.dumps({"registration_routes": reg_routes}))
+
+    # phase 14: bfloat16 residency of the field and the serving canvases,
+    # counts from 0
+    reset_counts()
+    low = run_device_dtype(torch, net, field, centers)
+    low_launches = read_counts("bfloat16 residency", {"render_bf16": 1, "place_bf16": 1})
+    low["launches"] = low_launches
+    report["device_dtype"] = low
+    print(json.dumps({"device_dtype": low}))
+
+    # phase 15: the iterative deblender, counts from 0
+    reset_counts()
+    iterative = run_iterative(torch, net, field, lambda: read_counts(
+        "iterative", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1, "registration": 1, "place": 1}
+    ))
+    report["iterative"] = iterative
+    print(json.dumps({"iterative": iterative}))
+
     # launches: the first three kernels on the record-array path, the
     # filter and the render on the streaming path, each counted from 0;
     # the two tails carry their own
     counted_on = dict.fromkeys(("clipped_stats", "detect_fused", "label_select", "place"), launches)
     counted_on.update(dict.fromkeys(("matched_filter", "parent_race", "render"), serving_launches))
+    counted_on["registration"] = reg_launches
+    counted_on.update(dict.fromkeys(("render_bf16", "place_bf16"), low_launches))
     for rec in records:
         if rec["name"] in counted_on:
             rec["launches"] = counted_on[rec["name"]][rec["name"]]

@@ -7,7 +7,10 @@ through the record array of ``DeblendField.deblend_field`` or through the
 streaming serving entry points ``deblend_and_render`` /
 ``deblend_and_predict``, and measure the deblended stamps; the stochastic
 stamp API (``deblend_samples``, ``deblend_sample_stats``) and the epistemic
-options of ``DeblendField``; the precision schemes
+options of ``DeblendField``; position registration
+(``optimise_positions=True``), bfloat16 residency of the field and the
+serving canvases (``upload_dtype`` / ``device_dtype``) and the iterative
+detect -> deblend -> subtract loop (``IterativeDeblendField``); the precision schemes
 (``ModelConfig.layer_precision``, ``fidelity_serving_config``) with the flux
 calibration that ``load_deblender(..., flux_calibration=True)`` attaches.
 Public functions keep the JAX package's NHWC layout.  Entry points run on the GPU
@@ -34,6 +37,7 @@ from debvader_tpu_torch.ops.detection import detect_objects, detect_sources
 from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.shift import render_field, render_pad
 from debvader_tpu_torch.pipeline.field import DeblendField
+from debvader_tpu_torch.pipeline.iterative import IterativeDeblendField
 from debvader_tpu_torch.utils.profiling import stage_timer
 from debvader_tpu_torch.weights import load_deblender
 
@@ -44,6 +48,7 @@ __all__ = [
     "detect_objects",
     "detect_sources",
     "DeblendField",
+    "IterativeDeblendField",
     "DeblenderVAE",
     "load_deblender",
     "measure_batch",

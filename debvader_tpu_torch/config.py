@@ -212,12 +212,17 @@ class PipelineConfig:
     ``render_cache_bytes`` caps the mean, stddev and epistemic stamps that
     ``deblend_field`` keeps on the device for the renders that follow.
     ``epistemic_samples`` is the number of stochastic decodes a source
-    behind ``epistemic_uncertainty_estimation=True``."""
+    behind ``epistemic_uncertainty_estimation=True``.
+    ``position_bounds`` and ``gn_iterations`` bound the registration of
+    ``optimise_positions=True``: shifts within +-position_bounds pixels,
+    fitted over gn_iterations Gauss-Newton steps."""
 
     cutout_size: int = 59
     nb_of_bands: int = 6
     epistemic_samples: int = 100
     mse_window: int = 5
+    position_bounds: float = 3.0
+    gn_iterations: int = 20
     interp_order: int = 3
     source_chunk: int = 8192
     serving_hbm_bytes: int | None = None

@@ -73,12 +73,55 @@
 // An element adds a patch only where the patch covers it.  Other B take
 // place_generic_kernel (16 x 16 tiles, sums in shared memory, direct
 // loads), with the same sums.
+//
+// bfloat16 canvases (dvt_render_bf16, dvt_place_bf16): the same kernels
+// instantiated for bf16 stamps or patches and a bf16 canvas, which halves
+// the bytes of both.  They compute what the JAX package computes when the
+// canvas is bf16 (DeblendField device_dtype='bfloat16'): each source's
+// value is widened to float32, interpolated (order 1), rounded to bf16 and
+// added into the canvas with a rounding after every add, in ascending
+// source index, each element starting from the canvas's own value:
+//   canvas = bf16(...bf16(bf16(canvas + bf16(q_0)) + bf16(q_1))...).
+// So the order-1 bf16 instance, unlike the float32 one, starts from the
+// canvas and adds a source only where its padded patch covers the element
+// (a bf16 add of +0.0 would turn a -0.0 into +0.0).  Both use 4-byte
+// cp.async copies (a band pair of bf16) and keep their sums in float32
+// registers that hold bf16 values.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// The add of one contribution into a canvas sum: float32, or bf16 with
+// the value and the sum rounded (acc holds a bf16 value).
+template <typename T>
+__device__ __forceinline__ float add_into(float acc, float v) {
+  if constexpr (kIsBf16<T>) {
+    return round_bf16(__fadd_rn(acc, round_bf16(v)));
+  } else {
+    return __fadd_rn(acc, v);
+  }
+}
 
 struct Placed {
   int src;  // source index
@@ -138,10 +181,13 @@ __device__ __forceinline__ float bilinear(float fy, float gy, float fx, float gx
 constexpr int kTileCols = 32;
 constexpr int kTileRows = 16;
 
-__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool ok) {
+// One band pair (8 bytes of float32, 4 of bf16), zero-filled when !ok.
+template <typename T>
+__device__ __forceinline__ void cp_async_pair(T* dst, const T* src, bool ok) {
+  constexpr int kBytes = 2 * sizeof(T);
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 8 : 0));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(kBytes),
+               "r"(ok ? kBytes : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -149,69 +195,80 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int B>
+template <int B, typename T>
 struct TileShape {
-  static_assert(B % 2 == 0, "a pixel must be whole band pairs (8-byte copies)");
+  static_assert(B % 2 == 0, "a pixel must be whole band pairs (pair copies)");
   static constexpr int kThreads = kTileCols * B;          // one thread a row element
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kWinRow = (kTileCols + 1) * B;     // floats in a window row
   static constexpr int kWinFloats = (kTileRows + 1) * kWinRow;
   static constexpr int kPairsPerRow = kWinRow / 2;
   static constexpr int kWinPairs = (kTileRows + 1) * kPairsPerRow;
-  static constexpr size_t kShared = 2 * kWinFloats * sizeof(float);
+  static constexpr size_t kShared = 2 * kWinFloats * sizeof(T);
 };
 
 // Stage stamp rows a0 .. a0 + kTileRows and columns b0 .. b0 + kTileCols
 // (all bands) of stamp `st` into `win`, zero outside the stamp.
-template <int B>
-__device__ __forceinline__ void stage(float* win, const float* __restrict__ st, int s, int a0,
-                                      int b0) {
-  using T = TileShape<B>;
-  for (int w = threadIdx.x; w < T::kWinPairs; w += T::kThreads) {
-    const int r = w / T::kPairsPerRow, q = w - r * T::kPairsPerRow;
+template <int B, typename T>
+__device__ __forceinline__ void stage(T* win, const T* __restrict__ st, int s, int a0, int b0) {
+  using Sh = TileShape<B, T>;
+  for (int w = threadIdx.x; w < Sh::kWinPairs; w += Sh::kThreads) {
+    const int r = w / Sh::kPairsPerRow, q = w - r * Sh::kPairsPerRow;
     const int c = q / (B / 2), part = q - c * (B / 2);
     const int a = a0 + r, bb = b0 + c;
     const bool ok = a >= 0 && a < s && bb >= 0 && bb < s;
-    const float* src = ok ? st + (static_cast<long long>(a) * s + bb) * B + 2 * part : st;
-    cp_async8(win + 2 * w, src, ok);
+    const T* src = ok ? st + (static_cast<long long>(a) * s + bb) * B + 2 * part : st;
+    cp_async_pair(win + 2 * w, src, ok);
   }
 }
 
-template <int B>
-__global__ void __launch_bounds__(TileShape<B>::kThreads)
-render_tile_kernel(const float* __restrict__ stamps, const float* __restrict__ offsets,
-                   const uint8_t* __restrict__ mask, float* __restrict__ out, int n, int s,
-                   int f, int pitch, int accumulate) {
-  using T = TileShape<B>;
-  extern __shared__ __align__(16) float win[];  // two windows
-  __shared__ Placed list[T::kThreads];
-  __shared__ int warp_count[T::kWarps];
+template <int B, typename T>
+__global__ void __launch_bounds__(TileShape<B, T>::kThreads)
+render_tile_kernel(const T* __restrict__ stamps, const float* __restrict__ offsets,
+                   const uint8_t* __restrict__ mask, T* __restrict__ out, int n, int s, int f,
+                   int pitch, int accumulate) {
+  using Sh = TileShape<B, T>;
+  extern __shared__ __align__(16) unsigned char win_bytes[];  // two windows
+  T* win = reinterpret_cast<T*>(win_bytes);
+  __shared__ Placed list[Sh::kThreads];
+  __shared__ int warp_count[Sh::kWarps];
 
   const int tid = threadIdx.x;
   const int ty0 = blockIdx.y * kTileRows, tx0 = blockIdx.x * kTileCols;
   const int pos0 = (f - s) / 2;
-  const size_t stamp_floats = static_cast<size_t>(s) * s * B;
+  const size_t stamp_elems = static_cast<size_t>(s) * s * B;
+  const int x = tx0 + tid / B;
+  T* o = out + static_cast<long long>(tx0) * B + tid;
 
   float acc[kTileRows];
 #pragma unroll
   for (int r = 0; r < kTileRows; ++r) acc[r] = 0.f;
   bool touched = false;
 
-  for (int base = 0; base < n; base += T::kThreads) {
+  for (int base = 0; base < n; base += Sh::kThreads) {
     Placed p;
     const bool hit =
         place(offsets, mask, base + tid, n, s, pos0, ty0, tx0, kTileRows, kTileCols, &p);
-    const int total = compact<T::kWarps>(hit, p, list, warp_count);
+    const int total = compact<Sh::kWarps>(hit, p, list, warp_count);
     if (total == 0) continue;
+    if constexpr (kIsBf16<T>) {
+      // a bf16 sum starts from the canvas's own value
+      if (!touched && x < f) {
+#pragma unroll
+        for (int r = 0; r < kTileRows; ++r) {
+          if (ty0 + r < f) acc[r] = widen(o[static_cast<long long>(ty0 + r) * pitch]);
+        }
+      }
+    }
     touched = true;
 
-    stage<B>(win, stamps + list[0].src * stamp_floats, s, ty0 - list[0].y0 - 2,
+    stage<B>(win, stamps + list[0].src * stamp_elems, s, ty0 - list[0].y0 - 2,
              tx0 - list[0].x0 - 2);
     cp_async_commit();
     for (int k = 0; k < total; ++k) {
       if (k + 1 < total) {
         const Placed& nx = list[k + 1];
-        stage<B>(win + ((k + 1) & 1) * T::kWinFloats, stamps + nx.src * stamp_floats, s,
+        stage<B>(win + ((k + 1) & 1) * Sh::kWinFloats, stamps + nx.src * stamp_elems, s,
                  ty0 - nx.y0 - 2, tx0 - nx.x0 - 2);
         cp_async_commit();
         cp_async_wait<1>();
@@ -221,14 +278,23 @@ render_tile_kernel(const float* __restrict__ stamps, const float* __restrict__ o
       __syncthreads();
       const float fy = list[k].fy, fx = list[k].fx;
       const float gy = __fsub_rn(1.f, fy), gx = __fsub_rn(1.f, fx);
+      // a bf16 canvas adds a source only where its padded patch covers
+      // the element (s + 2 rows and columns from (y0, x0))
+      const int py0 = list[k].y0, px0 = list[k].x0;
+      const bool col_in = x >= px0 && x < px0 + s + 2;
       // window row r holds stamp row a0 + r; output row r reads window
       // rows r and r + 1, columns of this element and the next pixel's
-      const float* wb = win + (k & 1) * T::kWinFloats + tid;
-      float up0 = wb[0], up1 = wb[B];
+      const T* wb = win + (k & 1) * Sh::kWinFloats + tid;
+      float up0 = widen(wb[0]), up1 = widen(wb[B]);
 #pragma unroll
       for (int r = 0; r < kTileRows; ++r) {
-        const float dn0 = wb[(r + 1) * T::kWinRow], dn1 = wb[(r + 1) * T::kWinRow + B];
-        acc[r] = __fadd_rn(acc[r], bilinear(fy, gy, fx, gx, up0, dn0, up1, dn1));
+        const float dn0 = widen(wb[(r + 1) * Sh::kWinRow]), dn1 = widen(wb[(r + 1) * Sh::kWinRow + B]);
+        const float v = bilinear(fy, gy, fx, gx, up0, dn0, up1, dn1);
+        if constexpr (kIsBf16<T>) {
+          if (col_in && ty0 + r >= py0 && ty0 + r < py0 + s + 2) acc[r] = add_into<T>(acc[r], v);
+        } else {
+          acc[r] = __fadd_rn(acc[r], v);
+        }
         up0 = dn0;
         up1 = dn1;
       }
@@ -237,29 +303,30 @@ render_tile_kernel(const float* __restrict__ stamps, const float* __restrict__ o
   }
 
   if (!touched) {
-    if (accumulate) return;
+    if (accumulate || kIsBf16<T>) return;
     // nothing overlaps: zeros, 8 bytes a store
-    constexpr int kPairs = T::kThreads / 2;
-    for (int i = tid; i < kTileRows * kPairs; i += T::kThreads) {
+    constexpr int kPairs = Sh::kThreads / 2;
+    for (int i = tid; i < kTileRows * kPairs; i += Sh::kThreads) {
       const int r = i / kPairs, q = i - r * kPairs;
-      const int y = ty0 + r, x = tx0 + (2 * q) / B;
-      if (y < f && x < f) {
-        *reinterpret_cast<float2*>(out + static_cast<long long>(y) * pitch +
-                                   static_cast<long long>(tx0) * B + 2 * q) =
-            make_float2(0.f, 0.f);
+      const int y = ty0 + r, xx = tx0 + (2 * q) / B;
+      if (y < f && xx < f) {
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + static_cast<long long>(y) * pitch +
+                                   static_cast<long long>(tx0) * B + 2 * q) = make_float2(0.f, 0.f);
       }
     }
     return;
   }
-  const int x = tx0 + tid / B;
   if (x >= f) return;
-  float* o = out + static_cast<long long>(tx0) * B + tid;
 #pragma unroll
   for (int r = 0; r < kTileRows; ++r) {
     const int y = ty0 + r;
     if (y < f) {
-      float* e = o + static_cast<long long>(y) * pitch;
-      *e = accumulate ? __fadd_rn(*e, acc[r]) : acc[r];
+      T* e = o + static_cast<long long>(y) * pitch;
+      if constexpr (kIsBf16<T>) {
+        *e = narrow<T>(acc[r]);
+      } else {
+        *e = accumulate ? __fadd_rn(*e, acc[r]) : acc[r];
+      }
     }
   }
 }
@@ -270,9 +337,10 @@ constexpr int kGenTile = 16;
 constexpr int kGenThreads = 256;
 constexpr int kGenWarps = kGenThreads / 32;
 
+template <typename T>
 __global__ void __launch_bounds__(kGenThreads)
-render_generic_kernel(const float* __restrict__ stamps, const float* __restrict__ offsets,
-                      const uint8_t* __restrict__ mask, float* __restrict__ out, int n, int s,
+render_generic_kernel(const T* __restrict__ stamps, const float* __restrict__ offsets,
+                      const uint8_t* __restrict__ mask, T* __restrict__ out, int n, int s,
                       int b, int f, int pitch, int accumulate) {
   extern __shared__ float acc_s[];  // kGenTile * kGenTile * b
   __shared__ Placed list[kGenThreads];
@@ -283,6 +351,7 @@ render_generic_kernel(const float* __restrict__ stamps, const float* __restrict_
   const int row_elems = kGenTile * b;
   const int tile_elems = kGenTile * row_elems;
   const int pos0 = (f - s) / 2;
+  bool touched = false;
 
   for (int e = tid; e < tile_elems; e += kGenThreads) acc_s[e] = 0.f;
 
@@ -291,50 +360,93 @@ render_generic_kernel(const float* __restrict__ stamps, const float* __restrict_
     const bool hit =
         place(offsets, mask, base + tid, n, s, pos0, ty0, tx0, kGenTile, kGenTile, &p);
     const int total = compact<kGenWarps>(hit, p, list, warp_count);
+    if (total == 0) continue;
+    if constexpr (kIsBf16<T>) {
+      // a thread reads and adds only its own elements: no barrier needed
+      if (!touched) {
+        for (int e = tid; e < tile_elems; e += kGenThreads) {
+          const int r = e / row_elems, rem = e - r * row_elems;
+          const int y = ty0 + r, x = tx0 + rem / b;
+          if (y < f && x < f) acc_s[e] = widen(out[static_cast<long long>(y) * pitch + static_cast<long long>(tx0) * b + rem]);
+        }
+      }
+    }
+    touched = true;
     for (int k = 0; k < total; ++k) {
       const Placed q = list[k];
-      const float* st = stamps + static_cast<size_t>(q.src) * s * s * b;
+      const T* st = stamps + static_cast<size_t>(q.src) * s * s * b;
       const float gy = __fsub_rn(1.f, q.fy), gx = __fsub_rn(1.f, q.fx);
       for (int e = tid; e < tile_elems; e += kGenThreads) {
         const int r = e / row_elems, rem = e - r * row_elems;
         const int c = rem / b, ch = rem - c * b;
-        // stamp rows a, a + 1 and columns bb, bb + 1 under this pixel
+        // stamp rows a, a + 1 and columns bb, bb + 1 under this pixel; the
+        // padded patch's first row and column (a or bb = -2) hold +0.0,
+        // which only a bf16 canvas adds
         const int a = ty0 + r - q.y0 - 2, bb = tx0 + c - q.x0 - 2;
-        if (a < -1 || a >= s || bb < -1 || bb >= s) continue;
-        const bool a0 = a >= 0, a1 = a + 1 < s, b0 = bb >= 0, b1 = bb + 1 < s;
-        const float* px = st + (static_cast<long long>(a) * s + bb) * b + ch;
-        const float v00 = (a0 && b0) ? px[0] : 0.f;
-        const float v10 = (a1 && b0) ? px[s * b] : 0.f;
-        const float v01 = (a0 && b1) ? px[b] : 0.f;
-        const float v11 = (a1 && b1) ? px[s * b + b] : 0.f;
-        acc_s[e] = __fadd_rn(acc_s[e], bilinear(q.fy, gy, q.fx, gx, v00, v10, v01, v11));
+        constexpr int kFirst = kIsBf16<T> ? -2 : -1;
+        if (a < kFirst || a >= s || bb < kFirst || bb >= s) continue;
+        const bool a0 = a >= 0, a1 = a >= -1 && a + 1 < s, b0 = bb >= 0, b1 = bb >= -1 && bb + 1 < s;
+        const T* px = st + (static_cast<long long>(a) * s + bb) * b + ch;
+        const float v00 = (a0 && b0) ? widen(px[0]) : 0.f;
+        const float v10 = (a1 && b0) ? widen(px[s * b]) : 0.f;
+        const float v01 = (a0 && b1) ? widen(px[b]) : 0.f;
+        const float v11 = (a1 && b1) ? widen(px[s * b + b]) : 0.f;
+        acc_s[e] = add_into<T>(acc_s[e], bilinear(q.fy, gy, q.fx, gx, v00, v10, v01, v11));
       }
     }
     __syncthreads();
   }
 
+  if (kIsBf16<T> && !touched) return;
   for (int e = tid; e < tile_elems; e += kGenThreads) {
     const int r = e / row_elems, rem = e - r * row_elems;
     const int y = ty0 + r, x = tx0 + rem / b;
     if (y >= f || x >= f) continue;
-    float* o = out + static_cast<long long>(y) * pitch + static_cast<long long>(tx0) * b + rem;
-    *o = accumulate ? __fadd_rn(*o, acc_s[e]) : acc_s[e];
+    T* o = out + static_cast<long long>(y) * pitch + static_cast<long long>(tx0) * b + rem;
+    if constexpr (kIsBf16<T>) {
+      *o = narrow<T>(acc_s[e]);
+    } else {
+      *o = accumulate ? __fadd_rn(*o, acc_s[e]) : acc_s[e];
+    }
   }
 }
 
-template <int B>
-int launch_tile(const float* stamps, const float* offsets, const uint8_t* mask, float* out, int n,
-                int s, int f, int pitch, int accumulate, cudaStream_t stream) {
-  using T = TileShape<B>;
-  if constexpr (T::kShared > 48 * 1024) {
+template <int B, typename T>
+int launch_tile(const T* stamps, const float* offsets, const uint8_t* mask, T* out, int n, int s,
+                int f, int pitch, int accumulate, cudaStream_t stream) {
+  using Sh = TileShape<B, T>;
+  if constexpr (Sh::kShared > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        render_tile_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(T::kShared));
+        render_tile_kernel<B, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Sh::kShared));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((f + kTileCols - 1) / kTileCols, (f + kTileRows - 1) / kTileRows);
-  render_tile_kernel<B><<<grid, T::kThreads, T::kShared, stream>>>(
+  render_tile_kernel<B, T><<<grid, Sh::kThreads, Sh::kShared, stream>>>(
       stamps, offsets, mask, out, n, s, f, pitch, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The order-1 launch for either canvas type: the tile kernel for B = 6 on
+// pair-aligned stamps (and an 8-byte-aligned float32 window), else the
+// generic kernel.
+template <typename T>
+int render(const T* stamps, const float* offsets, const uint8_t* mask, T* out, int n, int s, int b,
+           int f, int pitch, int accumulate, cudaStream_t st) {
+  if (f <= 0 || b <= 0) return 0;
+  constexpr uintptr_t kPair = 2 * sizeof(T) - 1;
+  bool aligned = (reinterpret_cast<uintptr_t>(stamps) & kPair) == 0;
+  if constexpr (!kIsBf16<T>) {
+    aligned = aligned && (reinterpret_cast<uintptr_t>(out) & 7u) == 0 && (pitch & 1) == 0;
+  }
+  if (b == 6 && aligned) {
+    return launch_tile<6, T>(stamps, offsets, mask, out, n, s, f, pitch, accumulate, st);
+  }
+  const size_t shared = static_cast<size_t>(kGenTile) * kGenTile * b * sizeof(float);
+  if (shared > 40 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((f + kGenTile - 1) / kGenTile, (f + kGenTile - 1) / kGenTile);
+  render_generic_kernel<T><<<grid, kGenThreads, shared, st>>>(stamps, offsets, mask, out, n, s, b, f,
+                                                              pitch, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,76 +471,76 @@ __device__ __forceinline__ bool patch_hit(const int32_t* __restrict__ corners,
   return q->y0 < ty0 + th && q->y0 + p > ty0 && q->x0 < tx0 + tw && q->x0 + p > tx0;
 }
 
-template <int B>
+template <int B, typename T>
 struct PlaceShape {
-  static_assert(B % 2 == 0, "a pixel must be whole band pairs (8-byte copies)");
+  static_assert(B % 2 == 0, "a pixel must be whole band pairs (pair copies)");
   static constexpr int kThreads = kTileCols * B;  // one thread a row element
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kWinRow = kTileCols * B;   // floats in a window row
   static constexpr int kWinFloats = kTileRows * kWinRow;
   static constexpr int kPairsPerRow = kWinRow / 2;
   static constexpr int kWinPairs = kTileRows * kPairsPerRow;
-  static constexpr size_t kShared = 2 * kWinFloats * sizeof(float);
+  static constexpr size_t kShared = 2 * kWinFloats * sizeof(T);
 };
 
 // Stage patch rows a0 .. a0 + kTileRows - 1 and columns b0 .. b0 +
 // kTileCols - 1 (all bands) of patch `pt` into `win`; zero outside the
 // patch, and everywhere when the source is not visible.
-template <int B>
-__device__ __forceinline__ void place_stage(float* win, const float* __restrict__ pt, int p,
-                                            int a0, int b0, bool visible) {
-  using T = PlaceShape<B>;
-  for (int w = threadIdx.x; w < T::kWinPairs; w += T::kThreads) {
-    const int r = w / T::kPairsPerRow, q = w - r * T::kPairsPerRow;
+template <int B, typename T>
+__device__ __forceinline__ void place_stage(T* win, const T* __restrict__ pt, int p, int a0, int b0,
+                                            bool visible) {
+  using Sh = PlaceShape<B, T>;
+  for (int w = threadIdx.x; w < Sh::kWinPairs; w += Sh::kThreads) {
+    const int r = w / Sh::kPairsPerRow, q = w - r * Sh::kPairsPerRow;
     const int c = q / (B / 2), part = q - c * (B / 2);
     const int a = a0 + r, bb = b0 + c;
     const bool ok = visible && a >= 0 && a < p && bb >= 0 && bb < p;
-    const float* src = ok ? pt + (static_cast<long long>(a) * p + bb) * B + 2 * part : pt;
-    cp_async8(win + 2 * w, src, ok);
+    const T* src = ok ? pt + (static_cast<long long>(a) * p + bb) * B + 2 * part : pt;
+    cp_async_pair(win + 2 * w, src, ok);
   }
 }
 
-template <int B>
-__global__ void __launch_bounds__(PlaceShape<B>::kThreads)
-place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__ corners,
-                  const uint8_t* __restrict__ visible, float* __restrict__ canvas, int n, int p,
-                  int c) {
-  using T = PlaceShape<B>;
-  extern __shared__ __align__(16) float win[];  // two windows
-  __shared__ Patch list[T::kThreads];
-  __shared__ int warp_count[T::kWarps];
+template <int B, typename T>
+__global__ void __launch_bounds__(PlaceShape<B, T>::kThreads)
+place_tile_kernel(const T* __restrict__ patches, const int32_t* __restrict__ corners,
+                  const uint8_t* __restrict__ visible, T* __restrict__ canvas, int n, int p, int c) {
+  using Sh = PlaceShape<B, T>;
+  extern __shared__ __align__(16) unsigned char win_bytes[];  // two windows
+  T* win = reinterpret_cast<T*>(win_bytes);
+  __shared__ Patch list[Sh::kThreads];
+  __shared__ int warp_count[Sh::kWarps];
 
   const int tid = threadIdx.x;
   const int ty0 = blockIdx.y * kTileRows, tx0 = blockIdx.x * kTileCols;
-  const size_t patch_floats = static_cast<size_t>(p) * p * B;
+  const size_t patch_elems = static_cast<size_t>(p) * p * B;
   const long long pitch = static_cast<long long>(c) * B;
   const int col = tid / B;  // this thread's pixel in the tile row
   const bool col_ok = tx0 + col < c;
-  float* o = canvas + static_cast<long long>(tx0) * B + tid;
+  T* o = canvas + static_cast<long long>(tx0) * B + tid;
 
   float acc[kTileRows];
   bool touched = false;
 
-  for (int base = 0; base < n; base += T::kThreads) {
+  for (int base = 0; base < n; base += Sh::kThreads) {
     Patch q;
     const bool hit = patch_hit(corners, visible, base + tid, n, p, ty0, tx0, kTileRows, kTileCols, &q);
-    const int total = compact<T::kWarps>(hit, q, list, warp_count);
+    const int total = compact<Sh::kWarps>(hit, q, list, warp_count);
     if (total == 0) continue;
     if (!touched) {
       // each sum starts from the canvas's own value
       touched = true;
 #pragma unroll
       for (int r = 0; r < kTileRows; ++r)
-        acc[r] = (col_ok && ty0 + r < c) ? o[(ty0 + r) * pitch] : 0.f;
+        acc[r] = (col_ok && ty0 + r < c) ? widen(o[(ty0 + r) * pitch]) : 0.f;
     }
 
-    place_stage<B>(win, patches + list[0].src * patch_floats, p, ty0 - list[0].y0,
+    place_stage<B>(win, patches + list[0].src * patch_elems, p, ty0 - list[0].y0,
                    tx0 - list[0].x0, list[0].visible);
     cp_async_commit();
     for (int k = 0; k < total; ++k) {
       if (k + 1 < total) {
         const Patch& nx = list[k + 1];
-        place_stage<B>(win + ((k + 1) & 1) * T::kWinFloats, patches + nx.src * patch_floats, p,
+        place_stage<B>(win + ((k + 1) & 1) * Sh::kWinFloats, patches + nx.src * patch_elems, p,
                        ty0 - nx.y0, tx0 - nx.x0, nx.visible);
         cp_async_commit();
         cp_async_wait<1>();
@@ -439,11 +551,11 @@ place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__
       // window row r is patch row a0 + r; only elements the patch covers add
       const int a0 = ty0 - list[k].y0;
       const int bcol = tx0 - list[k].x0 + col;
-      const float* wb = win + (k & 1) * T::kWinFloats + tid;
+      const T* wb = win + (k & 1) * Sh::kWinFloats + tid;
       if (bcol >= 0 && bcol < p) {
 #pragma unroll
         for (int r = 0; r < kTileRows; ++r) {
-          if (a0 + r >= 0 && a0 + r < p) acc[r] = __fadd_rn(acc[r], wb[r * T::kWinRow]);
+          if (a0 + r >= 0 && a0 + r < p) acc[r] = add_into<T>(acc[r], widen(wb[r * Sh::kWinRow]));
         }
       }
       __syncthreads();  // this window is restaged two patches on
@@ -453,13 +565,14 @@ place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__
   if (!touched || !col_ok) return;
 #pragma unroll
   for (int r = 0; r < kTileRows; ++r) {
-    if (ty0 + r < c) o[(ty0 + r) * pitch] = acc[r];
+    if (ty0 + r < c) o[(ty0 + r) * pitch] = narrow<T>(acc[r]);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kGenThreads)
-place_generic_kernel(const float* __restrict__ patches, const int32_t* __restrict__ corners,
-                     const uint8_t* __restrict__ visible, float* __restrict__ canvas, int n, int p,
+place_generic_kernel(const T* __restrict__ patches, const int32_t* __restrict__ corners,
+                     const uint8_t* __restrict__ visible, T* __restrict__ canvas, int n, int p,
                      int b, int c) {
   extern __shared__ float acc_s[];  // kGenTile * kGenTile * b
   __shared__ Patch list[kGenThreads];
@@ -483,19 +596,19 @@ place_generic_kernel(const float* __restrict__ patches, const int32_t* __restric
       for (int e = tid; e < tile_elems; e += kGenThreads) {
         const int r = e / row_elems, rem = e - r * row_elems;
         const int y = ty0 + r, x = tx0 + rem / b;
-        acc_s[e] = (y < c && x < c) ? canvas[y * pitch + static_cast<long long>(tx0) * b + rem] : 0.f;
+        acc_s[e] = (y < c && x < c) ? widen(canvas[y * pitch + static_cast<long long>(tx0) * b + rem]) : 0.f;
       }
     }
     for (int k = 0; k < total; ++k) {
       const Patch pq = list[k];
-      const float* pt = patches + static_cast<size_t>(pq.src) * p * p * b;
+      const T* pt = patches + static_cast<size_t>(pq.src) * p * p * b;
       for (int e = tid; e < tile_elems; e += kGenThreads) {
         const int r = e / row_elems, rem = e - r * row_elems;
         const int cc = rem / b, ch = rem - cc * b;
         const int a = ty0 + r - pq.y0, bb = tx0 + cc - pq.x0;
         if (a < 0 || a >= p || bb < 0 || bb >= p) continue;
-        const float v = pq.visible ? pt[(static_cast<long long>(a) * p + bb) * b + ch] : 0.f;
-        acc_s[e] = __fadd_rn(acc_s[e], v);
+        const float v = pq.visible ? widen(pt[(static_cast<long long>(a) * p + bb) * b + ch]) : 0.f;
+        acc_s[e] = add_into<T>(acc_s[e], v);
       }
     }
     __syncthreads();
@@ -505,23 +618,37 @@ place_generic_kernel(const float* __restrict__ patches, const int32_t* __restric
   for (int e = tid; e < tile_elems; e += kGenThreads) {
     const int r = e / row_elems, rem = e - r * row_elems;
     const int y = ty0 + r, x = tx0 + rem / b;
-    if (y < c && x < c) canvas[y * pitch + static_cast<long long>(tx0) * b + rem] = acc_s[e];
+    if (y < c && x < c) canvas[y * pitch + static_cast<long long>(tx0) * b + rem] = narrow<T>(acc_s[e]);
   }
 }
 
-template <int B>
-int launch_place(const float* patches, const int32_t* corners, const uint8_t* visible, float* canvas,
-                 int n, int p, int c, cudaStream_t stream) {
-  using T = PlaceShape<B>;
-  if constexpr (T::kShared > 48 * 1024) {
+template <int B, typename T>
+int launch_place(const T* patches, const int32_t* corners, const uint8_t* visible, T* canvas, int n,
+                 int p, int c, cudaStream_t stream) {
+  using Sh = PlaceShape<B, T>;
+  if constexpr (Sh::kShared > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        place_tile_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(T::kShared));
+        place_tile_kernel<B, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Sh::kShared));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((c + kTileCols - 1) / kTileCols, (c + kTileRows - 1) / kTileRows);
-  place_tile_kernel<B><<<grid, T::kThreads, T::kShared, stream>>>(patches, corners, visible, canvas,
-                                                                   n, p, c);
+  place_tile_kernel<B, T><<<grid, Sh::kThreads, Sh::kShared, stream>>>(patches, corners, visible,
+                                                                       canvas, n, p, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int place_all(const T* patches, const int32_t* corners, const uint8_t* visible, T* canvas, int n, int p,
+              int b, int c, cudaStream_t st) {
+  if (n <= 0 || c <= 0 || b <= 0 || p <= 0) return 0;
+  if (b == 6 && (reinterpret_cast<uintptr_t>(patches) & (2 * sizeof(T) - 1)) == 0) {
+    return launch_place<6, T>(patches, corners, visible, canvas, n, p, c, st);
+  }
+  const size_t shared = static_cast<size_t>(kGenTile) * kGenTile * b * sizeof(float);
+  if (shared > 40 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((c + kGenTile - 1) / kGenTile, (c + kGenTile - 1) / kGenTile);
+  place_generic_kernel<T><<<grid, kGenThreads, shared, st>>>(patches, corners, visible, canvas, n, p, b, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,16 +660,14 @@ int launch_place(const float* patches, const int32_t* corners, const uint8_t* vi
 // into in place.  Returns the cudaError_t of the launch.
 extern "C" int dvt_place(const float* patches, const int32_t* corners, const uint8_t* visible,
                          float* canvas, int n, int p, int b, int c, void* stream) {
-  if (n <= 0 || c <= 0 || b <= 0 || p <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b == 6 && (reinterpret_cast<uintptr_t>(patches) & 7u) == 0) {
-    return launch_place<6>(patches, corners, visible, canvas, n, p, c, st);
-  }
-  const size_t shared = static_cast<size_t>(kGenTile) * kGenTile * b * sizeof(float);
-  if (shared > 40 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((c + kGenTile - 1) / kGenTile, (c + kGenTile - 1) / kGenTile);
-  place_generic_kernel<<<grid, kGenThreads, shared, st>>>(patches, corners, visible, canvas, n, p, b, c);
-  return static_cast<int>(cudaGetLastError());
+  return place_all<float>(patches, corners, visible, canvas, n, p, b, c, static_cast<cudaStream_t>(stream));
+}
+
+// dvt_place with bf16 patches and a bf16 canvas (2-byte elements), each add
+// rounded to bf16.
+extern "C" int dvt_place_bf16(const bf16* patches, const int32_t* corners, const uint8_t* visible,
+                              bf16* canvas, int n, int p, int b, int c, void* stream) {
+  return place_all<bf16>(patches, corners, visible, canvas, n, p, b, c, static_cast<cudaStream_t>(stream));
 }
 
 // stamps (n, s, s, b) float32 contiguous; offsets (n, 2) float32; mask n
@@ -552,17 +677,14 @@ extern "C" int dvt_place(const float* patches, const int32_t* corners, const uin
 extern "C" int dvt_render(const float* stamps, const float* offsets, const uint8_t* mask,
                           float* out, int n, int s, int b, int f, int pitch,
                           int accumulate, void* stream) {
-  if (f <= 0 || b <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool aligned = (reinterpret_cast<uintptr_t>(stamps) & 7u) == 0 &&
-                       (reinterpret_cast<uintptr_t>(out) & 7u) == 0 && (pitch & 1) == 0;
-  if (b == 6 && aligned) {
-    return launch_tile<6>(stamps, offsets, mask, out, n, s, f, pitch, accumulate, st);
-  }
-  const size_t shared = static_cast<size_t>(kGenTile) * kGenTile * b * sizeof(float);
-  if (shared > 40 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((f + kGenTile - 1) / kGenTile, (f + kGenTile - 1) / kGenTile);
-  render_generic_kernel<<<grid, kGenThreads, shared, st>>>(stamps, offsets, mask, out, n, s, b,
-                                                           f, pitch, accumulate);
-  return static_cast<int>(cudaGetLastError());
+  return render<float>(stamps, offsets, mask, out, n, s, b, f, pitch, accumulate,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// dvt_render with bf16 stamps and a bf16 window `out`, always added into:
+// each source's value rounded to bf16 and every add rounded, in ascending
+// source index, where its padded patch covers the element.
+extern "C" int dvt_render_bf16(const bf16* stamps, const float* offsets, const uint8_t* mask, bf16* out,
+                               int n, int s, int b, int f, int pitch, void* stream) {
+  return render<bf16>(stamps, offsets, mask, out, n, s, b, f, pitch, 1, static_cast<cudaStream_t>(stream));
 }

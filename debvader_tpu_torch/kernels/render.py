@@ -34,6 +34,16 @@ each canvas element starts from its own value and adds the patches that
 cover it in ascending source index, the JAX package's sequential scan
 order, so its canvas is bit-identical to the plain version's and the
 same from run to run.
+
+Both kernels also take a bfloat16 canvas (the serving path's canvases
+under ``DeblendField(device_dtype='bfloat16')``), with bfloat16 stamps or
+patches: each source's value is computed in float32, rounded to bfloat16
+and added into the canvas with a rounding after every add, in ascending
+source index, each element starting from the canvas's own value, which is
+what the JAX package's scan computes on a bfloat16 canvas.  The plain
+versions do the same adds in bfloat16 tensors; on the order-1 route the
+plain version adds into a padded bfloat16 canvas and copies its window
+back.  Each bfloat16 launch counts in the wrapper's ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from debvader_tpu_torch.kernels import _build
 
 __all__ = [
     "subpixel_shift_const",
+    "subpixel_shift",
     "shift_patches",
     "place_corners",
     "place_patches",
@@ -70,6 +81,45 @@ def subpixel_shift_const(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor
     rows = torch.arange(h, dtype=torch.float32, device=img.device).reshape(1, h, 1, 1)
     cols = torch.arange(w, dtype=torch.float32, device=img.device).reshape(1, 1, w, 1)
     return torch.where((rows >= fy) & (cols >= fx), out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def subpixel_shift(img: torch.Tensor, shift: torch.Tensor, with_jacobian: bool = False):
+    """Bilinear shift of (N, H, W) images by (N, 2) shifts, the JAX
+    package's ``ops/shift.subpixel_shift`` (scipy.ndimage.shift at order 1):
+    out[i, j] = img[i - dy, j - dx], taps at floor(i - dy), zero outside the
+    image, and zero where the sample point itself leaves [0, H - 1] x
+    [0, W - 1].  ``with_jacobian`` also returns d out / d dy and d out / d
+    dx, each (N, H, W), in the rounding order of JAX's forward-mode
+    derivative (floor's derivative is 0)."""
+    n, h, w = img.shape
+    dev = img.device
+    dy = shift[:, 0].to(torch.float32).reshape(n, 1, 1)
+    dx = shift[:, 1].to(torch.float32).reshape(n, 1, 1)
+    yy = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, h, 1) - dy
+    xx = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, w) - dx
+    yy, xx = torch.broadcast_to(yy, (n, h, w)), torch.broadcast_to(xx, (n, h, w))
+    y0f, x0f = torch.floor(yy), torch.floor(xx)
+    fy, fx = yy - y0f, xx - x0f
+    y0, x0 = y0f.to(torch.int64), x0f.to(torch.int64)
+    flat = img.reshape(n, h * w)
+
+    def tap(yi, xi):
+        ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(n, -1)
+        v = torch.gather(flat, 1, idx).reshape(n, h, w)
+        return torch.where(ok, v, torch.zeros((), dtype=v.dtype, device=dev))
+
+    t00, t01, t10, t11 = tap(y0, x0), tap(y0, x0 + 1), tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    gy, gx = 1 - fy, 1 - fx
+    out = t00 * gy * gx + t01 * gy * fx + t10 * fy * gx + t11 * fy * fx
+    inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out = torch.where(inside, out, zero)
+    if not with_jacobian:
+        return out
+    d_dy = t00 * gx + t01 * fx - t10 * gx - t11 * fx
+    d_dx = t00 * gy - t01 * gy + t10 * fy - t11 * fy
+    return out, torch.where(inside, d_dy, zero), torch.where(inside, d_dx, zero)
 
 
 def shift_patches(stamps, offsets, interp_pad: int, interp):
@@ -102,11 +152,16 @@ def place_corners(int_off, mask, field_size: int, stamp_size: int, interp_pad: i
     return y, x, visible
 
 
+_CANVAS_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_place(canvas, patches, y, x, visible):
     if canvas.ndim != 3 or canvas.shape[0] != canvas.shape[1] or not canvas.is_contiguous():
         raise ValueError(f"canvas must be a contiguous (C, C, B) tensor, got {tuple(canvas.shape)}")
-    if canvas.dtype != torch.float32 or patches.dtype != torch.float32:
-        raise ValueError("canvas and patches must be float32")
+    if canvas.dtype not in _CANVAS_DTYPES or patches.dtype != canvas.dtype:
+        raise ValueError(
+            f"canvas and patches must both be float32 or both bfloat16, got {canvas.dtype} and {patches.dtype}"
+        )
     n, p = patches.shape[:2]
     if patches.ndim != 4 or patches.shape[2] != p or patches.shape[3] != canvas.shape[2]:
         raise ValueError(f"patches must be (N, P, P, {canvas.shape[2]}), got {tuple(patches.shape)}")
@@ -122,7 +177,7 @@ def _check_place(canvas, patches, y, x, visible):
 def place_patches_plain(canvas, patches, y, x, visible) -> None:
     """Plain PyTorch version of :func:`place_patches`: the JAX package's
     scan, one slice add of where(visible, patch, 0) a source, in source
-    order.  (One ``index_put_(accumulate=True)`` of all patches adds in
+    order (in the canvas's dtype: every bfloat16 add is rounded).  (One ``index_put_(accumulate=True)`` of all patches adds in
     another order once the CPU runs it on several threads, and PyTorch
     documents no order for it on a card.)"""
     p = patches.shape[1]
@@ -134,21 +189,26 @@ def place_patches_plain(canvas, patches, y, x, visible) -> None:
 def _launch_place(canvas, patches, y, x, visible):
     n, p, _, b = patches.shape
     corners = torch.stack([y, x], -1).to(torch.int32)
-    fn = _build.launcher("render", "dvt_place", 4, 4)
+    bf16 = canvas.dtype == torch.bfloat16
+    fn = _build.launcher("render", "dvt_place_bf16" if bf16 else "dvt_place", 4, 4)
     status = _build.call(
         fn, canvas.device, patches.data_ptr(), corners.data_ptr(), visible.to(torch.uint8).data_ptr(),
         canvas.data_ptr(), n, p, b, canvas.shape[0],
     )
-    _build.check(status, "place")
-    place_patches.launches += 1
+    _build.check(status, "place_bf16" if bf16 else "place")
+    if bf16:
+        place_patches.launches_bf16 += 1
+    else:
+        place_patches.launches += 1
 
 
 def place_patches(canvas, patches, y, x, visible) -> None:
-    """Add patches (N, P, P, B) float32 into a (C, C, B) float32 canvas in
-    place: patch i at canvas rows y[i] .. y[i] + P - 1 and columns x[i] ..
-    x[i] + P - 1 (the corners lie in range, as :func:`place_corners` clips
-    them), +0.0 where visible[i] is False; the patches covering an element
-    added in ascending index.  CPU tensors take the plain version; CUDA
+    """Add patches (N, P, P, B) into a (C, C, B) canvas of the same dtype
+    (float32, or bfloat16 with every add rounded) in place: patch i at
+    canvas rows y[i] .. y[i] + P - 1 and columns x[i] .. x[i] + P - 1 (the
+    corners lie in range, as :func:`place_corners` clips them), +0.0 where
+    visible[i] is False; the patches covering an element added in
+    ascending index.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     _check_place(canvas, patches, y, x, visible)
     if canvas.device.type == "cpu":
@@ -161,6 +221,7 @@ def place_patches(canvas, patches, y, x, visible) -> None:
 
 
 place_patches.launches = 0
+place_patches.launches_bf16 = 0
 
 
 def render_into_canvas(
@@ -170,12 +231,13 @@ def render_into_canvas(
     the fractional part of its offset with ``interp(padded, frac)``, and add
     the patches into the padded canvas in place with ``place`` (the plain
     loop by default, or :func:`place_patches`), patch i at field centre +
-    floor(offset i) (:func:`place_corners`)."""
+    floor(offset i) (:func:`place_corners`).  The patches are shifted in
+    float32 and rounded to the canvas's dtype before the adds."""
     if stamps.shape[0] == 0:
         return
     shifted, int_off = shift_patches(stamps, offsets, interp_pad, interp)
     y, x, visible = place_corners(int_off, mask, field_size, stamps.shape[1], interp_pad, canvas.shape[0])
-    place(canvas, shifted, y, x, visible)
+    place(canvas, shifted.to(canvas.dtype), y, x, visible)
 
 
 def _check(stamps, offsets, mask):
@@ -191,16 +253,26 @@ def _check(stamps, offsets, mask):
 def render_field_plain(stamps, offsets, field_size: int, mask=None, out=None):
     """Plain PyTorch version of :func:`render_field_kernel`: the shift of
     the padded stamps, their patches added into a padded canvas in source
-    order (:func:`place_patches_plain`), cropped."""
+    order (:func:`place_patches_plain`), cropped.  A bfloat16 ``out`` is the
+    canvas the adds start from: its values go into the window of a padded
+    bfloat16 canvas, the rounded patches are added there, and the window is
+    copied back."""
     _check(stamps, offsets, mask)
     s, b = stamps.shape[1], stamps.shape[-1]
     pad = s + 2 * _INTERP_PAD
-    canvas = torch.zeros((field_size + 2 * pad,) * 2 + (b,), dtype=torch.float32, device=stamps.device)
-    render_into_canvas(canvas, stamps, offsets, mask, field_size, _INTERP_PAD, subpixel_shift_const)
+    bf16 = out is not None and out.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    canvas = torch.zeros((field_size + 2 * pad,) * 2 + (b,), dtype=dtype, device=stamps.device)
     window = canvas[pad : pad + field_size, pad : pad + field_size]
+    if bf16:
+        window.copy_(out)
+    render_into_canvas(canvas, stamps, offsets, mask, field_size, _INTERP_PAD, subpixel_shift_const)
     if out is None:
         return window
-    out += window
+    if bf16:
+        out.copy_(window)
+    else:
+        out += window
     return out
 
 
@@ -209,9 +281,19 @@ def _launch(stamps, offsets, field_size, mask, out):
     accumulate = out is not None
     if out is None:
         out = torch.empty((field_size, field_size, b), dtype=torch.float32, device=stamps.device)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    if out.dtype == torch.bfloat16:
+        fn = _build.launcher("render", "dvt_render_bf16", 4, 5)
+        status = _build.call(
+            fn, stamps.device, stamps.data_ptr(), offsets.data_ptr(), mask_ptr, out.data_ptr(),
+            n, s, b, field_size, out.stride(0),
+        )
+        _build.check(status, "render_bf16")
+        render_field_kernel.launches_bf16 += 1
+        return out
     fn = _build.launcher("render", "dvt_render", 4, 6)
     status = _build.call(
-        fn, stamps.device, stamps.data_ptr(), offsets.data_ptr(), None if mask is None else mask.data_ptr(),
+        fn, stamps.device, stamps.data_ptr(), offsets.data_ptr(), mask_ptr,
         out.data_ptr(), n, s, b, field_size, out.stride(0), int(accumulate),
     )
     _build.check(status, "render")
@@ -232,12 +314,17 @@ def render_field_kernel(
     sources.  ``out``, when given, is an (F, F, B) float32 tensor (or a
     window of a larger canvas: rows may be strided, pixels and bands are
     contiguous) that the render is added to in place and that is returned.
+    A bfloat16 ``out`` takes bfloat16 stamps, and every source's value and
+    every add into it are rounded to bfloat16 (module docstring).
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     _check(stamps, offsets, mask)
     b = stamps.shape[-1]
+    bf16 = out is not None and out.dtype == torch.bfloat16
+    if bf16 and stamps.dtype != torch.bfloat16:
+        raise ValueError(f"a bfloat16 out takes bfloat16 stamps, got {stamps.dtype}")
     if out is not None:
-        if tuple(out.shape) != (field_size, field_size, b) or out.dtype != torch.float32:
-            raise ValueError(f"out must be float32 ({field_size}, {field_size}, {b})")
+        if tuple(out.shape) != (field_size, field_size, b) or out.dtype not in _CANVAS_DTYPES:
+            raise ValueError(f"out must be float32 or bfloat16 ({field_size}, {field_size}, {b})")
         if out.device != stamps.device:
             raise ValueError("out must lie on the stamps' device")
         if field_size > 1 and (out.stride(2) != 1 or out.stride(1) != b):
@@ -245,7 +332,7 @@ def render_field_kernel(
     if stamps.device.type == "cpu":
         return render_field_plain(stamps, offsets, field_size, mask, out)
     if stamps.device.type == "cuda":
-        stamps = stamps.to(torch.float32).contiguous()
+        stamps = stamps.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
         offsets = offsets.to(torch.float32).contiguous()
         if mask is not None:
             mask = mask.to(torch.bool).contiguous()
@@ -254,3 +341,4 @@ def render_field_kernel(
 
 
 render_field_kernel.launches = 0
+render_field_kernel.launches_bf16 = 0

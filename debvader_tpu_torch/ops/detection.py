@@ -426,7 +426,7 @@ def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda"):
     if cfg.deblend_algo == "lutz":
         raise NotImplementedError(
             "deblend_algo='lutz' is not ported to the PyTorch package yet "
-            "(ROADMAP.md Queue 1, item: 3. tiles and batched detection)"
+            "(ROADMAP.md Queue 1: tiles and batched detection)"
         )
     dev = resolve_device(device)
     image = torch.as_tensor(np.asarray(image_2d, np.float32), device=dev)

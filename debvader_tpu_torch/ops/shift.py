@@ -22,11 +22,12 @@ from debvader_tpu_torch.kernels.render import (
     place_patches,
     render_field_kernel,
     render_into_canvas,
+    subpixel_shift,
     subpixel_shift_const,
 )
 from debvader_tpu_torch.ops.spline import subpixel_shift_spline_const
 
-__all__ = ["render_pad", "subpixel_shift_const", "render_field"]
+__all__ = ["render_pad", "subpixel_shift", "subpixel_shift_const", "render_field"]
 
 
 def render_pad(stamp_size: int, order: int = 1) -> int:
@@ -57,37 +58,48 @@ def render_field(
     nothing (it is clipped into range and masked, never wrapped).
 
     ``canvas``/``crop`` render incrementally: pass ``crop=False`` to get
-    the padded float32 canvas back ((F + 2 * render_pad,) * 2 + (B,)),
-    hand it to the next call's ``canvas``, and crop the last one.  The
-    canvas is accumulated into in place: keep only the returned tensor.
-    The canvas's padding ring is scratch (the order-1 kernel leaves it
-    zero, the order-3 place and the plain versions deposit the stamps' spill
-    there)."""
+    the padded canvas back ((F + 2 * render_pad,) * 2 + (B,)), hand it to
+    the next call's ``canvas``, and crop the last one.  The canvas is
+    accumulated into in place: keep only the returned tensor.  The canvas's
+    padding ring is scratch (the order-1 kernel leaves it alone, the
+    order-3 place and the plain versions deposit the stamps' spill there).
+
+    The canvas is float32, or bfloat16 (the serving path under
+    ``device_dtype='bfloat16'``): a bfloat16 canvas takes bfloat16 stamps,
+    and every shifted value and every add into it is rounded to bfloat16,
+    in source order, as the JAX package's scan adds into a bfloat16 canvas.
+    Without ``canvas``, bfloat16 stamps render into a new bfloat16 canvas
+    and any other stamps into a float32 one."""
     s, b = stamps.shape[1], stamps.shape[-1]
     dev = stamps.device
     pad = render_pad(s, order)
     canvas_size = field_size + 2 * pad
+    dtype = torch.bfloat16 if stamps.dtype == torch.bfloat16 else torch.float32
     if canvas is not None and (
-        tuple(canvas.shape) != (canvas_size, canvas_size, b) or canvas.dtype != torch.float32
+        tuple(canvas.shape) != (canvas_size, canvas_size, b) or canvas.dtype not in (torch.float32, torch.bfloat16)
     ):
         raise ValueError(
-            f"canvas must be float32 {(canvas_size, canvas_size, b)}, got "
+            f"canvas must be float32 or bfloat16 {(canvas_size, canvas_size, b)}, got "
             f"{canvas.dtype} {tuple(canvas.shape)}"
         )
+    if canvas is not None:
+        dtype = canvas.dtype
+    if dtype == torch.bfloat16 and stamps.dtype != torch.bfloat16:
+        raise ValueError(f"a bfloat16 canvas takes bfloat16 stamps, got {stamps.dtype}")
 
     def window(c):
         return c[pad : pad + field_size, pad : pad + field_size]
 
     if order == 1 and dev.type == "cuda":
-        if canvas is None and crop:
+        if canvas is None and crop and dtype == torch.float32:
             return render_field_kernel(stamps, offsets, field_size, mask)
         if canvas is None:
-            canvas = torch.zeros((canvas_size, canvas_size, b), dtype=torch.float32, device=dev)
+            canvas = torch.zeros((canvas_size, canvas_size, b), dtype=dtype, device=dev)
         render_field_kernel(stamps, offsets, field_size, mask, out=window(canvas))
         return window(canvas) if crop else canvas
 
     if canvas is None:
-        canvas = torch.zeros((canvas_size, canvas_size, b), dtype=torch.float32, device=dev)
+        canvas = torch.zeros((canvas_size, canvas_size, b), dtype=dtype, device=dev)
     interp = subpixel_shift_const if order == 1 else subpixel_shift_spline_const
     render_into_canvas(canvas, stamps, offsets, mask, field_size, (pad - s) // 2, interp, place_patches)
     return window(canvas) if crop else canvas

@@ -26,10 +26,15 @@ each source's epistemic stddev stamp from ``cfg.epistemic_samples``
 stochastic decodes (api.sample_stats_tensor: one encode, Welford statistics
 on the device), and the serving route renders them into a third canvas.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-position registration, reduced-precision residency of the field
-(``upload_dtype`` / ``device_dtype``), mesh fan-out, int8 serving and
-exported artifacts.
+``optimise_positions=True`` registers every source (ops/registration.py:
+a Gauss-Newton fit of its shift, a CUDA kernel on a card) and renders it
+at its detected offset plus the shift.  ``upload_dtype`` /
+``device_dtype`` hold the field on the device at a reduced precision;
+under ``device_dtype='bfloat16'`` the serving route's canvases are
+bfloat16 too, and the render kernels round every add to bfloat16.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item by
+title): mesh fan-out, int8 serving and exported artifacts.
 """
 
 from __future__ import annotations
@@ -42,13 +47,12 @@ from debvader_tpu_torch.config import PipelineConfig
 from debvader_tpu_torch.device import resolve_device
 from debvader_tpu_torch.ops.extraction import extract_cutouts, extract_cutouts_np
 from debvader_tpu_torch.ops.measure import measure_batch
+from debvader_tpu_torch.ops.registration import position_optimization_batch_windowed
 from debvader_tpu_torch.ops.shift import render_field, render_pad
 from debvader_tpu_torch.utils.profiling import stage_timer
 
 __all__ = ["DeblendField"]
 
-_ROADMAP = "ROADMAP.md Queue 1"
-_OPTIONS_ITEM = "2. DeblendField options"
 _MEASURE_COLUMNS = ("flux", "centroid", "ellipticity", "snr")
 
 # Device memory one source of a stream chunk takes at its peak (cutouts,
@@ -64,10 +68,10 @@ _STREAM_RESERVE_BYTES = 2 << 30
 _MIN_STREAM_CHUNK = 16
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(
-        f"{option} is not ported to the PyTorch package yet ({_ROADMAP}, item: {item})"
-    )
+def _not_ported(option: str, title: str):
+    """Raise for an option whose ROADMAP.md Queue 1 item, named by its
+    title, is still to come."""
+    raise NotImplementedError(f"{option} is not ported to the PyTorch package yet (ROADMAP.md Queue 1: {title})")
 
 
 def _check_field_image(arr: np.ndarray) -> None:
@@ -85,6 +89,18 @@ def _check_reduced_dtype(name: str, value):
     if value is not None and str(value) not in ("bfloat16", "float16"):
         raise ValueError(f"{name} must be 'bfloat16' or 'float16', got {value!r}")
     return None if value is None else str(value)
+
+
+def _bfloat16_host(arr: np.ndarray) -> torch.Tensor:
+    """A float32 array cast to bfloat16 on the host, as ``ml_dtypes`` casts
+    it (the JAX package's host cast): round to nearest even, infinities
+    kept, and a NaN becomes the quiet NaN of its sign (torch's own cast
+    drops the sign)."""
+    u = np.ascontiguousarray(arr, np.float32).view(np.uint32)
+    rne = (u + (np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))) >> 16
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    bits = np.where(nan, ((u >> 16) & np.uint32(0x8000)) | np.uint32(0x7FC0), rne).astype(np.uint16)
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
 
 
 def _records(res: dict) -> np.recarray:
@@ -128,18 +144,26 @@ def _render_finish(field: torch.Tensor, canvas: torch.Tensor, pad: int, out_dtyp
 
 
 def _serving_chunk_cap(
-    field_size: int, bands: int, hbm_bytes: int, resident_fields: int = 2, replica_chunk: bool = False
+    field_size: int,
+    bands: int,
+    hbm_bytes: int,
+    resident_fields: int = 2,
+    replica_chunk: bool = False,
+    bytes_per_el: int = 4,
+    extra_bytes: int = 0,
 ) -> int:
     """Largest forward chunk that fits beside the streaming loop's resident
-    buffers: the stream holds the float32 field and its padded render
-    canvases (``resident_fields`` full-field buffers) for its whole
+    buffers: the stream holds the field and its padded render canvases
+    (``resident_fields`` full-field buffers of ``bytes_per_el`` bytes an
+    element: 4 for float32, 2 under ``device_dtype='bfloat16'``) and
+    ``extra_bytes`` more (the float32 registration band) for its whole
     duration, and each source of a chunk takes
     ``_STREAM_BYTES_PER_SOURCE`` at the chunk's peak.  ``replica_chunk``
     leaves room for one chunk of epistemic replica decodes of the same
     size, which runs while the chunk's own stamps are alive: its decodes
     are budgeted like whole forwards."""
-    resident = resident_fields * 4 * field_size * field_size * bands
-    budget = hbm_bytes - resident - _STREAM_RESERVE_BYTES
+    resident = resident_fields * bytes_per_el * field_size * field_size * bands
+    budget = hbm_bytes - resident - extra_bytes - _STREAM_RESERVE_BYTES
     per_source = _STREAM_BYTES_PER_SOURCE * (2 if replica_chunk else 1)
     return max(budget // per_source, _MIN_STREAM_CHUNK)
 
@@ -185,15 +209,36 @@ class DeblendField:
         forward, latents from ``generator``, seeded 0 by default) or 'mean'
         (deterministic).  ``epistemic_uncertainty_estimation=True`` adds the
         per-source epistemic stddev from ``cfg.epistemic_samples`` stochastic
-        decodes, drawn from the same ``generator``."""
+        decodes, drawn from the same ``generator``.
+
+        ``upload_dtype``: 'bfloat16' or 'float16' for the host-to-device
+        upload of the field (cast on the host, half the bytes), widened to
+        float32 on the device.  ``device_dtype``: 'bfloat16' keeps the
+        memoized field and the serving route's render canvases bfloat16 on
+        the device (half their bytes; float16 is rejected, its range clips
+        the canvases' sums); the per-chunk work (cutouts, forward, mse,
+        registration) still runs in float32, and the record-array route
+        renders in float32.  It implies the reduced upload, so an
+        ``upload_dtype`` must be unset or equal."""
         if mesh is not None:
-            _not_ported("mesh=", "8. multi-device")
+            _not_ported("mesh=", "multi-device")
         if quantized is not None:
-            _not_ported("quantized=", "6. quantized")
+            _not_ported("quantized=", "quantized serving")
         if artifact is not None:
-            _not_ported("artifact=", "7. export and CLI")
-        if upload_dtype is not None or device_dtype is not None:
-            _not_ported("upload_dtype= / device_dtype=", _OPTIONS_ITEM)
+            _not_ported("artifact=", "export, CLI, compat and the model options left")
+        self.upload_dtype = _check_reduced_dtype("upload_dtype", upload_dtype)
+        self.device_dtype = _check_reduced_dtype("device_dtype", device_dtype)
+        if self.device_dtype == "float16":
+            raise ValueError(
+                "device_dtype='float16' is rejected: the resident canvases accumulate sums and "
+                "float16 clips at +-65504, so bright or crowded fields would overflow to inf; "
+                "use 'bfloat16' (float32 range at ~3 significant digits)"
+            )
+        if self.device_dtype is not None and self.upload_dtype not in (None, self.device_dtype):
+            raise ValueError(
+                f"device_dtype={self.device_dtype!r} already implies the reduced upload; "
+                f"upload_dtype={self.upload_dtype!r} conflicts: set only device_dtype"
+            )
         if z_mode not in ("sample", "mean"):
             raise ValueError(f"z_mode must be 'sample' or 'mean', got {z_mode!r}")
         self.device = resolve_device(device)
@@ -215,6 +260,7 @@ class DeblendField:
         self.nb_of_detected_objects: list[int] = []
         self.nb_of_deblended_galaxies: list[int] = []
         self.res_deblend = None
+        self.mse: list[float] = []
         self.serving_timings: dict = {}
         self._dev_field_key = None
         self._dev_field = None
@@ -236,21 +282,37 @@ class DeblendField:
 
     def _device_field(self, field_np: np.ndarray) -> torch.Tensor:
         """Device copy of the field, memoized on array identity, shape,
-        dtype and the content checksum, so an in-place edit of the same
-        ndarray (``df.field_image[0] += ...``), sum-neutral ones included,
-        uploads again instead of serving stale device contents.  The
-        checksum is one pass over the host array."""
-        key = (id(field_np), field_np.shape, str(field_np.dtype)) + self._field_checksum(field_np)
+        dtype, the two reduced dtypes and the content checksum, so an
+        in-place edit of the same ndarray (``df.field_image[0] += ...``),
+        sum-neutral ones included, uploads again instead of serving stale
+        device contents.  The checksum is one pass over the host array.
+        A reduced dtype is cast on the host (half the bytes to upload);
+        ``device_dtype`` keeps it on the device, ``upload_dtype`` alone
+        widens it back to float32 there."""
+        key = (id(field_np), field_np.shape, str(field_np.dtype), self.upload_dtype, self.device_dtype)
+        key += self._field_checksum(field_np)
         if self._dev_field_key != key:
-            self._dev_field = torch.as_tensor(
-                np.asarray(field_np, np.float32), device=self.device
-            )
-            if self._dev_field.device.type == "cpu":
-                # as_tensor shares the ndarray's memory on the CPU; the
-                # memo must not follow in-place edits
-                self._dev_field = self._dev_field.clone()
+            host = np.asarray(field_np, np.float32)
+            reduced = self.device_dtype or self.upload_dtype
+            if reduced == "bfloat16":
+                t = _bfloat16_host(host)
+            elif reduced == "float16":
+                t = torch.from_numpy(host.astype(np.float16))
+            else:
+                t = torch.from_numpy(host)
+            # from_numpy shares the ndarray's memory; the memo must not
+            # follow in-place edits
+            dev = t.to(self.device, copy=True)
+            if reduced is not None and self.device_dtype is None:
+                dev = dev.to(torch.float32)
+            self._dev_field = dev
             self._dev_field_key = key
         return self._dev_field
+
+    @property
+    def _canvas_dtype(self) -> torch.dtype:
+        """dtype of the serving route's resident render canvases."""
+        return torch.float32 if self.device_dtype is None else getattr(torch, self.device_dtype)
 
     def _restore_dtype(self, arr: torch.Tensor) -> np.ndarray:
         """A downloaded field buffer as numpy at the field's dtype,
@@ -314,9 +376,11 @@ class DeblendField:
         list_idx, galaxy_distances_to_center_x/y, epistemic_uncertainty,
         passed_cuts, or a dict of Nones when no source survives
         extraction.  ``measure=True`` appends flux, centroid, ellipticity
-        and snr columns (ops/measure.py) of the deblended means."""
-        if optimise_positions:
-            _not_ported("optimise_positions=True", _OPTIONS_ITEM)
+        and snr columns (ops/measure.py) of the deblended means.
+        ``optimise_positions=True`` fills the shifts column with each
+        source's registration (ops/registration.py) against the r band of
+        the host field, within ``cfg.position_bounds`` over
+        ``cfg.gn_iterations`` steps."""
         empty = {
             "cutout_images": None,
             "output_images_mean": None,
@@ -370,9 +434,10 @@ class DeblendField:
             cutouts = torch.as_tensor(cut_np, device=self.device)
             list_idx = np.arange(len(cut_np))
         else:
-            # extraction runs on the memoized device copy of the field; the
-            # record array's cutouts are sliced on the host, so no stamp
-            # is downloaded for them
+            # extraction runs on the memoized device copy of the field, the
+            # forward's input; the record array's cutouts (and the mse cut)
+            # are sliced from the float32 host field, so no stamp is
+            # downloaded for them
             all_cutouts, valid = extract_cutouts(
                 self._device_field(field_image), centers, self.cutout_size
             )
@@ -388,7 +453,8 @@ class DeblendField:
                     "field to be considered here."
                 )
             list_idx = np.flatnonzero(valid)
-            cutouts = all_cutouts[torch.as_tensor(list_idx, device=self.device)]
+            # float32 whatever the resident field's device_dtype
+            cutouts = all_cutouts[torch.as_tensor(list_idx, device=self.device)].to(torch.float32)
             cut_np = extract_cutouts_np(field_image, centers, self.cutout_size)[0][list_idx]
 
         n = len(list_idx)
@@ -421,7 +487,21 @@ class DeblendField:
             np.square(cut_np[:, c0:c1, c0:c1] - means[:, c0:c1, c0:c1]), axis=(1, 2, 3)
         )
         dets = centers[list_idx]
-        shifts = np.zeros((n, 2), np.float32)
+        if optimise_positions:
+            band = self._band
+            shifts = (
+                position_optimization_batch_windowed(
+                    torch.as_tensor(np.ascontiguousarray(field_image[0, :, :, band]), device=self.device),
+                    means_dev[..., band],
+                    torch.as_tensor(dets, device=self.device),
+                    bound=self.cfg.position_bounds,
+                    iterations=self.cfg.gn_iterations,
+                )
+                .cpu()
+                .numpy()
+            )
+        else:
+            shifts = np.zeros((n, 2), np.float32)
         # a non-finite metric fails the cuts instead of slipping through a
         # comparison that is False for NaN
         passed_cuts = (
@@ -621,18 +701,23 @@ class DeblendField:
             "predicted_epistemic_field": epi,
         }
 
-    def _stream_chunk(self, resident_fields: int) -> int:
+    def _stream_chunk(self, resident_fields: int, optimise_positions: bool = False) -> int:
         """Sources per stream chunk: ``source_chunk``, capped on a card by
-        what fits beside the resident full-field buffers (and, with
-        epistemic estimation, beside one replica chunk of the same size)."""
+        what fits beside the resident full-field buffers (at the resident
+        dtype's bytes), the float32 registration band when positions are
+        optimised, and, with epistemic estimation, one replica chunk of the
+        same size."""
         if self.device.type != "cuda":
             return self.cfg.source_chunk
         hbm = self.cfg.serving_hbm_bytes
         if hbm is None:
             hbm = torch.cuda.get_device_properties(self.device).total_memory
+        f = self.field_size
         cap = _serving_chunk_cap(
-            self.field_size, self.nb_of_bands, hbm, resident_fields=resident_fields,
+            f, self.nb_of_bands, hbm, resident_fields=resident_fields,
             replica_chunk=self.epistemic_uncertainty_estimation,
+            bytes_per_el=2 if self.device_dtype is not None else 4,
+            extra_bytes=4 * f * f if optimise_positions else 0,
         )
         return min(self.cfg.source_chunk, cap)
 
@@ -658,9 +743,12 @@ class DeblendField:
         (``_render_finish``).  ``render_std`` / ``render_epistemic`` also
         accumulate the per-pixel stddev and epistemic canvases ('std',
         'epi'), each one more resident full-field buffer that the caller
-        counts in ``resident_fields``."""
-        if optimise_positions:
-            _not_ported("optimise_positions=True", _OPTIONS_ITEM)
+        counts in ``resident_fields``.  ``optimise_positions`` registers each
+        chunk after its forward against the field's r band, cast to float32
+        once for the whole stream, and renders every source at its detected
+        offset plus its shift.  Under ``device_dtype`` the cutouts are cast
+        to float32 for the chunk's work and the stamps to the canvases'
+        bfloat16 for the renders."""
         if render_epistemic and not self.epistemic_uncertainty_estimation:
             raise ValueError(
                 "render_epistemic=True requires the pipeline to run with "
@@ -670,6 +758,11 @@ class DeblendField:
         field_size = field_dev.shape[1]
         centers = np.asarray(galaxy_distances_to_center, np.float32).reshape(-1, 2)
         order = self.cfg.interp_order
+        band = self._band
+        cdt = self._canvas_dtype
+        # registration reads the detection band at float32: cast once for
+        # the whole stream, not once a chunk
+        reg_band = field_dev[0, :, :, band].to(torch.float32).contiguous() if optimise_positions else None
 
         canvases = {"mean": None}
         if render_std:
@@ -692,7 +785,7 @@ class DeblendField:
         w = self.cfg.mse_window
         c0 = self.cutout_size // 2 - w
         c1 = self.cutout_size // 2 + w
-        chunk = self._stream_chunk(resident_fields)
+        chunk = self._stream_chunk(resident_fields, optimise_positions)
         n_deblended = 0
 
         for s0 in range(0, len(centers), chunk):
@@ -706,9 +799,10 @@ class DeblendField:
             # so no NaN reaches the rendered model; the mse cut below uses
             # the raw cutouts, so a NaN in its window fails the cut as on
             # deblend_field's host path
-            raw_cutouts = all_cutouts[torch.as_tensor(list_idx, device=self.device)]
+            raw_cutouts = all_cutouts[torch.as_tensor(list_idx, device=self.device)].to(torch.float32)
             n = len(list_idx)
             dets = part[list_idx]
+            dets_dev = torch.as_tensor(dets, device=self.device)
 
             dist = deblend_tensor(self.net, raw_cutouts, self.normalise, self.generator, self.z_mode)
             means_dev = dist.mean()
@@ -722,31 +816,38 @@ class DeblendField:
                 # the replicas take the guarded cutouts themselves and draw
                 # at most one stream chunk of decodes at a time
                 epi = self._epistemic(raw_cutouts, chunk)
-                band = self._band
                 epi_norm_dev = epi[..., band].sum(dim=(1, 2)) / torch.clamp(
                     means_dev[..., band].sum(dim=(1, 2)), min=1e-30
                 )
             else:
                 epi_norm_dev = torch.zeros((n,), dtype=torch.float32, device=self.device)
-            shifts = np.zeros((n, 2), np.float32)
-            offs_dev = torch.as_tensor(dets + shifts, device=self.device)
+            # per-source scalars only: a few KB a chunk to the host
+            fetch = {"mse_center": mse_center, "epistemic_norm": epi_norm_dev}
+            offs_dev = dets_dev
+            if optimise_positions:
+                fetch["shifts"] = position_optimization_batch_windowed(
+                    reg_band,
+                    means_dev[..., band],
+                    dets_dev,
+                    bound=self.cfg.position_bounds,
+                    iterations=self.cfg.gn_iterations,
+                )
+                offs_dev = dets_dev + fetch["shifts"]
             canvases["mean"] = render_field(
-                means_dev, offs_dev, field_size, order=order, canvas=canvases["mean"], crop=False
+                means_dev.to(cdt), offs_dev, field_size, order=order, canvas=canvases["mean"], crop=False
             )
             if render_std:
                 # additive stddev accumulation, the reference's
                 # predicted-field convention
                 canvases["std"] = render_field(
-                    std_dev, offs_dev, field_size, order=order, canvas=canvases["std"], crop=False
+                    std_dev.to(cdt), offs_dev, field_size, order=order, canvas=canvases["std"], crop=False
                 )
 
             if render_epistemic:
                 canvases["epi"] = render_field(
-                    epi, offs_dev, field_size, order=order, canvas=canvases["epi"], crop=False
+                    epi.to(cdt), offs_dev, field_size, order=order, canvas=canvases["epi"], crop=False
                 )
 
-            # per-source scalars only: a few KB a chunk to the host
-            fetch = {"mse_center": mse_center, "epistemic_norm": epi_norm_dev}
             if measure:
                 m = measure_batch(means_dev, std_dev)
                 fetch.update({k: m[k] for k in _MEASURE_COLUMNS})
@@ -757,7 +858,7 @@ class DeblendField:
                 & np.isfinite(got["mse_center"])
                 & np.isfinite(epi_norm)
             )
-            cols["shifts"].extend(list(shifts))
+            cols["shifts"].extend(list(got["shifts"] if optimise_positions else np.zeros((n, 2), np.float32)))
             cols["list_idx"].extend(list(s0 + list_idx))
             cols["galaxy_distances_to_center_x"].extend(list(dets[:, 0]))
             cols["galaxy_distances_to_center_y"].extend(list(dets[:, 1]))

@@ -330,7 +330,7 @@ def test_deblend_algo_is_checked_as_jax_checks_it():
 
 def test_lutz_is_not_ported_yet():
     img = np.zeros((32, 32), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1, item: 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: tiles and batched detection"):
         td.detect_objects(img, DetectionConfig(deblend_algo="lutz"), device="cpu")
 
 

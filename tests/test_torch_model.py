@@ -256,13 +256,14 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         label_select,
         matched_filter,
         parent_race,
+        registration,
         render,
         tail_fused,
     )
 
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
         "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "parent_race",
-        "render", "tail_fused",
+        "registration", "render", "tail_fused",
     ]
 
     def no_build(name):
@@ -279,13 +280,22 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         render.place_patches,
         decoder_tail.fused_decoder_tail,
         tail_fused.fused_tail_pair,
+        registration.register_windowed,
+        registration.register_full,
     )
-    before = [fn.launches for fn in counters]
+    bf16_counters = (render.render_field_kernel, render.place_patches)
+    before = [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters]
     img = np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32)
     dtt.detect_objects(img, device="cpu")
     dtt.detect_objects(img, dtt.DetectionConfig(use_pallas_filter=True), device="cpu")
     dtt.render_field(torch.ones(2, 9, 9, 2), torch.tensor([[0.5, -3.25], [4.0, 7.5]]), 40, order=1)
     dtt.render_field(torch.ones(2, 9, 9, 2), torch.tensor([[0.5, -3.25], [4.0, 7.5]]), 40, order=3)
+    for order in (1, 3):
+        dtt.render_field(
+            torch.ones(2, 9, 9, 2, dtype=torch.bfloat16), torch.tensor([[0.5, -3.25], [4.0, 7.5]]), 40, order=order
+        )
+    registration.register_windowed(torch.ones(40, 40), torch.ones(2, 9, 9), torch.zeros(2, 2), iterations=2)
+    registration.register_full(torch.ones(12, 12), torch.ones(2, 9, 9), torch.zeros(2, 2), iterations=2)
     dtt.fused_decoder_tail(
         torch.ones(1, 8, 8, 4), torch.ones(3, 3, 4, 4), torch.ones(4), torch.ones(8, 8, 4),
         torch.ones(3, 3, 4, 2), torch.ones(2),
@@ -294,4 +304,4 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         torch.ones(1, 8, 8, 4), torch.ones(3, 3, 4, 4), torch.ones(4), torch.ones(8, 8, 4),
         torch.ones(3, 3, 4, 2), torch.ones(2),
     )
-    assert [fn.launches for fn in counters] == before
+    assert [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters] == before

@@ -258,21 +258,6 @@ def test_serving_with_a_nan_gap_stays_finite(nets):
     assert np.isnan(tres[0, 80, 83, 2]) and np.isnan(tres).sum() == 1
 
 
-@pytest.mark.parametrize("method", ["deblend_and_render", "deblend_and_predict", "deblend_field"])
-def test_registration_is_not_ported_yet(nets, method):
-    field, centers = _blob_field(seed=7)
-    _, tdf = _pair(nets, field, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item: 2"):
-        getattr(tdf, method)(centers, optimise_positions=True)
-
-
-@pytest.mark.parametrize("kwargs", [{"upload_dtype": "bfloat16"}, {"device_dtype": "bfloat16"}])
-def test_reduced_residency_is_not_ported_yet(nets, kwargs):
-    field, _ = _blob_field(seed=7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.DeblendField(nets[1], field, device="cpu", **kwargs)
-
-
 def test_get_deblending_meta_data_matches_jax(nets):
     field, centers = _blob_field(seed=8)
     jdf, tdf = _pair(nets, field, 1, chunk=8192)
