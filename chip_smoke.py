@@ -36,7 +36,7 @@ without printing its last line):
    stage, one warm run under torch.profiler (the device's idle share), and
    detection at the default threshold; warm deblend_s, the streaming
    deblend_and_render and the epistemic deblend_and_predict with cuDNN's
-   deterministic algorithms off and on, in 10 alternating pairs (the
+   deterministic algorithms off and on, in 4 alternating pairs (the
    cudnn_determinism line);
 5. the decoder-tail kernels on the real tail input of that path's batch
    (caught by a hook on the decoder's last transposed conv): float32
@@ -94,8 +94,31 @@ without printing its last line):
    259x259 crop at the default threshold (launch counts from 0), twice,
    bit-identical, step 1's detections equal to the CPU's (the iterative
    line);
-16. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+16. tiled serving: TiledDeblendField(cfg=PipelineConfig(interp_order=1,
+   source_chunk=128, tile_size=1024, tile_overlap=64)).detect_deblend_render()
+   on a seeded 4096x4096x6 field of 4,800 galaxies (a 5x5 grid of 1024^2
+   tiles), launch counts from 0 just before and read just after (fails
+   unless the tile stack launches the clipped statistics, the detect core
+   and the labels once each), detection's stage seconds, warm detect and
+   deblend_and_render, the card's tiled catalogue equal to the CPU's on a
+   1536^2 crop in 16 tiles of 512, the untiled detection's overlap with the
+   tiled catalogue (printed), and the three detection kernels on the tile
+   stack and the render into the 4096^2 canvas, each held against its
+   plain version on the same tensors and timed beside it (the tiled line);
+17. IterativeDeblendField.iterative_deblend_and_render(max_iterations=3) on
+   the same field: two float32 runs bit-identical, step 0 equal to phase
+   16's catalogue, a one-step run's residual equal to phase 16's bit for
+   bit, device_dtype='bfloat16' within 2e-2 of the float32 route's scale
+   outside the stamps of sources that only one of the two routes found
+   (at most 2% of the rows; the one-step residual must fail that check),
+   each run's launches counted from 0, wall time and peak memory (the
+   iterative_serving line);
+18. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
+
+Phase 4's default-threshold detection also times the native segment merge
+(csrc/segmerge.cpp, built with g++ at its first call) beside the whole
+call, and in turns the plain Python loop in its place (default_detection).
 
 A fuller report (ptxas output, every timing, the profiled run's top device
 events) goes to chiprun_out/chip_smoke_report.json.  Needs no network;
@@ -121,11 +144,19 @@ PEAK_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
 REPS = 30
 WARMUP = 3
+# runs of a plain version at the tile stack's shapes, where one takes up
+# to a second
+PLAIN_REPS = 3
 # A 5-sigma matched-filter threshold: at the default 1.5 x unfiltered rms
 # the detector also splits the pure-noise sky into peaks (11,565 sources
 # on this field, timed on their own in phase 4); here it finds ~300, one
 # for each galaxy.
 DETECTION = dict(thresh=5.0, threshold_scaling="matched")
+# Phase 17: a later iterative step detects on the residual, where a
+# bfloat16 rounding can move a faint feature across the threshold; the
+# sources that only one of the float32 and bfloat16 routes finds are held
+# to this share of the float32 route's rows (read 162 of 9,291, 1.7%).
+ONE_ROUTE_MAX_SHARE = 0.02
 
 
 def nvidia_smi_line() -> str:
@@ -168,14 +199,14 @@ def make_field(size=1024, n_gal=300, bands=6, noise=0.02, seed=0) -> np.ndarray:
     return field[None].astype(np.float32)
 
 
-def cuda_ms(torch, fn) -> float:
-    """Median milliseconds of ``fn`` over REPS runs after WARMUP, each run
-    between two CUDA events."""
-    for _ in range(WARMUP):
+def cuda_ms(torch, fn, reps: int = REPS, warmup: int = WARMUP) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs after ``warmup``,
+    each run between two CUDA events."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1423,7 +1454,7 @@ def run_epistemic_path(torch, net, field, centers, cutouts: np.ndarray, samples:
     }
 
 
-def time_cudnn_determinism(torch, net, field, centers, pairs: int = 10) -> dict:
+def time_cudnn_determinism(torch, net, field, centers, pairs: int = 4) -> dict:
     """What cuDNN's deterministic algorithms (on inside device.fp32_math)
     cost: warm deblend_s of the record-array route, the warm streaming
     deblend_and_render (the serving call) and the warm epistemic
@@ -1848,6 +1879,315 @@ def run_iterative(torch, net, field: np.ndarray, read_counts) -> dict:
             "launches": launches}
 
 
+# ------------------------------------------------ tiled and iterative serving
+
+# Phases 16-17: a field of the size the JAX tile module was written for
+# (4k x 4k coadds) at the 1024^2 field's density of 300 galaxies, tiled at
+# the JAX package's defaults.
+BIG_FIELD = dict(size=4096, n_gal=4800)
+TILES = dict(tile_size=1024, tile_overlap=64)
+
+
+def tiled_cfg():
+    import debvader_tpu_torch as dt
+
+    return dt.PipelineConfig(interp_order=1, source_chunk=128, **TILES)
+
+
+def stack_kernel_times(torch, band, tile: int, overlap: int) -> dict:
+    """The clipped statistics, the detect core and the labels on the tile
+    stack that tiled detection gives them (the field's r band cut at the
+    JAX defaults), and the render into the field's padded canvas with one
+    128-source chunk: each held against its plain version on the same
+    tensors (filt, medians and labels bit for bit, direction codes and
+    parents equal, means and stds within 1e-5 of their scale, the render
+    within 1e-5 of the stamps' scale), then timed beside its plain version
+    (PLAIN_REPS runs: the plain versions take up to a second here) and its
+    bound; outside every counting window."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.config import DetectionConfig
+    from debvader_tpu_torch.kernels import clipped_stats as cs
+    from debvader_tpu_torch.kernels import detect_fused as df
+    from debvader_tpu_torch.kernels import label_select as ls
+    from debvader_tpu_torch.kernels import render as rd
+    from debvader_tpu_torch.ops import detection as td
+    from debvader_tpu_torch.pipeline import tiles as tt
+
+    origins = tt.tile_origins(band.shape[0], tile, overlap)
+    xs = tt._tile_stack(torch.as_tensor(band, device="cuda"), origins, tile)
+    t, f, _ = xs.shape
+    cfg = DetectionConfig(**DETECTION)
+    back, _, _, grms = td.estimate_background(xs, box=64)
+    thr = cfg.thresh * grms * td._threshold_scale(cfg)
+    kernel = td.default_filter_kernel()
+    guarded = torch.where(torch.isfinite(xs), xs, back)
+    g = f // 64
+    boxes = xs.reshape(t, g, 64, g, 64).permute(0, 1, 3, 2, 4).reshape(t * g * g, 4096).contiguous()
+    ones = torch.ones_like(boxes)
+    out = {"shape": [t, f, f], "boxes": t * g * g}
+
+    got, want = cs.sigma_clipped_stats(boxes, ones), cs.sigma_clipped_stats_plain(boxes, ones)
+    if not torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)):
+        raise AssertionError("clipped_stats on the tile stack: medians differ from the plain version")
+    stats_err = 0.0
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        e = float((a - b).abs().max())
+        if e > 1e-5 * float(b.abs().max()):
+            raise AssertionError(f"clipped_stats on the tile stack: mean/std off by {e}")
+        stats_err = max(stats_err, e)
+
+    filt, dirc, parent = df.matched_filter_parents(guarded, back, kernel, thr)
+    filt_p, dir_p, parent_p = df.matched_filter_parents_plain(guarded, back, kernel, thr)
+    if not torch.equal(filt.view(torch.int32), filt_p.view(torch.int32)):
+        raise AssertionError("detect_fused on the tile stack: filt is not bit-identical to the plain version")
+    if not (torch.equal(dirc, dir_p) and torch.equal(parent, parent_p)):
+        raise AssertionError("detect_fused on the tile stack: dir_code/parent differ from the plain version")
+    out["masked_pixels"] = int((filt > thr.reshape(t, 1, 1)).sum())
+    cur0, dir2 = parent.reshape(t * f, f), dirc.reshape(t * f, f)
+    if not torch.equal(ls.label_fixpoint(cur0, dir2), ls.label_fixpoint_plain(cur0, dir2)):
+        raise AssertionError("label_select on the tile stack: labels differ from the plain fixpoint")
+    steps = _path_steps(torch, dir2)
+
+    # the render: one chunk of 128 sources into the padded canvas of the
+    # whole field, through a strided window as the stream renders
+    n, s, b, fs = 128, 59, 6, band.shape[0]
+    pad = dt.render_pad(s, 1)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stamps = torch.rand((n, s, s, b), generator=gen, device="cuda")
+    offsets = (torch.rand((n, 2), generator=gen, device="cuda") - 0.5) * (fs + 40)
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+
+    def window():
+        return torch.zeros((fs + 2 * pad, fs + 2 * pad, b), device="cuda")[pad : pad + fs, pad : pad + fs]
+
+    canvas, canvas_p = window(), window()
+    rd.render_field_kernel(stamps, offsets, fs, mask, out=canvas)
+    rd.render_field_plain(stamps, offsets, fs, mask, out=canvas_p)
+    render_err = float((canvas - canvas_p).abs().max())
+    if render_err > 1e-5 * float(stamps.abs().max()):
+        raise AssertionError(f"render into the {fs}^2 canvas: off by {render_err} from the plain version")
+    torch.cuda.synchronize()
+
+    for name, fn, plain, kname, err, (bd, by) in (
+        ("clipped_stats", lambda: cs.sigma_clipped_stats(boxes, ones),
+         lambda: cs.sigma_clipped_stats_plain(boxes, ones), "clipped_stats_kernel", stats_err,
+         bound(boxes.numel() * 8 + t * g * g * 12, boxes.numel() * 4 * 8)),
+        ("detect_fused", lambda: df.matched_filter_parents(guarded, back, kernel, thr),
+         lambda: df.matched_filter_parents_plain(guarded, back, kernel, thr), "detect_fused_kernel", 0.0,
+         bound(t * f * f * 20 + t * 4 + 56, t * f * f * 54)),
+        ("label_select", lambda: ls.label_fixpoint(cur0, dir2), lambda: ls.label_fixpoint_plain(cur0, dir2),
+         "label_resolve_kernel", 0.0, bound(t * f * f * 12, t * f * f + 4 * steps)),
+        # a chunk's stamps read once and its footprint read and written once
+        ("render", lambda: rd.render_field_kernel(stamps, offsets, fs, mask, out=canvas),
+         lambda: rd.render_field_plain(stamps, offsets, fs, mask, out=canvas_p), "render_", render_err,
+         bound(n * s * s * b * 4 + n * 8 + 2 * n * (s + 2) ** 2 * b * 4, n * (s + 2) * (s + 2) * b * 11)),
+    ):
+        out[name] = {"max_abs_err": err, "ms": cuda_ms(torch, fn), "device_ms": profiled_device_ms(torch, fn, kname),
+                     "plain_ms": cuda_ms(torch, plain, reps=PLAIN_REPS, warmup=1), "bound_ms": bd, "bound_by": by}
+    out["render"].update(shape=[n, s, s, b, fs], canvas=[fs + 2 * pad] * 2 + [b])
+    out["held_against_plain"] = True
+    return out
+
+
+def run_tiled(torch, net, big: np.ndarray, reset_counts, read_counts) -> tuple[dict, object, tuple]:
+    """Phase 16: TiledDeblendField(...).detect_deblend_render() on the
+    4096^2 field, its launches counted from 0 in a window of their own
+    (fails unless the tile stack launches the detect core and the labels
+    once, and the clipped statistics once for every box of the stack);
+    the detection's stages, warm times of detect and deblend_and_render;
+    the card's tiled catalogue against the CPU's on a 1536^2 crop in 16
+    tiles of 512; how many of the tiled sources the untiled detection
+    finds (printed, not held: each tile has its own background)."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.pipeline.tiles import tile_origins
+
+    det = dt.DetectionConfig(**DETECTION)
+    tdf = dt.TiledDeblendField(net, big, z_mode="mean", cfg=tiled_cfg(), det_cfg=det, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    catalog, residual = tdf.detect_deblend_render()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    n_tiles = len(tile_origins(big.shape[1], TILES["tile_size"], TILES["tile_overlap"])) ** 2
+    if launches["detect_fused"] != 1 or launches["label_select"] != 1 or launches["clipped_stats"] != 1:
+        raise AssertionError(f"tiled detection of {n_tiles} tiles launched {launches}: expected the detect core, "
+                             "the labels and the clipped statistics once each")
+    first_timings = dict(tdf.detect_timings)
+    centers = tdf.detect(field=tdf._device_field(tdf.field_image))
+    if catalog is None or len(catalog) == 0 or len(centers) != tdf.nb_of_detected_objects[-1]:
+        raise AssertionError("tiled serving deblended nothing, or its detections changed between calls")
+    if residual.shape != big.shape or not np.isfinite(residual).all():
+        raise AssertionError("tiled serving gave a non-finite residual or one of the wrong shape")
+    mask = stamp_mask(big.shape[1], centers)
+    flux_field, flux_resid = float(np.abs(big[0][mask]).sum()), float(np.abs(residual[0][mask]).sum())
+    if not flux_resid < flux_field:
+        raise AssertionError(f"tiled residual flux {flux_resid} is not below the field's {flux_field}")
+    # warm calls, each with its own stage dict
+    detect_runs, render_runs = [], []
+    for _ in range(3):
+        for runs, call in ((detect_runs, lambda t: tdf.detect(timings=t, field=tdf._device_field(tdf.field_image))),
+                           (render_runs, lambda t: tdf.deblend_and_render(centers, timings=t))):
+            stages = {}
+            t0 = time.perf_counter()
+            call(stages)
+            torch.cuda.synchronize()
+            runs.append({"wall_s": time.perf_counter() - t0, **stages})
+
+    # the card against the CPU on a 1536^2 crop: 16 tiles of 512
+    c0 = (big.shape[1] - 1536) // 2
+    crop = np.ascontiguousarray(big[:, c0 : c0 + 1536, c0 : c0 + 1536, :])
+    on_card = dt.detect_objects_tiled(crop, det, tile=512, overlap=64, device="cuda")
+    on_cpu = dt.detect_objects_tiled(crop, det, tile=512, overlap=64, device="cpu")
+    if not np.array_equal(on_card, on_cpu):
+        raise AssertionError(f"tiled detection differs between card and CPU on the crop: {len(on_card)} against "
+                             f"{len(on_cpu)} rows")
+    untiled = dt.detect_objects(big, det, device="cuda")
+    found = len(set(map(tuple, centers)) & set(map(tuple, untiled)))
+    stack = stack_kernel_times(torch, big[0, :, :, 2], TILES["tile_size"], TILES["tile_overlap"])
+    out = {
+        "field": list(big.shape), "tiles": n_tiles, "sources": int(len(centers)), "deblended": int(len(catalog)),
+        "launches": launches, "first_call_s": first_s, "first_detect_timings_s": first_timings,
+        "warm_detect_s": float(np.median([r["wall_s"] for r in detect_runs])), "warm_detect_runs": detect_runs,
+        "warm_deblend_and_render_s": float(np.median([r["wall_s"] for r in render_runs])),
+        "warm_deblend_and_render_runs": render_runs,
+        "abs_flux_in_stamps": {"field": flux_field, "residual": flux_resid},
+        "crop_vs_cpu": {"field": list(crop.shape), "tiles": 16, "rows": int(len(on_cpu)), "equal": True},
+        "untiled": {"sources": int(len(untiled)), "tiled_sources_also_found": found},
+        "stack_kernels": stack,
+    }
+    return out, catalog, (residual, centers)
+
+
+def default_merge_times(torch, band: np.ndarray, sources: int) -> dict:
+    """detect_sources at the default threshold with its stage seconds: the
+    native merge beside the whole call, then the same with the plain Python
+    loop as the merge (a measurement hook: the port never runs it), in
+    turns, twice; both give the same catalogue."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.ops import detection as td
+
+    native = td.merge_segments
+
+    def plain(ea, eb, eh, peak, flux, *rest):
+        return td._merge_segments_py(ea, eb, eh, peak, np.array(flux, np.float64), *rest)
+
+    runs = {"native": [], "python_loop": []}
+    cats = {}
+    for _ in range(2):
+        for name, merge in (("native", native), ("python_loop", plain)):
+            td.merge_segments = merge
+            try:
+                stages = {}
+                t = time.perf_counter()
+                cats[name] = dt.detect_sources(band, device="cuda", timings=stages)
+                runs[name].append({"whole_s": time.perf_counter() - t, "stages_s": stages})
+            finally:
+                td.merge_segments = native
+    if not all(np.array_equal(cats["native"][k], cats["python_loop"][k]) for k in ("y", "x", "labels")):
+        raise AssertionError("the native merge and the Python loop give different catalogues")
+    if len(cats["native"]["y"]) != sources:
+        raise AssertionError("detect_sources and detect_objects found different numbers of sources")
+    return runs
+
+
+def run_iterative_serving(torch, net, big: np.ndarray, tiled_catalog, tiled_residual, reset_counts,
+                          read_counts) -> dict:
+    """Phase 17: IterativeDeblendField(...).iterative_deblend_and_render(
+    max_iterations=3) on the 4096^2 field, float32 twice (bit-identical,
+    catalogue and residual), step 0's rows against phase 16's catalogue, a
+    one-step run's residual against phase 16's bit for bit (both are the
+    memoized field minus the crop of the same canvas), then under
+    device_dtype='bfloat16' (the sources only one route found at most
+    ONE_ROUTE_MAX_SHARE of the rows, and the residual within 2e-2 of the
+    float32 route's scale outside their stamps, a check that the one-step
+    residual, step 1's subtract left out, must fail);
+    launches counted from 0 for each run, and the peak device memory of
+    each route."""
+    import debvader_tpu_torch as dt
+
+    det = dt.DetectionConfig(**DETECTION)
+
+    def run(max_iterations=3, **kw):
+        idf = dt.IterativeDeblendField(net, big, z_mode="mean", cfg=tiled_cfg(), device="cuda", **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        cat, res = idf.iterative_deblend_and_render(det_cfg=det, max_iterations=max_iterations)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = int(torch.cuda.max_memory_allocated())
+        if cat is None or not np.isfinite(res).all():
+            raise AssertionError("iterative serving found nothing or gave a non-finite residual")
+        # a detection a step, and one more when the last step found nothing
+        steps = len(idf.nb_of_detected_objects)
+        for name in ("detect_fused", "label_select", "clipped_stats"):
+            if counts[name] not in (steps, steps + 1) or counts[name] != counts["detect_fused"]:
+                raise AssertionError(f"iterative serving: {name} launched {counts[name]} times for {steps} steps")
+        return {"steps": steps, "detected_per_step": idf.nb_of_detected_objects,
+                "deblended_per_step": idf.nb_of_deblended_galaxies, "mse_per_step": idf.mse, "wall_s": wall,
+                "peak_bytes": peak, "launches": counts}, cat, res
+
+    a, cat_a, res_a = run()
+    b, cat_b, res_b = run()
+    if not np.array_equal(res_a.view(np.int32), res_b.view(np.int32)):
+        raise AssertionError("two float32 iterative runs differ in their residual")
+    for col in cat_a.dtype.names:
+        x, y = cat_a[col], cat_b[col]
+        if x.dtype == object:
+            x, y = np.stack(list(x)), np.stack(list(y))
+        if not np.array_equal(np.ascontiguousarray(x).view(np.uint8), np.ascontiguousarray(y).view(np.uint8)):
+            raise AssertionError(f"two float32 iterative runs differ in column {col}")
+    step0 = cat_a[cat_a.iteration == 0]
+    for col in tiled_catalog.dtype.names:
+        x, y = step0[col], tiled_catalog[col]
+        if x.dtype == object:
+            x, y = np.stack(list(x)), np.stack(list(y))
+        if not np.array_equal(x, y):
+            raise AssertionError(f"iterative step 0 differs from tiled serving in column {col}")
+    one, _, res_one = run(max_iterations=1)
+    if not np.array_equal(res_one.view(np.int32), tiled_residual.view(np.int32)):
+        raise AssertionError("a one-step iterative residual differs from tiled serving's")
+    low, cat_l, res_l = run(device_dtype="bfloat16")
+    # A later step detects on the residual, where a bfloat16 rounding can
+    # move a faint feature across the threshold: a source found by one
+    # route only changes the residual by its model.  The bound holds
+    # outside those sources' stamps; the whole field's distance is printed.
+    def rows(cat):
+        return set(zip(cat.iteration.tolist(), cat.galaxy_distances_to_center_x.tolist(),
+                       cat.galaxy_distances_to_center_y.tolist()))
+
+    one_route = sorted(rows(cat_a) ^ rows(cat_l))
+    if len(one_route) > ONE_ROUTE_MAX_SHARE * len(cat_a):
+        raise AssertionError(f"{len(one_route)} of {len(cat_a)} sources were found by only one of the float32 "
+                             f"and bfloat16 routes: more than {ONE_ROUTE_MAX_SHARE:.0%}")
+    outside = ~stamp_mask(big.shape[1], np.array([r[1:] for r in one_route]).reshape(-1, 2), size=61)
+    scale = float(np.abs(res_a).max())
+
+    def off_outside(res):
+        return float(np.abs(res - res_a)[0][outside].max()) / scale
+
+    rel, rel_outside = float(np.abs(res_l - res_a).max()) / scale, off_outside(res_l)
+    if not rel_outside < 2e-2:
+        raise AssertionError(f"bfloat16 iterative serving off the float32 route by {rel_outside} of its scale "
+                             f"outside the stamps of the {len(one_route)} sources only one route found")
+    # the control: the float32 residual with step 1's subtract left out
+    # (the one-step run's) must fail the same check
+    control = off_outside(res_one)
+    if control < 2e-2:
+        raise AssertionError(f"the control (step 1's subtract left out) passes the masked check: {control}")
+    return {"field": list(big.shape), "float32": [a, b], "one_step": one, "bfloat16": low,
+            "bfloat16_rows": int(len(cat_l)), "bfloat16_residual_rel_err_vs_float32": rel,
+            "bfloat16_residual_rel_err_outside_one_route_sources": rel_outside,
+            "sources_found_by_one_route_only": [list(r) for r in one_route][:20],
+            "sources_found_by_one_route_only_count": len(one_route),
+            "control_without_step1_rel_err_outside": control,
+            "two_float32_runs_bit_identical": True, "step0_equals_tiled_catalog": True,
+            "one_step_residual_equals_tiled": True}
+
+
 def serving_cfg(chunk=128):
     import debvader_tpu_torch as dt
 
@@ -1979,6 +2319,13 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"card: {smi}")
     report["card"] = smi
+    # each phase's wall seconds, the build's included
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name], clock[0] = now - clock[0], now
+
 
     t = time.perf_counter()
     logs = _build.build_all()
@@ -1989,6 +2336,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    mark("build")
 
     field = make_field()
     records = check_kernels(torch, field[0, :, :, 2])
@@ -2007,6 +2355,7 @@ def main() -> int:
     place = check_place(torch, field.shape[1])
     records.append(place)
     print(json.dumps({"place_cases": place["cases"], "place_library_max_abs_err": place["library_max_abs_err"]}))
+    mark("kernels_vs_plain")
 
     import debvader_tpu_torch as dt
 
@@ -2091,7 +2440,8 @@ def main() -> int:
         t = time.perf_counter()
         found = dt.detect_objects(field, device="cuda")
         default_runs.append(time.perf_counter() - t)
-    default = {"sources": int(len(found)), "detect_s": default_runs}
+    default = {"sources": int(len(found)), "detect_s": default_runs,
+               "merge": default_merge_times(torch, field[0, :, :, 2], len(found))}
     report.update(warm=warm, profiled_run=prof, default_detection=default)
     print(json.dumps({"warm": warm, "default_detection": default}))
     print(f"profiled warm run: wall {prof['wall_ms']} ms, device busy {prof['device_busy_ms']} ms, "
@@ -2099,6 +2449,7 @@ def main() -> int:
     for r in prof["top_device_events"][:12]:
         print(f"  {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['name'][:100]}")
 
+    mark("main_path_warm_default_detection")
     # phase 5: the decoder tail on this batch's real tail input, float32
     # and bfloat16
     tails = check_decoder_tail(torch, net, np.stack(list(res.cutout_images)))
@@ -2110,6 +2461,7 @@ def main() -> int:
                                           "control_f32_chain_cast")
                                          if "ulp_at_scale" in tail else ())}}))
 
+    mark("decoder_tail")
     # phase 6: the streaming serving path, counts from 0
     reset_counts()
     dfield, s_centers, catalog, s_residual, s_model, s_fields, s_times = run_serving_path(torch, net, field, "cuda")
@@ -2182,6 +2534,7 @@ def main() -> int:
     serving["chain_route"] = chain_launches
     print(json.dumps({"chain_route": chain_launches}))
 
+    mark("serving_path")
     # phase 7: the fidelity-precision tail pair on this batch's real
     # dec/ConvT_7 input
     main_cutouts = np.stack(list(res.cutout_images))
@@ -2191,6 +2544,7 @@ def main() -> int:
         "shape", "launches", "err_vs_plain", "err_vs_model_head", "err_border_case", "err_ragged_shape",
         "output_max_abs", "ragged_output_max_abs", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}}))
 
+    mark("tail_fused")
     # phase 8: the fidelity serving path; phase 9: the epistemic path
     fid, fidelity = run_fidelity_path(torch, net, field, centers, catalog, s_residual)
     report["fidelity_path"] = fidelity
@@ -2198,10 +2552,12 @@ def main() -> int:
     epistemic = run_epistemic_path(torch, net, field, centers, main_cutouts)
     report["epistemic_path"] = epistemic
     print(json.dumps({"epistemic_path": epistemic}))
+    mark("fidelity_epistemic")
     determinism = time_cudnn_determinism(torch, net, field, centers)
     report["cudnn_determinism"] = determinism
     print(json.dumps({"cudnn_determinism": determinism}))
 
+    mark("cudnn_determinism")
     # phase 10: a 256^2 crop on the card (TF32 still on outside the port)
     # and on the CPU must agree; the forward run outside the port's scope,
     # with TF32 on, shows the error the check is there to catch
@@ -2256,6 +2612,7 @@ def main() -> int:
     print(json.dumps({"crop_vs_cpu": small}))
     report["crop_vs_cpu"] = small
 
+    mark("crop_vs_cpu")
     # phase 11: the registration kernel on the record-array route's real
     # inputs and its edge cases; phase 12: the bfloat16 canvas instances
     reg = check_registration(torch, field, res)
@@ -2269,6 +2626,7 @@ def main() -> int:
         print(json.dumps({rec["name"]: {k: rec[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}))
 
+    mark("registration_bf16_kernels")
     # phase 13: registration on both routes, counts from 0
     reset_counts()
     reg_routes = run_registration_routes(torch, net, field, centers)
@@ -2277,6 +2635,7 @@ def main() -> int:
     report["registration_routes"] = reg_routes
     print(json.dumps({"registration_routes": reg_routes}))
 
+    mark("registration_routes")
     # phase 14: bfloat16 residency of the field and the serving canvases,
     # counts from 0
     reset_counts()
@@ -2286,6 +2645,7 @@ def main() -> int:
     report["device_dtype"] = low
     print(json.dumps({"device_dtype": low}))
 
+    mark("device_dtype")
     # phase 15: the iterative deblender, counts from 0
     reset_counts()
     iterative = run_iterative(torch, net, field, lambda: read_counts(
@@ -2293,6 +2653,29 @@ def main() -> int:
     ))
     report["iterative"] = iterative
     print(json.dumps({"iterative": iterative}))
+
+    mark("iterative")
+    # phase 16: tiled serving of a 4096^2 field, its counts read in a
+    # window of their own; phase 17: iterative serving on the same field
+    def count_now():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    big = make_field(**BIG_FIELD)
+    mark("make_field_4096")
+    tiled, tiled_catalog, (tiled_residual, _) = run_tiled(torch, net, big, reset_counts, count_now)
+    report["tiled"] = tiled
+    print(json.dumps({"tiled": tiled}))
+    print("tiled detection stages (first call, warm call):")
+    for stage, first in tiled["first_detect_timings_s"].items():
+        print(f"  {stage:12s} {first:9.4f} s {tiled['warm_detect_runs'][-1][stage]:9.4f} s")
+    mark("tiled")
+    iterative_serving = run_iterative_serving(torch, net, big, tiled_catalog, tiled_residual, reset_counts, count_now)
+    report["iterative_serving"] = iterative_serving
+    print(json.dumps({"iterative_serving": iterative_serving}))
+    del big, tiled_residual
+    mark("iterative_serving")
+    report["phase_s"] = phase_s
+    print(json.dumps({"phase_s": phase_s}))
 
     # launches: the first three kernels on the record-array path, the
     # filter and the render on the streaming path, each counted from 0;

@@ -9,14 +9,19 @@ streaming serving entry points ``deblend_and_render`` /
 stamp API (``deblend_samples``, ``deblend_sample_stats``) and the epistemic
 options of ``DeblendField``; position registration
 (``optimise_positions=True``), bfloat16 residency of the field and the
-serving canvases (``upload_dtype`` / ``device_dtype``) and the iterative
-detect -> deblend -> subtract loop (``IterativeDeblendField``); the precision schemes
+serving canvases (``upload_dtype`` / ``device_dtype``), the iterative
+detect -> deblend -> subtract loop (``IterativeDeblendField``, with its
+device-resident server ``iterative_deblend_and_render``) and tiled
+detection of fields larger than one tile (``detect_objects_tiled``,
+``TiledDeblendField``); the precision schemes
 (``ModelConfig.layer_precision``, ``fidelity_serving_config``) with the flux
 calibration that ``load_deblender(..., flux_calibration=True)`` attaches.
 Public functions keep the JAX package's NHWC layout.  Entry points run on the GPU
 (``device="cuda"``) unless the caller passes ``device="cpu"``; the kernels
 are hand-written CUDA (``csrc/``) built with ``nvcc`` at first use, and
 every kernel has a plain PyTorch version that the CPU path runs.
+Detection's segment merge and Lutz tree are host C++
+(``csrc/segmerge.cpp``), built with ``g++`` at first use on either device.
 """
 
 __version__ = "0.3.0"
@@ -38,6 +43,7 @@ from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.shift import render_field, render_pad
 from debvader_tpu_torch.pipeline.field import DeblendField
 from debvader_tpu_torch.pipeline.iterative import IterativeDeblendField
+from debvader_tpu_torch.pipeline.tiles import TiledDeblendField, detect_objects_tiled
 from debvader_tpu_torch.utils.profiling import stage_timer
 from debvader_tpu_torch.weights import load_deblender
 
@@ -47,7 +53,9 @@ __all__ = [
     "deblend_sample_stats",
     "detect_objects",
     "detect_sources",
+    "detect_objects_tiled",
     "DeblendField",
+    "TiledDeblendField",
     "IterativeDeblendField",
     "DeblenderVAE",
     "load_deblender",

@@ -22,6 +22,12 @@ __all__ = [
 ]
 
 
+def _not_ported(option: str, title: str):
+    """Raise for an option whose ROADMAP.md Queue 1 item, named by its
+    title, is still to come."""
+    raise NotImplementedError(f"{option} is not ported to the PyTorch package yet (ROADMAP.md Queue 1: {title})")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture of the convolutional VAE (59x59xB input, latent 32,
@@ -165,9 +171,9 @@ class DetectionConfig:
       to, so a card always runs the label kernel (kernels/label_select.py)
       and the clipped-statistics kernel (kernels/clipped_stats.py), and
       the CPU their plain versions.
-    - ``deblend_algo``: 'watershed' (default) or 'lutz'; 'lutz' (the
-      JAX package's native multi-threshold tree) is not ported yet and
-      detection raises ``NotImplementedError`` for it."""
+    - ``deblend_algo``: 'watershed' (default) merges the watershed
+      segments; 'lutz' replaces them with the multi-threshold tree.  Both
+      run in the native host library (kernels/segmerge.py)."""
 
     thresh: float = 1.5
     minarea: int = 4
@@ -215,7 +221,10 @@ class PipelineConfig:
     behind ``epistemic_uncertainty_estimation=True``.
     ``position_bounds`` and ``gn_iterations`` bound the registration of
     ``optimise_positions=True``: shifts within +-position_bounds pixels,
-    fitted over gn_iterations Gauss-Newton steps."""
+    fitted over gn_iterations Gauss-Newton steps.
+    ``tile_size`` and ``tile_overlap`` cut a field larger than one tile
+    into overlapping square tiles for detection (pipeline/tiles.py): the
+    JAX package's defaults, 1024-pixel tiles overlapping by 64."""
 
     cutout_size: int = 59
     nb_of_bands: int = 6
@@ -224,6 +233,8 @@ class PipelineConfig:
     position_bounds: float = 3.0
     gn_iterations: int = 20
     interp_order: int = 3
+    tile_size: int = 1024
+    tile_overlap: int = 64
     source_chunk: int = 8192
     serving_hbm_bytes: int | None = None
     render_cache_bytes: int = 1 << 30

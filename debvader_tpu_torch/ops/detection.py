@@ -1,24 +1,28 @@
 """Source detection: SExtractor-equivalent, on the device, in PyTorch.
 
-Port of debvader_tpu.ops.detection for one field:
+Port of debvader_tpu.ops.detection, for one field (``detect_sources``) and
+for a stack of same-size tiles (``detect_sources_batched``):
 
 1. Background and RMS meshes per 64x64 box: sigma-clipped statistics
-   (kernels/clipped_stats.py), the SExtractor mode estimator
-   (2.5*median - 1.5*mean, the median in crowded boxes), empty boxes
-   filled with the median of the others, a 3x3 median filter, and the
-   bilinear upsample of ``jax.image.resize``.
-2. The device core, one of two (``_fused_enabled``):
+   (kernels/clipped_stats.py, one launch for every box of the stack), the
+   SExtractor mode estimator (2.5*median - 1.5*mean, the median in crowded
+   boxes), empty boxes filled with the median of the others, a 3x3 median
+   filter, and the bilinear upsample of ``jax.image.resize``.
+2. The device core over the stack, one of two (``_fused_enabled``):
    - the fused core (kernels/detect_fused.py, the default): background
      subtract, 7x7 matched filter, threshold at thresh * globalrms and the
      steepest-ascent parent race in one kernel;
-   - the chain ``_detect_core``: the filter as a step of its own, the
+   - the chain ``_chain_core``: the filter as a step of its own, the
      stand-alone kernel (kernels/matched_filter.py, under
-     ``use_pallas_filter``) or ``F.conv2d`` (any odd ``filter_size``), then
-     the parent race (kernels/parent_race.py).
-   Either way label resolution follows (kernels/label_select.py).
-3. On the host, over the masked pixels only: the quantized
-   multi-threshold merge of watershed segments (deblend_nthresh,
-   deblend_cont), minarea, flux-weighted centroids and CLEAN.
+     ``use_pallas_filter``, one field) or ``F.conv2d`` (any odd
+     ``filter_size``), then the parent race (kernels/parent_race.py).
+   Either way label resolution follows over the row-flattened stack
+   (kernels/label_select.py).
+3. On the host, over the masked pixels only (one device compaction of the
+   whole stack, then one download): the quantized multi-threshold merge of
+   watershed segments (deblend_nthresh, deblend_cont) or the Lutz tree
+   (``deblend_algo='lutz'``), both in the native library
+   (kernels/segmerge.py), then minarea, flux-weighted centroids and CLEAN.
 
 ``detect_objects`` returns the reference's (N, 2) offsets from the field
 centre, round(-int(F/2) + y).
@@ -30,19 +34,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from debvader_tpu_torch.config import DetectionConfig
+import dataclasses
+
+from debvader_tpu_torch.config import DetectionConfig, _not_ported
 from debvader_tpu_torch.device import fp32_math, resolve_device
 from debvader_tpu_torch.kernels.clipped_stats import sigma_clipped_stats
 from debvader_tpu_torch.kernels.detect_fused import matched_filter_parents
 from debvader_tpu_torch.kernels.label_select import label_fixpoint
 from debvader_tpu_torch.kernels.matched_filter import matched_filter_threshold
 from debvader_tpu_torch.kernels.parent_race import parent_race_kernel
+from debvader_tpu_torch.kernels.segmerge import lutz_deblend, merge_segments
+from debvader_tpu_torch.utils.profiling import stage_timer
 
 __all__ = [
     "default_filter_kernel",
     "estimate_background",
     "detect_core_stack",
     "detect_sources",
+    "detect_sources_batched",
     "detect_objects",
 ]
 
@@ -74,24 +83,28 @@ def default_filter_kernel(size: int = 7, fwhm: float = 3.0) -> np.ndarray:
 
 
 def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Lower median ((count-1)//2) of the masked values; 0 when none."""
-    s = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf")))).values
-    cnt = int(mask.sum())
-    return s[max((cnt - 1) // 2, 0)] if cnt else torch.zeros((), dtype=x.dtype, device=x.device)
+    """Lower median ((count-1)//2) of the masked values of each row of
+    (T, N); 0 for a row with none."""
+    s = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf"))), dim=-1).values
+    cnt = mask.sum(-1)
+    k = torch.clamp((cnt - 1) // 2, min=0)
+    med = s.gather(-1, k[:, None])[:, 0]
+    return torch.where(cnt > 0, med, torch.zeros_like(med))
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
-    """jnp.median: the mean of the two middle values for an even count."""
-    s = torch.sort(x.reshape(-1)).values
-    n = s.numel()
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    """jnp.median along the last axis: the mean of the two middle values
+    for an even count."""
+    s = torch.sort(x, dim=-1).values
+    n = s.shape[-1]
+    return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
 
 
 def _median3x3(mesh: torch.Tensor) -> torch.Tensor:
-    """3x3 median filter with edge padding."""
-    g0, g1 = mesh.shape
-    p = F.pad(mesh[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-    stack = torch.stack([p[i : i + g0, j : j + g1] for i in range(3) for j in range(3)])
+    """3x3 median filter with edge padding of each mesh of (T, G, G)."""
+    g0, g1 = mesh.shape[-2:]
+    p = F.pad(mesh[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    stack = torch.stack([p[:, i : i + g0, j : j + g1] for i in range(3) for j in range(3)])
     return torch.sort(stack, dim=0).values[4]
 
 
@@ -111,20 +124,24 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
 
 
 def estimate_background(image: torch.Tensor, box: int = 64):
-    """(back_map, rms_map, globalback, globalrms) of a 2D field tensor.
+    """(back_map, rms_map, globalback, globalrms) of a 2D field tensor, or
+    of each field of a (T, F, F) stack (then each result has the leading
+    axis T): the clipped statistics of every box of the stack in one call.
 
     Non-finite pixels are excluded from the box statistics."""
-    f = image.shape[0]
-    finite = torch.isfinite(image)
-    image = torch.where(finite, image, torch.zeros((), dtype=image.dtype, device=image.device))
+    single = image.ndim == 2
+    xs = image[None] if single else image
+    t, f = xs.shape[0], xs.shape[-1]
+    finite = torch.isfinite(xs)
+    xs = torch.where(finite, xs, torch.zeros((), dtype=xs.dtype, device=xs.device))
     g = -(-f // box)
     pad = g * box - f
 
     def to_boxes(x):
-        x = F.pad(x[None, None], (0, pad, 0, pad), mode="replicate")[0, 0] if pad else x
-        return x.reshape(g, box, g, box).permute(0, 2, 1, 3).reshape(g, g, box * box)
+        x = F.pad(x[:, None], (0, pad, 0, pad), mode="replicate")[:, 0] if pad else x
+        return x.reshape(t, g, box, g, box).permute(0, 1, 3, 2, 4).reshape(t, g, g, box * box)
 
-    boxes = to_boxes(image)
+    boxes = to_boxes(xs)
     valid = to_boxes(finite.to(torch.float32))
     mean, med, std = sigma_clipped_stats(boxes, valid)
     has_data = valid.sum(-1) > 0
@@ -134,16 +151,18 @@ def estimate_background(image: torch.Tensor, box: int = 64):
     rms_mesh = std
 
     def fill_gaps(mesh):
-        return torch.where(has_data, mesh, _masked_median(mesh.reshape(-1), has_data.reshape(-1)))
+        fill = _masked_median(mesh.reshape(t, -1), has_data.reshape(t, -1))
+        return torch.where(has_data, mesh, fill[:, None, None])
 
     back_mesh = _median3x3(fill_gaps(back_mesh))
     rms_mesh = _median3x3(fill_gaps(rms_mesh))
 
-    w = _resize_weights(g, g * box, image.device)
+    w = _resize_weights(g, g * box, xs.device)
     with fp32_math():
-        back = (w.T @ back_mesh @ w)[:f, :f]
-        rms = (w.T @ rms_mesh @ w)[:f, :f]
-    return back, rms, _median(back_mesh), _median(rms_mesh)
+        back = (w.T @ back_mesh @ w)[:, :f, :f]
+        rms = (w.T @ rms_mesh @ w)[:, :f, :f]
+    out = back, rms, _median(back_mesh.reshape(t, -1)), _median(rms_mesh.reshape(t, -1))
+    return tuple(o[0] for o in out) if single else out
 
 
 def _threshold_scale(cfg: DetectionConfig) -> float:
@@ -154,11 +173,13 @@ def _threshold_scale(cfg: DetectionConfig) -> float:
 
 
 def _conv2d_same(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """SAME zero-padded correlation of a 2D image with an odd square
-    kernel, in full float32."""
+    """SAME zero-padded correlation of a 2D image, or of each field of
+    (T, F, F), with an odd square kernel, in full float32."""
     pad = kernel.shape[0] // 2
+    xs = image[None] if image.ndim == 2 else image
     with fp32_math():
-        return F.conv2d(image[None, None], kernel[None, None], padding=pad)[0, 0]
+        out = F.conv2d(xs[:, None], kernel[None, None], padding=pad)[:, 0]
+    return out[0] if image.ndim == 2 else out
 
 
 def _fused_enabled(cfg: DetectionConfig) -> bool:
@@ -172,29 +193,61 @@ def _fused_enabled(cfg: DetectionConfig) -> bool:
     return bool(cfg.use_pallas_fused)
 
 
-def _detect_core(image: torch.Tensor, cfg: DetectionConfig):
-    """Detection on one 2D band with the filter as a step of its own:
-    (labels, filt, globalrms), labels (F, F) int32 holding each masked
-    pixel's ascent root (flat index) and -1 elsewhere."""
-    f = image.shape[0]
-    back, _, _, grms = estimate_background(image, box=min(cfg.background_box, f))
+def _normalize_batched_cfg(cfg: DetectionConfig) -> DetectionConfig:
+    """The JAX package's rule for the batched path: the stand-alone filter
+    kernel takes one field, so ``use_pallas_filter`` runs the fused core
+    over the stack where the auto mode allows it, and otherwise the chain
+    with ``F.conv2d``."""
+    if cfg.use_pallas_filter and not _fused_enabled(cfg):
+        if cfg.use_pallas_fused is None and cfg.filter_size == 7 and cfg.use_pallas_select:
+            return dataclasses.replace(cfg, use_pallas_filter=False, use_pallas_fused=True)
+        return dataclasses.replace(cfg, use_pallas_filter=False)
+    return cfg
+
+
+def _labels(cur0: torch.Tensor, dir_code: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each masked pixel's ascent root (per-field flat index), -1
+    elsewhere, from the race's (T, F, F) maps: one label resolution over
+    the row-flattened stack (parents never leave their field)."""
+    t, f, _ = cur0.shape
+    roots = label_fixpoint(cur0.reshape(t * f, f), dir_code.reshape(t * f, f)).reshape(t, f, f)
+    return torch.where(mask, roots, torch.full_like(roots, -1))
+
+
+def _chain_core(xs: torch.Tensor, cfg: DetectionConfig):
+    """Detection over a (T, F, F) stack with the filter as a step of its
+    own: (labels, filt, globalrms), labels (T, F, F) int32 holding each
+    masked pixel's ascent root (per-field flat index) and -1 elsewhere.
+    ``use_pallas_filter`` (a 7x7 filter) takes a stack of one field: the
+    batched path normalises it away (``_normalize_batched_cfg``), and a
+    larger stack raises."""
+    if cfg.use_pallas_filter and cfg.filter_size == 7 and xs.shape[0] != 1:
+        raise ValueError(
+            f"use_pallas_filter runs the stand-alone filter kernel on one field, got a stack of "
+            f"{xs.shape[0]}; the batched path routes it to the fused core (_normalize_batched_cfg)"
+        )
+    f = xs.shape[-1]
+    back, _, _, grms = estimate_background(xs, box=min(cfg.background_box, f))
     kernel_np = default_filter_kernel(cfg.filter_size, cfg.filter_fwhm)
-    threshold = (cfg.thresh * grms * _threshold_scale(cfg)).reshape(1)
-    finite = torch.isfinite(image)
+    thr = cfg.thresh * grms * _threshold_scale(cfg)
+    finite = torch.isfinite(xs)
     if cfg.use_pallas_filter and cfg.filter_size == 7:
         # non-finite pixels are set to the background, so they add
         # nothing to the filter
-        filt, mask = matched_filter_threshold(
-            torch.where(finite, image, back), back, kernel_np, threshold
-        )
+        filt, mask = matched_filter_threshold(torch.where(finite[0], xs[0], back[0]), back[0], kernel_np, thr)
+        filt, mask = filt[None], mask[None]
     else:
-        fore = torch.where(finite, image - back, torch.zeros((), dtype=image.dtype, device=image.device))
-        filt = _conv2d_same(fore, torch.as_tensor(kernel_np, device=image.device))
-        mask = filt > threshold
-    dir_code, cur0 = parent_race_kernel(filt[None], threshold)
-    roots = label_fixpoint(cur0[0], dir_code[0])
-    labels = torch.where(mask, roots, torch.full_like(roots, -1))
-    return labels, filt, grms
+        fore = torch.where(finite, xs - back, torch.zeros((), dtype=xs.dtype, device=xs.device))
+        filt = _conv2d_same(fore, torch.as_tensor(kernel_np, device=xs.device))
+        mask = filt > thr[:, None, None]
+    dir_code, cur0 = parent_race_kernel(filt, thr)
+    return _labels(cur0, dir_code, mask), filt, grms
+
+
+def _detect_core(image: torch.Tensor, cfg: DetectionConfig):
+    """The chain on one 2D band: (labels, filt, globalrms)."""
+    labels, filt, grms = _chain_core(image[None], cfg)
+    return labels[0], filt[0], grms[0]
 
 
 def detect_core_stack(xs: torch.Tensor, cfg: DetectionConfig):
@@ -203,16 +256,40 @@ def detect_core_stack(xs: torch.Tensor, cfg: DetectionConfig):
     labels (T, F, F) int32 hold each masked pixel's ascent root (per-field
     flat index) and -1 elsewhere."""
     t, f, _ = xs.shape
-    stats = [estimate_background(xs[i], box=min(cfg.background_box, f)) for i in range(t)]
-    back = torch.stack([s[0] for s in stats])
-    grms = torch.stack([s[3] for s in stats])
+    back, _, _, grms = estimate_background(xs, box=min(cfg.background_box, f))
     thr = cfg.thresh * grms * _threshold_scale(cfg)
     guarded = torch.where(torch.isfinite(xs), xs, back)
     kernel = default_filter_kernel(cfg.filter_size, cfg.filter_fwhm)
     filt, dir_code, cur0 = matched_filter_parents(guarded, back, kernel, thr)
-    roots = label_fixpoint(cur0.reshape(t * f, f), dir_code.reshape(t * f, f)).reshape(t, f, f)
-    labels = torch.where(filt > thr[:, None, None], roots, torch.full_like(roots, -1))
-    return labels, filt, grms
+    return _labels(cur0, dir_code, filt > thr[:, None, None]), filt, grms
+
+
+def _core(xs: torch.Tensor, cfg: DetectionConfig):
+    """The single-field rule (``detect_sources``): the fused core unless
+    ``use_pallas_filter`` asks for the stand-alone filter kernel."""
+    if _fused_enabled(cfg) and not cfg.use_pallas_filter:
+        return detect_core_stack(xs, cfg)
+    return _chain_core(xs, cfg)
+
+
+def _batched_core(xs: torch.Tensor, cfg: DetectionConfig):
+    """The batched rule (``detect_sources_batched``, on a normalised cfg):
+    the fused core whenever it is enabled, whatever ``use_pallas_filter``
+    says, as the JAX package's batched core."""
+    if _fused_enabled(cfg):
+        return detect_core_stack(xs, cfg)
+    return _chain_core(xs, cfg)
+
+
+def _compact_masked(labels: torch.Tensor, filt: torch.Tensor):
+    """One compaction over the whole (T, F, F) stack: each masked pixel's
+    global flat index (int64, ascending), label and filtered value.  The
+    dynamic shape needs no static capacity and no overflow pass, and int64
+    indices do not overflow at 2^31 pixels, so the JAX package's per-tile
+    route for such stacks (an int32 limit) is not kept."""
+    flat = labels.reshape(-1)
+    idx = torch.nonzero(flat >= 0).reshape(-1)
+    return idx, flat[idx], filt.reshape(-1)[idx]
 
 
 # ----------------------------------------------------------- host postprocess
@@ -250,7 +327,9 @@ def _merge_segments_py(ea, eb, eh, peak, flux, order, nthr, thr, cont):
     """The sequential merge loop: weakest peaks first, each segment merges
     into its brightest-saddle neighbour unless a quantization level
     separates its peak from the saddle and its flux is significant.
-    Returns the root of every segment."""
+    Returns the root of every segment.  The plain version of the native
+    core (kernels/segmerge.merge_segments), which detection runs; the
+    tests hold the two bit for bit."""
     L = len(peak)
 
     def level(v, island_peak):
@@ -332,10 +411,52 @@ def _merge_labels_coo(idx, lab, val, f, threshold, cfg: DetectionConfig):
     nthr = max(cfg.deblend_nthresh, 1)
     thr = max(float(threshold), 1e-30)
     order = np.argsort(peak, kind="stable")
-    roots = _merge_segments_py(ea, eb, eh, peak, flux.copy(), order, nthr, thr, cfg.deblend_cont)
+    roots = merge_segments(ea, eb, eh, peak, flux, order, nthr, thr, cfg.deblend_cont)
     if np.array_equal(roots, np.arange(L)):
         return lab
     return labs[roots][cid]
+
+
+def _pixel_edges_coo(idx, f):
+    """8-neighbour pixel edge pairs (array indices) among the masked COO
+    pixels (ascending flat ``idx``): the E, S, SE and SW directions cover
+    every undirected adjacency."""
+    idx = np.asarray(idx, np.int64)
+    col = idx % f
+    a_parts, b_parts = [], []
+    for d, ok in ((1, col < f - 1), (f, None), (f + 1, col < f - 1), (f - 1, col > 0)):
+        src = np.flatnonzero(ok) if ok is not None else np.arange(len(idx))
+        cand = idx[src] + d
+        pos = np.searchsorted(idx, cand)
+        m = np.flatnonzero(pos < len(idx))
+        m = m[idx[pos[m]] == cand[m]]
+        if len(m):
+            a_parts.append(src[m])
+            b_parts.append(pos[m])
+    if not a_parts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(a_parts), np.concatenate(b_parts)
+
+
+def _lutz_labels_coo(idx, val, f, threshold, cfg: DetectionConfig):
+    """``deblend_algo='lutz'``: each pixel's object label (the flat index
+    of its object's peak) from the native multi-threshold tree over the
+    masked pixels' 8-neighbour graph, with ``deblend_nthresh``
+    exponential sub-thresholds and the ``deblend_cont`` significance; the
+    watershed labels are not used."""
+    if len(idx) == 0:
+        return np.zeros(0, np.int64)
+    ea, eb = _pixel_edges_coo(idx, f)
+    return lutz_deblend(
+        np.maximum(np.asarray(val, np.float64), 1e-30),
+        idx,
+        ea,
+        eb,
+        f,
+        max(cfg.deblend_nthresh, 1),
+        max(float(threshold), 1e-30),
+        cfg.deblend_cont,
+    )
 
 
 def _clean_pass(ys, xs, peaks, cfg: DetectionConfig) -> np.ndarray:
@@ -365,82 +486,142 @@ def _clean_pass(ys, xs, peaks, cfg: DetectionConfig) -> np.ndarray:
     return peaks > cfg.clean_param * contrib
 
 
-def _postprocess_coo(idx, lab, val, f, globalrms, cfg: DetectionConfig):
-    """Merge, minarea, centroids and CLEAN over the masked-pixel COO
-    (ascending flat ``idx``, per-pixel watershed labels, filtered
-    values)."""
+def _postprocess_coo(idx, lab, val, f, globalrms, cfg: DetectionConfig, timings=None, want_map=True):
+    """Merge (or the Lutz tree), minarea, centroids and CLEAN over the
+    masked-pixel COO (ascending per-field flat ``idx``, per-pixel watershed
+    labels, filtered values).
+
+    ``timings``: a dict that accumulates the wall seconds of the stages
+    'merge', 'segstats', 'clean' and 'reconstruct' (the dense label map).
+    ``want_map=False`` skips that map and returns ``labels: None``."""
+    t = timings if timings is not None else {}
     idx = np.asarray(idx, np.int64)
     lab = np.asarray(lab, np.int64)
     val = np.asarray(val, np.float32)
     thr_val = cfg.thresh * float(globalrms) * _threshold_scale(cfg)
-    lab = _merge_labels_coo(idx, lab, val, f, thr_val, cfg)
+    with stage_timer(t, "merge"):
+        if cfg.deblend_algo == "lutz":
+            lab = _lutz_labels_coo(idx, val, f, thr_val, cfg)
+        else:
+            lab = _merge_labels_coo(idx, lab, val, f, thr_val, cfg)
 
-    w_sel = np.maximum(val, 0.0)
-    ulab = np.unique(lab)
-    nl = len(ulab)
-    cid = np.searchsorted(ulab, lab)
-    area = np.bincount(cid, minlength=nl).astype(np.float64)
-    flux = np.bincount(cid, weights=w_sel, minlength=nl)
-    ysum = np.bincount(cid, weights=w_sel * (idx // f), minlength=nl)
-    xsum = np.bincount(cid, weights=w_sel * (idx % f), minlength=nl)
+    with stage_timer(t, "segstats"):
+        w_sel = np.maximum(val, 0.0)
+        ulab = np.unique(lab)
+        nl = len(ulab)
+        cid = np.searchsorted(ulab, lab)
+        area = np.bincount(cid, minlength=nl).astype(np.float64)
+        flux = np.bincount(cid, weights=w_sel, minlength=nl)
+        ysum = np.bincount(cid, weights=w_sel * (idx // f), minlength=nl)
+        xsum = np.bincount(cid, weights=w_sel * (idx % f), minlength=nl)
 
-    peak_flat = idx[lab == idx]  # fixpoints of the ascent are the peaks
-    pcid = np.searchsorted(ulab, peak_flat)
-    kmask = area[pcid] >= cfg.minarea
-    keep = peak_flat[kmask]
-    kcid = pcid[kmask]
-    fl = np.maximum(flux[kcid], 1e-30)
-    ys = ysum[kcid] / fl
-    xs = xsum[kcid] / fl
-    peak_val = val[np.searchsorted(idx, keep)]
+        peak_flat = idx[lab == idx]  # fixpoints of the ascent are the peaks
+        pcid = np.searchsorted(ulab, peak_flat)
+        kmask = area[pcid] >= cfg.minarea
+        keep = peak_flat[kmask]
+        kcid = pcid[kmask]
+        fl = np.maximum(flux[kcid], 1e-30)
+        ys = ysum[kcid] / fl
+        xs = xsum[kcid] / fl
+        peak_val = val[np.searchsorted(idx, keep)]
 
     if cfg.clean and len(keep) > 1:
-        keep_mask = _clean_pass(ys, xs, peak_val, cfg)
-        keep, kcid = keep[keep_mask], kcid[keep_mask]
-        ys, xs = ys[keep_mask], xs[keep_mask]
+        with stage_timer(t, "clean"):
+            keep_mask = _clean_pass(ys, xs, peak_val, cfg)
+            keep, kcid = keep[keep_mask], kcid[keep_mask]
+            ys, xs = ys[keep_mask], xs[keep_mask]
 
-    dense = np.full(f * f, -1, np.int32)
-    dense[idx] = lab
+    dense = None
+    if want_map:
+        with stage_timer(t, "reconstruct"):
+            dense = np.full(f * f, -1, np.int32)
+            dense[idx] = lab
+            dense = dense.reshape(f, f)
     return {
         "y": ys,
         "x": xs,
         "area": area[kcid],
         "flux": flux[kcid],
         "peak_yx": np.stack([keep // f, keep % f], -1) if len(keep) else np.zeros((0, 2), int),
-        "labels": dense.reshape(f, f),
+        "labels": dense,
         "globalrms": float(globalrms),
     }
 
 
-def _postprocess_core(labels_np, filt_np, globalrms, cfg: DetectionConfig):
-    f = labels_np.shape[0]
-    flat = labels_np.ravel()
-    sel = np.flatnonzero(flat >= 0)
-    return _postprocess_coo(sel, flat[sel], filt_np.ravel()[sel], f, globalrms, cfg)
+def _on_device(x, dev: torch.device) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``dev``: host arrays are uploaded, a
+    tensor must already lie on ``dev`` (no silent copy between devices)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != dev.type or (dev.index is not None and x.device.index != dev.index):
+            raise ValueError(f"the field lies on {x.device}, detection was asked to run on {dev}")
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
 
-def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda"):
-    """Full detection on a square 2D band: dict with 'y', 'x' (float
-    barycentres), 'area', 'flux', 'peak_yx', 'labels', 'globalrms'."""
-    cfg = cfg or DetectionConfig()
-    if cfg.deblend_algo == "lutz":
-        raise NotImplementedError(
-            "deblend_algo='lutz' is not ported to the PyTorch package yet "
-            "(ROADMAP.md Queue 1: tiles and batched detection)"
+def _postprocess_stack(idx, lab, val, n, f, grms, cfg: DetectionConfig, timings, want_map) -> list[dict]:
+    """The host postprocess tile by tile of a stack's COO (global flat
+    ``idx``, split per tile by ``searchsorted``)."""
+    per_tile = f * f
+    bounds = np.searchsorted(idx, np.arange(n + 1) * per_tile)
+    return [
+        _postprocess_coo(
+            idx[s:e] - i * per_tile, lab[s:e], val[s:e], f, float(grms[i]), cfg, timings=timings, want_map=want_map
         )
-    dev = resolve_device(device)
-    image = torch.as_tensor(np.asarray(image_2d, np.float32), device=dev)
+        for i, (s, e) in enumerate(zip(bounds[:-1], bounds[1:]))
+    ]
+
+
+def _detect_stack(x: torch.Tensor, core, cfg: DetectionConfig, timings, want_map) -> list[dict]:
+    """``core`` over the (T, F, F) stack, one compaction of its masked
+    pixels, one download of the three COO arrays, then the host
+    postprocess tile by tile."""
+    t = timings if timings is not None else {}
+    with stage_timer(t, "core", x.device):
+        labels, filt, grms = core(x, cfg)
+        idx, lab, val = _compact_masked(labels, filt)
+    with stage_timer(t, "download", x.device):
+        idx, lab, val, grms = (a.cpu().numpy() for a in (idx, lab, val, grms))
+    return _postprocess_stack(idx, lab, val, x.shape[0], x.shape[-1], grms, cfg, t, want_map)
+
+
+def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda", timings=None, want_map=True):
+    """Full detection on a square 2D band: dict with 'y', 'x' (float
+    barycentres), 'area', 'flux', 'peak_yx', 'labels' (None with
+    ``want_map=False``), 'globalrms'.  ``timings`` accumulates the stage
+    seconds of ``detect_sources_batched``."""
+    cfg = cfg or DetectionConfig()
+    image = _on_device(image_2d, resolve_device(device))
     if image.ndim != 2 or image.shape[0] != image.shape[1]:
         raise ValueError(
             f"detection requires a square 2D field (got {tuple(image.shape)}); "
             f"the centre-offset convention is single-axis"
         )
-    if _fused_enabled(cfg) and not cfg.use_pallas_filter:
-        labels, filt, grms = detect_core_stack(image[None], cfg)
-        labels, filt, grms = labels[0], filt[0], grms[0]
-    else:
-        labels, filt, grms = _detect_core(image, cfg)
-    return _postprocess_core(labels.cpu().numpy(), filt.cpu().numpy(), float(grms), cfg)
+    return _detect_stack(image[None], _core, cfg, timings, want_map)[0]
+
+
+def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None, timings=None, want_map=True,
+                           device="cuda") -> list[dict]:
+    """Detection over a stack of same-size square tiles (T, F, F): one
+    device pass of the core over the whole stack, one compaction of its
+    masked pixels and one download, then the host postprocess tile by
+    tile.  Returns one ``detect_sources`` dict a tile.
+
+    ``tiles``: a host array, uploaded to ``device``, or a tensor already on
+    it (bfloat16 is widened to float32 there).  ``timings``: a dict that
+    accumulates the wall seconds of 'core' (the device core and the
+    compaction, up to its count sync), 'download' (the three COO arrays)
+    and the postprocess stages.  ``want_map=False`` skips each tile's
+    dense label map (``labels: None``)."""
+    if mesh is not None:
+        _not_ported("mesh=", "multi-device")
+    cfg = _normalize_batched_cfg(cfg or DetectionConfig())
+    x = _on_device(tiles, resolve_device(device))
+    if x.ndim != 3 or x.shape[1] != x.shape[2]:
+        raise ValueError(
+            f"detection tiles must be a (T, F, F) square stack (got {tuple(x.shape)}); "
+            f"see detect_sources for the square-field contract"
+        )
+    return _detect_stack(x, _batched_core, cfg, timings, want_map)
 
 
 def detect_objects(field_image, cfg: DetectionConfig | None = None, device="cuda") -> np.ndarray:

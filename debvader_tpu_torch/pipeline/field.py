@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from debvader_tpu_torch.api import deblend_tensor, sample_stats_tensor
-from debvader_tpu_torch.config import PipelineConfig
+from debvader_tpu_torch.config import PipelineConfig, _not_ported
 from debvader_tpu_torch.device import resolve_device
 from debvader_tpu_torch.ops.extraction import extract_cutouts, extract_cutouts_np
 from debvader_tpu_torch.ops.measure import measure_batch
@@ -66,12 +66,6 @@ _STREAM_BYTES_PER_SOURCE = 2_800_000
 # chosen for the port, not a measurement.
 _STREAM_RESERVE_BYTES = 2 << 30
 _MIN_STREAM_CHUNK = 16
-
-
-def _not_ported(option: str, title: str):
-    """Raise for an option whose ROADMAP.md Queue 1 item, named by its
-    title, is still to come."""
-    raise NotImplementedError(f"{option} is not ported to the PyTorch package yet (ROADMAP.md Queue 1: {title})")
 
 
 def _check_field_image(arr: np.ndarray) -> None:
@@ -141,6 +135,20 @@ def _render_finish(field: torch.Tensor, canvas: torch.Tensor, pad: int, out_dtyp
         if want_model:
             model = model.to(getattr(torch, out_dtype))
     return (residual, model) if want_model else residual
+
+
+def _model_subtract(residual: torch.Tensor, canvas: torch.Tensor, pad: int, in_place: bool):
+    """One iterative-serving step's update: (residual - crop(canvas), the
+    mean square of the cropped model).  The power is summed in float32
+    whatever the canvas's dtype; under ``device_dtype='bfloat16'`` the
+    residual and the subtract stay bfloat16.  ``in_place`` writes into
+    ``residual``, for a step that owns it (never the memoized field)."""
+    model = _crop_canvas(canvas, pad)
+    power = torch.mean(torch.square(model.to(torch.float32)))
+    if in_place:
+        residual[0] -= model
+        return residual, power
+    return residual - model[None], power
 
 
 def _serving_chunk_cap(

@@ -151,13 +151,6 @@ def test_a_step_without_sources_returns_the_accumulated_array(nets):
         assert df.deblending_step(field, galaxy_distances_to_center=np.zeros((0, 2))) is first
 
 
-def test_iterative_deblend_and_render_waits_for_the_tiles_item(nets):
-    field, _ = _field()
-    tdf = dtt.IterativeDeblendField(nets[1], field, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: tiles and batched detection"):
-        tdf.iterative_deblend_and_render()
-
-
 def test_deblend_field_keeps_an_mse_list(nets):
     field, _ = _field()
     assert dtt.DeblendField(nets[1], field, device="cpu").mse == dt.DeblendField(nets[0], field).mse == []

@@ -328,12 +328,6 @@ def test_deblend_algo_is_checked_as_jax_checks_it():
             cls(deblend_algo="sep")
 
 
-def test_lutz_is_not_ported_yet():
-    img = np.zeros((32, 32), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: tiles and batched detection"):
-        td.detect_objects(img, DetectionConfig(deblend_algo="lutz"), device="cpu")
-
-
 # ------------------------------------------------------------ fp32_math
 
 
