@@ -113,7 +113,16 @@ without printing its last line):
    (at most 2% of the rows; the one-step residual must fail that check),
    each run's launches counted from 0, wall time and peak memory (the
    iterative_serving line);
-18. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+18. training on the sim_demo model at full width with pairs from the
+   port's make_dataset: one step card against CPU (loss terms within 1e-5
+   relative, gradient leaves within 1e-4 of their scale, parameters moved
+   the other way counted and bounded), train_deblender warm-started from
+   sim_demo for one epoch a stage at batch 32 (the decoder bit for bit
+   through stage 2, stage 1's loss falling, the best-validation
+   checkpoint reloaded through load_deblender), two seeded 10-step runs
+   bit-identical, the native loader's batches equal to the .npy source's,
+   and the median warm step time at batch 5 and 64 (the training line);
+19. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 Phase 4's default-threshold detection also times the native segment merge
@@ -128,6 +137,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -167,14 +177,23 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_field(size=1024, n_gal=300, bands=6, noise=0.02, seed=0) -> np.ndarray:
+def make_field(size=1024, n_gal=300, bands=6, noise=0.02, seed=0, crop=None) -> np.ndarray:
     """(1, size, size, bands) float32: elliptical two-Gaussian galaxies with
     a smooth band SED (after debvader_tpu/data/simulate.py), a Gaussian PSF
-    blur (sigma 1.2 px) and Gaussian pixel noise, all from ``seed``."""
+    blur (sigma 1.2 px) and Gaussian pixel noise, all from ``seed``.
+
+    ``crop=(y0, x0, n)`` returns the (1, n, n, bands) window at (y0, x0) of
+    that field, bit for bit, without making the rest: every random number is
+    drawn as for the whole field, but only the galaxies and noise rows the
+    window (and the PSF's 3-pixel reach around it) needs are used."""
     from scipy.ndimage import convolve1d
 
     rng = np.random.default_rng(seed)
-    field = np.zeros((size, size, bands), np.float64)
+    reach = 3
+    y0, x0, n = crop if crop is not None else (0, 0, size)
+    lo_y, lo_x = max(y0 - reach, 0), max(x0 - reach, 0)
+    hi_y, hi_x = min(y0 + n + reach, size), min(x0 + n + reach, size)
+    field = np.zeros((hi_y - lo_y, hi_x - lo_x, bands), np.float64)
     half = 20
     yy, xx = np.mgrid[-half : half + 1, -half : half + 1]
     margin = min(40, size // 4)
@@ -186,16 +205,26 @@ def make_field(size=1024, n_gal=300, bands=6, noise=0.02, seed=0) -> np.ndarray:
         sed = np.exp(rng.uniform(-0.15, 0.15) * np.arange(bands))
         sed /= sed.mean()
         iy, ix = int(cy), int(cx)
+        if iy + half < lo_y or iy - half >= hi_y or ix + half < lo_x or ix - half >= hi_x:
+            continue
         dy, dx = yy - (cy - iy), xx - (cx - ix)
         q = (1 + e1) * dx * dx + (1 - e1) * dy * dy + 2 * e2 * dx * dy
         prof = 0.7 * np.exp(-q / (2 * (0.6 * r50) ** 2)) + 0.3 * np.exp(-q / (2 * (1.8 * r50) ** 2))
         prof /= prof.sum()
-        field[iy - half : iy + half + 1, ix - half : ix + half + 1] += flux * prof[..., None] * sed
+        stamp = flux * prof[..., None] * sed
+        ys, xs = slice(max(iy - half, lo_y), min(iy + half + 1, hi_y)), slice(max(ix - half, lo_x), min(ix + half + 1, hi_x))
+        field[ys.start - lo_y : ys.stop - lo_y, xs.start - lo_x : xs.stop - lo_x] += stamp[
+            ys.start - iy + half : ys.stop - iy + half, xs.start - ix + half : xs.stop - ix + half]
     r = np.arange(7) - 3
     g = np.exp(-(r**2) / (2 * 1.2**2))
     g /= g.sum()
     field = convolve1d(convolve1d(field, g, axis=0, mode="constant"), g, axis=1, mode="constant")
-    field += noise * rng.normal(size=field.shape)
+    field = field[y0 - lo_y : y0 - lo_y + n, x0 - lo_x : x0 - lo_x + n]
+    if crop is None:
+        field += noise * rng.normal(size=field.shape)
+    else:
+        rng.normal(size=(y0, size, bands))  # the noise rows above the window
+        field += noise * np.stack([rng.normal(size=(size, bands))[x0 : x0 + n] for _ in range(n)])
     return field[None].astype(np.float32)
 
 
@@ -1983,7 +2012,17 @@ def stack_kernel_times(torch, band, tile: int, overlap: int) -> dict:
          bound(n * s * s * b * 4 + n * 8 + 2 * n * (s + 2) ** 2 * b * 4, n * (s + 2) * (s + 2) * b * 11)),
     ):
         out[name] = {"max_abs_err": err, "ms": cuda_ms(torch, fn), "device_ms": profiled_device_ms(torch, fn, kname),
-                     "plain_ms": cuda_ms(torch, plain, reps=PLAIN_REPS, warmup=1), "bound_ms": bd, "bound_by": by}
+                     "plain_ms": cuda_ms(torch, plain, reps=PLAIN_REPS, warmup=1), "bound_ms": bd, "bound_by": by,
+                     "library_ms": None}
+    # the library yardsticks of the one-field rows at the stack's shapes:
+    # a sort of the 6,400 boxes, and the 7x7 filter alone in float32
+    masked = torch.where(ones > 0, boxes, torch.full_like(boxes, float("inf")))
+    kt = torch.as_tensor(kernel, device="cuda")[None, None]
+    fore = (guarded - back)[:, None].contiguous()
+    out["clipped_stats"].update(library_ms=cuda_ms(torch, lambda: torch.sort(masked, dim=-1)),
+                                library_call="torch.sort of the boxes")
+    out["detect_fused"].update(library_ms=cuda_ms(torch, lambda: conv2d_fp32(torch, fore, kt)),
+                               library_call="F.conv2d of the 7x7 filter alone, float32")
     out["render"].update(shape=[n, s, s, b, fs], canvas=[fs + 2 * pad] * 2 + [b])
     out["held_against_plain"] = True
     return out
@@ -2023,9 +2062,10 @@ def run_tiled(torch, net, big: np.ndarray, reset_counts, read_counts) -> tuple[d
     flux_field, flux_resid = float(np.abs(big[0][mask]).sum()), float(np.abs(residual[0][mask]).sum())
     if not flux_resid < flux_field:
         raise AssertionError(f"tiled residual flux {flux_resid} is not below the field's {flux_field}")
-    # warm calls, each with its own stage dict
+    # warm calls, each with its own stage dict (two: a third was cut to
+    # make room for phase 18)
     detect_runs, render_runs = [], []
-    for _ in range(3):
+    for _ in range(2):
         for runs, call in ((detect_runs, lambda t: tdf.detect(timings=t, field=tdf._device_field(tdf.field_image))),
                            (render_runs, lambda t: tdf.deblend_and_render(centers, timings=t))):
             stages = {}
@@ -2186,6 +2226,280 @@ def run_iterative_serving(torch, net, big: np.ndarray, tiled_catalog, tiled_resi
             "control_without_step1_rel_err_outside": control,
             "two_float32_runs_bit_identical": True, "step0_equals_tiled_catalog": True,
             "one_step_residual_equals_tiled": True}
+
+
+# Phase 18: the card's one training step against the CPU's.  A
+# parameter whose gradient element sits near 0 with another sign on the
+# card moves the other way (Adam's first step is lr sign(g)): at most this
+# share of the 8,318,452 values may.
+TRAIN_FLIP_MAX_SHARE = 1e-3
+TRAIN_BATCH = 32
+
+
+def run_training(torch) -> dict:
+    """Phase 18: training on the sim_demo model at full width with pairs
+    from the port's make_dataset (650 training and 128 validation pairs a
+    stage): one step from the shipped weights with one batch of 32 and one
+    eps on the card and on the CPU (the loss terms within 1e-5 relative,
+    every gradient leaf within 1e-4 of its largest magnitude, the
+    parameters that moved the other way counted and bounded);
+    train_deblender warm-started from sim_demo, one epoch a stage at batch
+    32 (20 full batches and one of 10), the decoder bit for bit through
+    stage 2, stage 1's loss lower at its end than at its first step, the
+    best-validation checkpoint reloaded through load_deblender; two seeded
+    runs of 10 steps bit-identical; the native loader built from the
+    port's copy, its batches the .npy source's rows; the median warm step
+    time by CUDA events over 25 steps at batch 5 and 64, each alone and
+    back to back, samples/s and peak device memory, and 5 profiled steps'
+    device idle share."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import make_dataset
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.runtime import loader
+    from debvader_tpu_torch.training import checkpoint as ckpt
+    from debvader_tpu_torch.training import train as tt
+    from debvader_tpu_torch.weights import flax_from_state_dict, weights_file
+
+    out = {}
+    t = time.perf_counter()
+    data = make_dataset(0, n_train=650, n_val=128)
+    out["make_dataset_s"] = time.perf_counter() - t
+    (xv, yv), _ = data["vae"]
+    (xd, yd), _ = data["deblender"]
+    shipped = dt.load_deblender("sim_demo", device="cpu")
+    variables = flax_from_state_dict(shipped.state_dict(), shipped.cfg)
+    cfg = dt.TrainConfig(batch_size=TRAIN_BATCH)
+
+    # -- one step, card against CPU: the same weights, batch and eps
+    eps = np.random.default_rng(1).standard_normal((TRAIN_BATCH, 32)).astype(np.float32)
+    x, y = xd[:TRAIN_BATCH], yd[:TRAIN_BATCH]
+
+    def grads(device, dtype=torch.float32, keep=None):
+        """The step's terms, its gradients and the band head's output before
+        its ReLU on ``device`` in ``dtype``; with ``keep`` (a per-pixel 0/1
+        weight) the gradients are those of the loss over the kept pixels."""
+        state = tt.create_train_state(dt.DeblenderVAE(), cfg, variables=variables, device=device)
+        module = state.module.to(dtype)
+        params = state.trainable()
+        xs, ys, e = (torch.as_tensor(a, device=device, dtype=dtype) for a in (x, y, eps))
+        head = {}
+        hook = module.decoder.head.register_forward_hook(lambda m, i, o: head.update(pre=o.detach().cpu()))
+        with fp32_math():
+            loss, terms = tt.make_loss_fn(cfg)(module, xs, ys, e, 0)
+            if keep is not None:
+                k = torch.as_tensor(keep, device=device, dtype=dtype)
+                posterior = module.encode(xs, train=True)
+                nll = -(module.decode(posterior.sample(eps=e)).log_prob(ys) * k).sum() / k.sum()
+                loss = nll + cfg.kl_weight * posterior.kl_to_standard_normal().mean()
+            g = torch.autograd.grad(loss, list(params.values()))
+        hook.remove()
+        return ({k: float(v) for k, v in terms.items()}, {k: v.double().cpu() for k, v in zip(params, g)},
+                head["pre"])
+
+    def stepped(device):
+        """The parameters after make_train_step's one step with eps."""
+        state = tt.create_train_state(dt.DeblenderVAE(), cfg, variables=variables, device=device)
+        noise = tt._latent_noise
+        tt._latent_noise = lambda generator, shape, like: torch.as_tensor(eps, device=like.device)
+        try:
+            state, _ = tt.make_train_step(cfg)(state, torch.as_tensor(x, device=device),
+                                               torch.as_tensor(y, device=device))
+        finally:
+            tt._latent_noise = noise
+        return {k: v.detach().cpu() for k, v in state.module.state_dict().items()}
+
+    def leaf_errors(ga, gb):
+        return {k: float((ga[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30) for k, g in gb.items()}
+
+    t_card, g_card, h_card = grads("cuda")
+    t_cpu, g_cpu, h_cpu = grads("cpu")
+    term_err = {k: abs(t_card[k] / t_cpu[k] - 1) for k in t_cpu}
+    if max(term_err.values()) > 1e-5:
+        raise AssertionError(f"training step: loss terms differ between card and CPU: {term_err}")
+    card_vs_cpu = leaf_errors(g_card, g_cpu)
+    # Two things move a float32 gradient leaf far more than its last bits.
+    # (1) The pixel Normal's scale is 1e-4 + ReLU(head): a pixel whose head
+    # output is on the ReLU's kink on one device and off it on the other
+    # moves the gradient by its whole share, which at the 1e-4 floor is
+    # large; those pixels (loc or scale channel, cropped 64 -> 59 as the
+    # decoder crops) are counted and left out of the loss below.  (2) At
+    # the floor the per-pixel gradients are large and cancel, so a float32
+    # leaf can be percents of its scale off the exact sum on any device:
+    # each device's float32 gradient is held against a float64 one (on the
+    # card, where the double convolutions take a second, not the CPU's
+    # several), the card no further from it than twice the CPU's float32
+    # or 1e-4 of the leaf's scale.
+    b, lo = 6, 2
+    flip = ((h_card > 0) != (h_cpu > 0))[:, :, lo : lo + 59, lo : lo + 59]
+    flip = (flip[:, :b] | flip[:, b:]).permute(0, 2, 3, 1)
+    keep = (~flip).float().numpy()
+    _, gk_card, _ = grads("cuda", keep=keep)
+    _, gk_cpu, _ = grads("cpu", keep=keep)
+    _, gk_ref, _ = grads("cuda", torch.float64, keep=keep)
+    card_err, cpu_err = leaf_errors(gk_card, gk_ref), leaf_errors(gk_cpu, gk_ref)
+    for k, e in card_err.items():
+        if e > max(1e-4, 2 * cpu_err[k]):
+            raise AssertionError(f"training step: the card's gradient of {k} is {e} of its scale off the float64 "
+                                 f"gradient, the CPU's {cpu_err[k]}")
+    p_card, p_cpu = stepped("cuda"), stepped("cpu")
+    lr = cfg.learning_rate
+    moved = total = 0
+    for k, v in p_cpu.items():
+        d = (p_card[k] - v).abs()
+        total += d.numel()
+        moved += int((d > lr).sum())
+        if float(d.max()) > 2.5 * lr:
+            raise AssertionError(f"training step: {k} moved by {float(d.max())}, more than a sign flip")
+    if moved > TRAIN_FLIP_MAX_SHARE * total:
+        raise AssertionError(f"training step: {moved} of {total} parameters moved the other way on the card")
+    worst = max(card_vs_cpu, key=card_vs_cpu.get)
+    out["step_card_vs_cpu"] = {
+        "terms_card": t_card, "terms_rel_err": term_err, "kink_pixels": int(flip.sum()),
+        "grad_worst_leaf_card_vs_cpu": [worst, card_vs_cpu[worst]],
+        "grad_median_leaf_card_vs_cpu": float(np.median(list(card_vs_cpu.values()))),
+        "grad_leaves_over_1e-4_card_vs_cpu": sum(e > 1e-4 for e in card_vs_cpu.values()),
+        "grad_worst_leaf_vs_float64": {"card": max(card_err.values()), "cpu": max(cpu_err.values())},
+        "sign_flips": moved, "parameters": total}
+    print(f"training step, card against CPU: worst gradient leaf {worst} at {card_vs_cpu[worst]:.3e} of its "
+          f"scale; against float64 the card's worst {max(card_err.values()):.3e}, the CPU's "
+          f"{max(cpu_err.values()):.3e}; {moved} of {total} parameters moved the other way")
+
+    # -- two stages, warm-started from sim_demo, with the best-validation
+    # checkpoints; every step's loss recorded by wrapping the step factory
+    # the run's weights directory, holding the warm start's weights; it
+    # and the loader's .npy files (some 300 MB) are removed at the end
+    scratch = Path("chiprun_out") / "training_scratch"
+    shutil.rmtree(scratch, ignore_errors=True)
+    weights_dir = scratch / "weights"
+    weights_dir.mkdir(parents=True)
+    shutil.copy(dt.weights.default_weights_dir() / "sim_demo.npz", weights_dir)
+    step_losses = []
+    factory = tt.make_train_step
+
+    def recording(*args, **kwargs):
+        step = factory(*args, **kwargs)
+
+        def wrapped(state, *a):
+            state, terms = step(state, *a)
+            step_losses.append(terms["loss"])
+            return state, terms
+
+        return wrapped
+
+    tt.make_train_step = recording
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        h1, h2, state2, model = dt.train_deblender(
+            "smoke", "sim_demo", 1, *data["vae"], *data["deblender"], batch_size=TRAIN_BATCH, train_cfg=cfg,
+            with_callbacks=True, weights_dir=weights_dir, verbose=0, device="cuda")
+    finally:
+        tt.make_train_step = factory
+    torch.cuda.synchronize()
+    two_stage_s = time.perf_counter() - t
+    losses = [float(v) for v in step_losses]
+    steps_a_stage = -(-650 // TRAIN_BATCH)
+    if len(losses) != 2 * steps_a_stage or state2.step != steps_a_stage:
+        raise AssertionError(f"train_deblender took {len(losses)} steps, expected {2 * steps_a_stage}")
+    stage1 = losses[:steps_a_stage]
+    if not np.mean(stage1[-5:]) < stage1[0]:
+        raise AssertionError(f"stage 1's loss did not fall: first step {stage1[0]}, last five {stage1[-5:]}")
+    stage1_vars = ckpt.load_weights_from(weights_dir / "smoke" / "vae" / "val_loss" / "ckpt.npz")
+    end = state2.variables()
+    frozen = [k for k in end if k.startswith("params/decoder/")]
+    if not frozen or not all(np.array_equal(end[k], stage1_vars[k]) for k in frozen):
+        raise AssertionError("stage 2 changed the frozen decoder")
+    if all(np.array_equal(end[k], stage1_vars[k]) for k in end if k.startswith("params/encoder/")):
+        raise AssertionError("stage 2 did not train the encoder")
+    reloaded = dt.load_deblender("smoke", device="cuda", weights_dir=weights_dir)
+    best = ckpt.load_weights_from(weights_file("smoke", weights_dir))
+    if not all(np.array_equal(v, best[k]) for k, v in flax_from_state_dict(reloaded.state_dict()).items()):
+        raise AssertionError("load_deblender did not reload the newest best-validation checkpoint")
+    with torch.no_grad():
+        mean = reloaded(torch.as_tensor(xd[:8], device="cuda"), z_mode="mean")[0].mean()
+    if not bool(torch.isfinite(mean).all()):
+        raise AssertionError("the reloaded deblender gives non-finite means")
+    out["two_stages"] = {"seconds": two_stage_s, "steps_a_stage": steps_a_stage, "stage1_first_loss": stage1[0],
+                         "stage1_last5_losses": stage1[-5:], "history_vae": h1, "history_deblender": h2,
+                         "decoder_bit_identical_through_stage2": True,
+                         "reloaded_checkpoint": str(weights_file("smoke", weights_dir))}
+
+    # -- determinism: two seeded runs of 10 steps on the card
+    xs = torch.as_tensor(xv[: 10 * TRAIN_BATCH], device="cuda")
+    ys = torch.as_tensor(yv[: 10 * TRAIN_BATCH], device="cuda")
+    step = tt.make_train_step(cfg)
+
+    def ten_steps():
+        state = tt.create_train_state(dt.DeblenderVAE(), cfg, variables=variables, device="cuda")
+        for i in range(10):
+            state, _ = step(state, xs[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], ys[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+        return state.module.state_dict()
+
+    a, b = ten_steps(), ten_steps()
+    if not all(torch.equal(v.view(torch.int32), b[k].view(torch.int32)) for k, v in a.items()):
+        raise AssertionError("two seeded runs of 10 training steps differ on the card")
+    out["ten_steps_bit_identical"] = True
+
+    # -- the native loader, built from the port's copy
+    src = scratch / "loader"
+    src.mkdir(parents=True)
+    np.save(src / "x.npy", xv)
+    np.save(src / "y.npy", yv)
+    lib = loader.build()
+    with loader.make_loader(src / "x.npy", src / "y.npy", TRAIN_BATCH, shuffle=False) as ld:
+        for k in range(len(ld)):
+            bx, by = ld.next_batch()
+            rows = slice(k * TRAIN_BATCH, (k + 1) * TRAIN_BATCH)
+            if not (np.array_equal(bx, xv[rows]) and np.array_equal(by, yv[rows])):
+                raise AssertionError(f"the native loader's batch {k} is not the source's rows")
+    out["native_loader"] = {"library": lib.name, "batches_equal_source": len(xv) // TRAIN_BATCH}
+    shutil.rmtree(scratch)
+
+    # -- warm step times by CUDA events: each step alone (an event pair
+    # around it, then a sync: the host's enqueue is inside) and 25 steps
+    # back to back (the training loop's rate)
+    timing = {}
+    for bs in (5, 64):
+        state = tt.create_train_state(dt.DeblenderVAE(), dt.TrainConfig(batch_size=bs), variables=variables,
+                                      device="cuda")
+        step = tt.make_train_step(dt.TrainConfig(batch_size=bs))
+        bx, by = torch.as_tensor(xd[:bs], device="cuda"), torch.as_tensor(yd[:bs], device="cuda")
+        for _ in range(3):
+            state, _ = step(state, bx, by)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(25):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, bx, by)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(25):
+            state, _ = step(state, bx, by)
+        stop.record()
+        stop.synchronize()
+        back_to_back = start.elapsed_time(stop) / 25
+        ms = float(np.median(times))
+        timing[f"batch_{bs}"] = {"median_step_ms": ms, "step_ms_min_max": [min(times), max(times)],
+                                 "back_to_back_step_ms": back_to_back, "samples_per_s": bs / back_to_back * 1e3,
+                                 "peak_device_bytes": int(torch.cuda.max_memory_allocated())}
+
+        def five_steps():
+            nonlocal state
+            for _ in range(5):
+                state, _ = step(state, bx, by)
+
+        prof = profile_run(torch, five_steps)
+        timing[f"batch_{bs}"]["profiled_5_steps"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                                         "device_idle_share")}
+        timing[f"batch_{bs}"]["profiled_5_steps"]["top_device_events"] = prof["top_device_events"][:8]
+    out["step_times"] = timing
+    out["card"] = nvidia_smi_line()
+    return out
 
 
 def serving_cfg(chunk=128):
@@ -2674,6 +2988,20 @@ def main() -> int:
     print(json.dumps({"iterative_serving": iterative_serving}))
     del big, tiled_residual
     mark("iterative_serving")
+    # phase 18: training at full width
+    training = run_training(torch)
+    report["training"] = training
+    print(json.dumps({"training": training}))
+    for bs, rec in training["step_times"].items():
+        prof = rec["profiled_5_steps"]
+        print(f"training step, {bs}: {rec['median_step_ms']:.3f} ms median alone, {rec['back_to_back_step_ms']:.3f} "
+              f"ms back to back, {rec['samples_per_s']:.1f} samples/s, "
+              f"peak {rec['peak_device_bytes']} bytes, 5 profiled steps {prof['wall_ms']:.1f} ms wall, "
+              f"{prof['device_busy_ms']:.1f} ms device busy (idle share {prof['device_idle_share']:.3f}) on "
+              f"{training['card']}")
+        for r in prof["top_device_events"]:
+            print(f"  {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['name'][:100]}")
+    mark("training")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 

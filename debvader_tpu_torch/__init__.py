@@ -15,7 +15,11 @@ device-resident server ``iterative_deblend_and_render``) and tiled
 detection of fields larger than one tile (``detect_objects_tiled``,
 ``TiledDeblendField``); the precision schemes
 (``ModelConfig.layer_precision``, ``fidelity_serving_config``) with the flux
-calibration that ``load_deblender(..., flux_calibration=True)`` attaches.
+calibration that ``load_deblender(..., flux_calibration=True)`` attaches;
+and training: ``train_network`` / ``train_deblender`` (the two-stage
+trainer with the decoder frozen in stage 2) with flax's train-mode
+BatchNorm, optax's Adam, checkpoints, band-count transfer and the native
+data loader (``training/``, ``runtime/loader.py``).
 Public functions keep the JAX package's NHWC layout.  Entry points run on the GPU
 (``device="cuda"``) unless the caller passes ``device="cpu"``; the kernels
 are hand-written CUDA (``csrc/``) built with ``nvcc`` at first use, and
@@ -31,19 +35,21 @@ from debvader_tpu_torch.config import (
     DetectionConfig,
     ModelConfig,
     PipelineConfig,
+    TrainConfig,
     fidelity_serving_config,
 )
 from debvader_tpu_torch.kernels.decoder_tail import decoder_tail_params, fused_decoder_tail
 from debvader_tpu_torch.kernels.matched_filter import matched_filter_threshold
 from debvader_tpu_torch.kernels.render import render_field_kernel
 from debvader_tpu_torch.kernels.tail_fused import fused_tail_pair, tail_pair_params
-from debvader_tpu_torch.models.vae import DeblenderVAE
+from debvader_tpu_torch.models.vae import DeblenderVAE, create_model_vae, init_vae
 from debvader_tpu_torch.ops.detection import detect_objects, detect_sources
 from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.shift import render_field, render_pad
 from debvader_tpu_torch.pipeline.field import DeblendField
 from debvader_tpu_torch.pipeline.iterative import IterativeDeblendField
 from debvader_tpu_torch.pipeline.tiles import TiledDeblendField, detect_objects_tiled
+from debvader_tpu_torch.training.train import train_deblender, train_network
 from debvader_tpu_torch.utils.profiling import stage_timer
 from debvader_tpu_torch.weights import load_deblender
 
@@ -58,7 +64,11 @@ __all__ = [
     "TiledDeblendField",
     "IterativeDeblendField",
     "DeblenderVAE",
+    "create_model_vae",
+    "init_vae",
     "load_deblender",
+    "train_network",
+    "train_deblender",
     "measure_batch",
     "render_field",
     "render_pad",
@@ -72,6 +82,7 @@ __all__ = [
     "ModelConfig",
     "DetectionConfig",
     "PipelineConfig",
+    "TrainConfig",
     "fidelity_serving_config",
     "__version__",
 ]

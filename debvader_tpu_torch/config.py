@@ -17,6 +17,7 @@ __all__ = [
     "ModelConfig",
     "DetectionConfig",
     "PipelineConfig",
+    "TrainConfig",
     "fidelity_serving_config",
     "FIDELITY_NEEDS_FLUX_CAL",
 ]
@@ -136,6 +137,28 @@ def fidelity_serving_config(**overrides) -> ModelConfig:
 # the fidelity mode above meets its flux-error clause only with the
 # calibration attached at load
 FIDELITY_NEEDS_FLUX_CAL = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training defaults, the JAX package's: Adam at 1e-4, batches of 5,
+    10 epochs, the KL term weighted 0.01.
+
+    ``kl_mode``: 'analytic' (the closed-form KL of the MVN posterior to
+    N(0, I)) or 'mc' (the single-sample estimate at the sampled latent,
+    what the reference's Keras regularizer computes).
+    ``kl_anneal_steps`` > 0 ramps the KL weight linearly from 0 over that
+    many steps.  ``seed`` seeds the initialisation, the latent noise, the
+    validation noise and the host shuffle of each epoch's batches."""
+
+    learning_rate: float = 1e-4
+    batch_size: int = 5
+    epochs: int = 10
+    kl_weight: float = 0.01
+    kl_mode: str = "analytic"
+    kl_anneal_steps: int = 0
+    seed: int = 0
+    shuffle: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["simulate_batch"]
+__all__ = ["simulate_batch", "make_dataset"]
 
 
 def _profile(stamp: int, cy, cx, flux, r50, e1, e2, bands_scale) -> np.ndarray:
@@ -100,3 +100,16 @@ def simulate_batch(
         (iso_clean + eps2).astype(np.float32),
         iso_clean.astype(np.float32),
     )
+
+
+def make_dataset(rng=0, n_train: int = 256, n_val: int = 64, stamp: int = 59, bands: int = 6, **kw) -> dict:
+    """Training and validation pairs for both stages of ``train_deblender``,
+    in the reference's layout: stage 1 ("vae") maps noisy isolated stamps
+    to clean ones, stage 2 ("deblender") noisy blends to the clean isolated
+    galaxy.  ``rng``: a ``numpy.random.Generator`` or a seed for one; the
+    training set is drawn before the validation set.  Returns
+    ``{"vae": ((x, y), (x_val, y_val)), "deblender": (...)}``, float32."""
+    rng = np.random.default_rng(rng)
+    btr, itr, ctr = simulate_batch(rng, n_train, stamp, bands, **kw)
+    bva, iva, cva = simulate_batch(rng, n_val, stamp, bands, **kw)
+    return {"vae": ((itr, ctr), (iva, cva)), "deblender": ((btr, ctr), (bva, cva))}

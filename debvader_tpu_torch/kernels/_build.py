@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load", "launcher", "call", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load", "launcher", "call", "check", "build_host_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,6 +43,34 @@ FMAD_SOURCES = frozenset({"decoder_tail"})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _launchers: dict = {}
+
+
+def build_host_library(source: Path, stem: str, flags: tuple, cxx: str, build_dir: Path) -> Path:
+    """A host C++ library (``csrc/segmerge.cpp``, ``csrc/dataloader.cpp``)
+    compiled by ``cxx`` with ``flags`` into ``build_dir`` as
+    ``<stem>-<hash of source and flags>.so``, unless it is there already;
+    raises RuntimeError when the compiler is missing or fails, with its
+    output.  There is no fallback."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    out = Path(build_dir) / f"{stem}-{digest}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [cxx, *flags, str(source), "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"building csrc/{source.name} failed: {' '.join(cmd)}: {exc}") from exc
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building csrc/{source.name} failed ({' '.join(cmd)}, exit {proc.returncode}):\n{proc.stderr}"
+        )
+    # several processes may build at once: each writes its own file, the
+    # rename is atomic
+    os.replace(tmp, out)
+    return out
 
 
 def nvcc_path() -> str:

@@ -22,14 +22,11 @@ when the module is imported.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-from debvader_tpu_torch.kernels._build import BUILD_DIR, CSRC
+from debvader_tpu_torch.kernels._build import BUILD_DIR, CSRC, build_host_library
 
 __all__ = ["CXX_FLAGS", "build", "merge_segments", "lutz_deblend"]
 
@@ -42,34 +39,11 @@ CXX = "g++"
 _lib: ctypes.CDLL | None = None
 
 
-def _lib_path(build_dir: Path) -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return build_dir / f"libsegmerge-{digest}.so"
-
-
 def build() -> Path:
     """The library's path, compiled by ``CXX`` into ``BUILD_DIR`` unless it
     is there already; raises RuntimeError when the compiler is missing or
     fails, with its output."""
-    out = _lib_path(Path(BUILD_DIR))
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as exc:
-        raise RuntimeError(f"building csrc/segmerge.cpp failed: {' '.join(cmd)}: {exc}") from exc
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building csrc/segmerge.cpp failed ({' '.join(cmd)}, exit {proc.returncode}):\n{proc.stderr}"
-        )
-    # several processes may build at once: each writes its own file, the
-    # rename is atomic
-    os.replace(tmp, out)
-    return out
+    return build_host_library(SOURCE, "libsegmerge", CXX_FLAGS, CXX, Path(BUILD_DIR))
 
 
 def _load() -> ctypes.CDLL:

@@ -1,5 +1,7 @@
 """The VAE's distributions in PyTorch: the MVN-TriL latent posterior and the
-per-pixel Normal decoder head, with TFP's ``fill_triangular`` order."""
+per-pixel Normal decoder head, with TFP's ``fill_triangular`` order, their
+log densities and the analytic KL of the posterior to N(0, I) (the
+training losses, training/losses.py)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ __all__ = [
     "softplus_tril",
     "MultivariateNormalTriL",
     "PixelNormal",
+    "kl_mvn_tril_standard_normal",
 ]
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 def tril_size(n: int) -> int:
@@ -96,6 +101,34 @@ class MultivariateNormalTriL(NamedTuple):
     def stddev(self) -> torch.Tensor:
         return torch.sqrt(torch.sum(torch.square(self.scale_tril), dim=-1))
 
+    @property
+    def event_dim(self) -> int:
+        return self.loc.shape[-1]
+
+    def log_prob(self, z: torch.Tensor) -> torch.Tensor:
+        """log N(z; loc, L L^T): a triangular solve for L^-1 (z - loc)."""
+        n = self.event_dim
+        diff = z - self.loc
+        batch = torch.broadcast_shapes(diff.shape[:-1], self.scale_tril.shape[:-2])
+        tril = self.scale_tril.expand(batch + (n, n))
+        diff = diff.expand(batch + (n,))
+        sol = torch.linalg.solve_triangular(tril, diff[..., None], upper=False)[..., 0]
+        half_log_det = torch.sum(torch.log(torch.diagonal(self.scale_tril, dim1=-2, dim2=-1)), dim=-1)
+        return -0.5 * torch.sum(torch.square(sol), dim=-1) - half_log_det - 0.5 * n * _LOG_2PI
+
+    def kl_to_standard_normal(self) -> torch.Tensor:
+        return kl_mvn_tril_standard_normal(self.loc, self.scale_tril)
+
+
+def kl_mvn_tril_standard_normal(loc: torch.Tensor, scale_tril: torch.Tensor) -> torch.Tensor:
+    """Analytic KL(N(loc, L L^T) || N(0, I)) over the leading axes:
+    0.5 (tr(L L^T) + |loc|^2 - n) - sum(log diag L)."""
+    n = loc.shape[-1]
+    tr = torch.sum(torch.square(scale_tril), dim=(-2, -1))
+    sq = torch.sum(torch.square(loc), dim=-1)
+    log_det = torch.sum(torch.log(torch.diagonal(scale_tril, dim1=-2, dim2=-1)), dim=-1)
+    return 0.5 * (tr + sq - n) - log_det
+
 
 class PixelNormal(NamedTuple):
     """Per-pixel independent Normal over (..., H, W, bands)."""
@@ -108,3 +141,7 @@ class PixelNormal(NamedTuple):
 
     def stddev(self) -> torch.Tensor:
         return self.scale
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        z = (x - self.loc) / self.scale
+        return -0.5 * torch.square(z) - torch.log(self.scale) - 0.5 * _LOG_2PI

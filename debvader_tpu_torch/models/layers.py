@@ -8,7 +8,9 @@
   from the top/left to ``in * stride``.
 - ``PReLU``: Keras-default per-element alpha, shaped like the activation
   without the batch axis (e.g. (32, 59, 59) here for a (59, 59, 32) map).
-- ``BatchNormInference``: Keras BatchNorm at inference, eps 1e-3.
+- ``BatchNorm``: Keras BatchNorm, eps 1e-3, in inference mode (the
+  running statistics) or in flax's train mode (the batch's statistics,
+  the running ones updated with momentum 0.99).
 - ``Dense``: kernel kept in the (in, out) layout of the checkpoint.
 
 ``Conv2dSame``, ``ConvTranspose2dTF`` and ``Dense`` take an optional
@@ -31,7 +33,7 @@ __all__ = [
     "Conv2dSame",
     "ConvTranspose2dTF",
     "PReLU",
-    "BatchNormInference",
+    "BatchNorm",
     "Dense",
 ]
 
@@ -103,32 +105,59 @@ class ConvTranspose2dTF(nn.Module):
 
 
 class PReLU(nn.Module):
-    """max(x, 0) + alpha * min(x, 0) with a per-element alpha."""
+    """max(x, 0) + alpha * min(x, 0) with a per-element alpha.
+
+    ``torch.maximum`` / ``torch.minimum`` split the gradient of a tie
+    evenly, as ``jnp.maximum`` / ``jnp.minimum`` do; ``torch.clamp`` passes
+    all of it.  Ties are common in training: a PReLU whose alpha is 0 (the
+    initial value) outputs exact zeros, which the next PReLU (the encoder's
+    flatten PReLU) receives."""
 
     def __init__(self, shape):
         super().__init__()
         self.alpha = nn.Parameter(torch.zeros(tuple(shape)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.clamp(x, min=0) + self.alpha * torch.clamp(x, max=0)
+        zero = x.new_zeros(())
+        return torch.maximum(x, zero) + self.alpha * torch.minimum(x, zero)
 
 
-class BatchNormInference(nn.Module):
+class BatchNorm(nn.Module):
     """(x - mean) * (rsqrt(var + eps) * scale) + bias over channel axis 1,
-    in the order flax applies it."""
+    in the order flax applies it.
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    ``train=False`` normalises with the running statistics.  ``train=True``
+    is flax 0.12's train mode (``_compute_stats``): the batch's mean and
+    its fast, biased variance E[x^2] - E[x]^2 clipped at 0, taken over
+    every axis but the channel's, normalise the batch, and the running
+    statistics move to ``momentum * running + (1 - momentum) * batch``.
+    ``torch.nn.BatchNorm2d`` keeps an unbiased running variance instead.
+    The gradient flows through the batch statistics (autograd); the
+    running update is outside the graph and happens whatever the optimizer
+    freezes, as flax's ``mutable=["batch_stats"]`` does."""
+
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        return (x - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        if train:
+            axes = (0,) + tuple(range(2, x.ndim))
+            mean = x.mean(dim=axes)
+            var = torch.clamp(torch.square(x).mean(dim=axes) - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class Dense(nn.Module):

@@ -16,6 +16,14 @@ NCHW.  Flatten and Reshape go through NHWC order so the Dense kernels of
 the checkpoint line up.  Parameters and buffers: 8,318,452 for the default
 configuration.
 
+``init_vae`` draws a fresh model with the JAX package's initializers
+(flax's, not torch's): lecun_normal (truncated normal) for the conv and
+dense kernels, glorot_uniform with the TF (kh, kw, out, in) fans for the
+transposed convs, zeros for biases and PReLU alphas, BatchNorm scale 1,
+bias 0, running mean 0 and variance 1.  The numbers come from a
+``torch.Generator``; they cannot be threefry's, so a fresh port model and a
+fresh JAX model agree in distribution only.
+
 Every conv, transposed conv and dense layer gets its precision scheme from
 ``models.precision.resolve(cfg, key)``, the keys in application order
 ('enc/Conv_i', 'enc/Dense_0', 'dec/Dense_0', 'dec/Dense_1', 'dec/ConvT_i',
@@ -41,7 +49,7 @@ from debvader_tpu_torch.models.distributions import (
     softplus_tril,
 )
 from debvader_tpu_torch.models.layers import (
-    BatchNormInference,
+    BatchNorm,
     Conv2dSame,
     ConvTranspose2dTF,
     Dense,
@@ -49,7 +57,15 @@ from debvader_tpu_torch.models.layers import (
 )
 from debvader_tpu_torch.models.precision import resolve
 
-__all__ = ["Encoder", "Decoder", "DeblenderVAE"]
+__all__ = [
+    "Encoder",
+    "Decoder",
+    "DeblenderVAE",
+    "create_model_vae",
+    "create_encoder",
+    "create_decoder",
+    "init_vae",
+]
 
 
 class Encoder(nn.Module):
@@ -57,7 +73,7 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.bn = BatchNormInference(cfg.nb_of_bands)
+        self.bn = BatchNorm(cfg.nb_of_bands)
         convs, prelus = [], []
         cin, size = cfg.nb_of_bands, cfg.stamp_size
         for f, k in zip(cfg.filters, cfg.kernels):
@@ -75,8 +91,8 @@ class Encoder(nn.Module):
             flat, mvn_params_size(cfg.latent_dim), scheme=resolve(cfg, "enc/Dense_0")[1]
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.bn(x.permute(0, 3, 1, 2))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.bn(x.permute(0, 3, 1, 2), train=train)
         for conv, act in zip(self.convs, self.prelus):
             h = act(conv(h))
         # row-major (H, W, C) flatten == Keras Flatten on channels-last
@@ -161,9 +177,11 @@ class DeblenderVAE(nn.Module):
             )
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def encode(self, x: torch.Tensor) -> MultivariateNormalTriL:
+    def encode(self, x: torch.Tensor, train: bool = False) -> MultivariateNormalTriL:
+        """The posterior; ``train=True`` runs the input BatchNorm in train
+        mode (batch statistics, running statistics updated)."""
         loc, tril = softplus_tril(
-            self.encoder(x), self.cfg.latent_dim, self.cfg.diag_shift
+            self.encoder(x, train=train), self.cfg.latent_dim, self.cfg.diag_shift
         )
         return MultivariateNormalTriL(loc, tril)
 
@@ -185,3 +203,66 @@ class DeblenderVAE(nn.Module):
         else:
             raise ValueError(f"unknown z_mode {z_mode!r}")
         return self.decode(z), posterior
+
+
+def create_model_vae(cfg: ModelConfig | None = None) -> DeblenderVAE:
+    """The VAE module (reference create_model_vae); its parameters are
+    zeros until ``init_vae`` or a state dict fills them."""
+    return DeblenderVAE(cfg or ModelConfig())
+
+
+def create_encoder(cfg: ModelConfig | None = None) -> Encoder:
+    """The encoder alone: x -> flat MVN params; ``softplus_tril`` of its
+    output gives the posterior."""
+    return Encoder(cfg or ModelConfig())
+
+
+def create_decoder(cfg: ModelConfig | None = None) -> Decoder:
+    """The decoder alone: z -> PixelNormal over stamps."""
+    return Decoder(cfg or ModelConfig())
+
+
+# flax's lecun_normal: a normal truncated at 2 standard deviations, its
+# scale raised by this factor so that the truncated variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def init_vae(model: nn.Module, generator: torch.Generator | int | None = None) -> nn.Module:
+    """Fill ``model`` (a DeblenderVAE, Encoder or Decoder) with fresh
+    parameters drawn as the JAX package's ``init_vae`` draws them, from
+    ``generator`` (a CPU ``torch.Generator`` or a seed; default seed 0), in
+    place; returns the model.  The draws are made on the CPU and copied to
+    the model's device, so a seed gives the same model on every device."""
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator().manual_seed(0 if generator is None else int(generator))
+    def draw(param, fill, *args):
+        w = torch.empty(param.shape)
+        fill(w, *args)
+        param.copy_(w)
+
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, Conv2dSame):  # (out, in, kh, kw)
+                draw(module.weight, _lecun_normal_, module.weight[0].numel(), generator)
+            elif isinstance(module, Dense):  # (in, out)
+                draw(module.kernel, _lecun_normal_, module.kernel.shape[0], generator)
+            elif isinstance(module, ConvTranspose2dTF):
+                # (in, out, kh, kw) is TF's (kh, kw, out, in): in_axis 3, out_axis 2
+                cin, cout, kh, kw = module.weight.shape
+                limit = math.sqrt(6.0 / (kh * kw * (cin + cout)))
+                draw(module.weight, lambda w: w.uniform_(-limit, limit, generator=generator))
+            elif isinstance(module, PReLU):
+                module.alpha.zero_()
+            elif isinstance(module, BatchNorm):
+                module.scale.fill_(1.0)
+                module.bias.zero_()
+                module.mean.zero_()
+                module.var.fill_(1.0)
+            if isinstance(module, (Conv2dSame, Dense, ConvTranspose2dTF)):
+                module.bias.zero_()
+    return model

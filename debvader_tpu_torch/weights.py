@@ -1,10 +1,14 @@
 """Weights: the flax variable tree of debvader_tpu mapped onto the port's
 modules, and the packaged ``sim_demo`` deblender.
 
-The packaged weights live in ``data/weights/<survey>.npz``, one array per
-flax key path ("params/encoder/Conv_0/kernel", "batch_stats/...").
-``scripts/convert_sim_demo_to_torch.py`` writes that file from the JAX
-package's checkpoint.
+The port's weights format is the flax tree's flat key-path dict in an npz,
+one array per path ("params/encoder/Conv_0/kernel", "batch_stats/...").
+The packaged weights are ``data/weights/<survey>.npz``
+(``scripts/convert_sim_demo_to_torch.py`` writes them from the JAX
+package's checkpoint); training writes the same format
+(training/checkpoint.py) under ``<weights_dir>/<survey>/.../ckpt.npz``.
+``state_dict_from_flax`` and ``flax_from_state_dict`` map between that
+dict and the port's state dict, exactly, both ways.
 """
 
 from __future__ import annotations
@@ -16,14 +20,16 @@ import numpy as np
 import torch
 
 from debvader_tpu_torch.config import ModelConfig
-from debvader_tpu_torch.device import resolve_device
+from debvader_tpu_torch.device import fp32_math, resolve_device
 from debvader_tpu_torch.models.vae import DeblenderVAE
 
 __all__ = [
     "default_weights_dir",
     "flatten_flax",
     "state_dict_from_flax",
+    "flax_from_state_dict",
     "load_flax_npz",
+    "weights_file",
     "load_deblender",
 ]
 
@@ -55,47 +61,68 @@ def _alpha(alpha: np.ndarray) -> np.ndarray:
     return np.transpose(alpha, (2, 0, 1)) if alpha.ndim == 3 else alpha
 
 
+def _flax_names(cfg: ModelConfig) -> dict[str, tuple[str, object]]:
+    """state-dict key -> (flax path, layout: None, "conv" or "alpha")."""
+    n = 2 * len(cfg.filters)
+    names = {
+        "encoder.bn.mean": ("batch_stats/encoder/BatchNorm_0/mean", None),
+        "encoder.bn.var": ("batch_stats/encoder/BatchNorm_0/var", None),
+        "encoder.bn.scale": ("params/encoder/BatchNorm_0/scale", None),
+        "encoder.bn.bias": ("params/encoder/BatchNorm_0/bias", None),
+        "encoder.flat_prelu.alpha": (f"params/encoder/PReLU_{n}/alpha", None),
+        "encoder.dense.kernel": ("params/encoder/Dense_0/kernel", None),
+        "encoder.dense.bias": ("params/encoder/Dense_0/bias", None),
+        "decoder.prelu_in.alpha": ("params/decoder/PReLU_0/alpha", None),
+        "decoder.dense0.kernel": ("params/decoder/Dense_0/kernel", None),
+        "decoder.dense0.bias": ("params/decoder/Dense_0/bias", None),
+        "decoder.prelu0.alpha": ("params/decoder/PReLU_1/alpha", None),
+        "decoder.dense1.kernel": ("params/decoder/Dense_1/kernel", None),
+        "decoder.dense1.bias": ("params/decoder/Dense_1/bias", None),
+        "decoder.prelu1.alpha": ("params/decoder/PReLU_2/alpha", None),
+        "decoder.head.weight": ("params/decoder/Conv_0/kernel", "conv"),
+        "decoder.head.bias": ("params/decoder/Conv_0/bias", None),
+    }
+    for i in range(n):
+        enc, dec = f"params/encoder/Conv_{i}", f"params/decoder/ConvTranspose2DTF_{i}"
+        names[f"encoder.convs.{i}.weight"] = (f"{enc}/kernel", "conv")
+        names[f"encoder.convs.{i}.bias"] = (f"{enc}/bias", None)
+        names[f"encoder.prelus.{i}.alpha"] = (f"params/encoder/PReLU_{i}/alpha", "alpha")
+        names[f"decoder.convts.{i}.weight"] = (f"{dec}/kernel", "conv")
+        names[f"decoder.convts.{i}.bias"] = (f"{dec}/bias", None)
+        names[f"decoder.prelus.{i}.alpha"] = (f"params/decoder/PReLU_{i + 3}/alpha", "alpha")
+    names["flux_cal_scale"] = ("flux_cal/scale", None)
+    return names
+
+
+def flax_from_state_dict(sd: dict, cfg: ModelConfig | None = None) -> dict[str, np.ndarray]:
+    """The flat flax key-path dict of the port's state dict (parameters,
+    BatchNorm statistics and a flux calibration, if any): the inverse of
+    :func:`state_dict_from_flax`, what ``load_flax_npz`` reads back."""
+    out = {}
+    for key, (path, layout) in _flax_names(cfg or ModelConfig()).items():
+        if key not in sd or sd[key] is None:
+            continue
+        a = sd[key].detach().cpu().numpy().astype(np.float32)
+        if layout == "conv":
+            a = np.transpose(a, (2, 3, 1, 0))
+        elif layout == "alpha" and a.ndim == 3:
+            a = np.transpose(a, (1, 2, 0))
+        out[path] = np.ascontiguousarray(a)
+    return out
+
+
 def state_dict_from_flax(flat: dict, cfg: ModelConfig | None = None) -> dict:
     """The port's state dict from a flax variable tree given as its flat
     key-path dict (:func:`flatten_flax` of what the JAX package's
     ``load_deblender`` or ``init_vae`` return, or a packaged npz).  A
     ``flux_cal/scale`` entry (the JAX package's calibration collection)
     comes across as the buffer ``flux_cal_scale``."""
-    cfg = cfg or ModelConfig()
-
-    def get(path):
-        return flat[path]
-
-    n = 2 * len(cfg.filters)
+    layouts = {"conv": _conv, "alpha": _alpha, None: lambda a: a}
     sd = {
-        "encoder.bn.mean": get("batch_stats/encoder/BatchNorm_0/mean"),
-        "encoder.bn.var": get("batch_stats/encoder/BatchNorm_0/var"),
-        "encoder.bn.scale": get("params/encoder/BatchNorm_0/scale"),
-        "encoder.bn.bias": get("params/encoder/BatchNorm_0/bias"),
-        "encoder.flat_prelu.alpha": get(f"params/encoder/PReLU_{n}/alpha"),
-        "encoder.dense.kernel": get("params/encoder/Dense_0/kernel"),
-        "encoder.dense.bias": get("params/encoder/Dense_0/bias"),
-        "decoder.prelu_in.alpha": get("params/decoder/PReLU_0/alpha"),
-        "decoder.dense0.kernel": get("params/decoder/Dense_0/kernel"),
-        "decoder.dense0.bias": get("params/decoder/Dense_0/bias"),
-        "decoder.prelu0.alpha": get("params/decoder/PReLU_1/alpha"),
-        "decoder.dense1.kernel": get("params/decoder/Dense_1/kernel"),
-        "decoder.dense1.bias": get("params/decoder/Dense_1/bias"),
-        "decoder.prelu1.alpha": get("params/decoder/PReLU_2/alpha"),
-        "decoder.head.weight": _conv(get("params/decoder/Conv_0/kernel")),
-        "decoder.head.bias": get("params/decoder/Conv_0/bias"),
+        key: layouts[layout](np.asarray(flat[path]))
+        for key, (path, layout) in _flax_names(cfg or ModelConfig()).items()
+        if path in flat
     }
-    for i in range(n):
-        enc = f"params/encoder/Conv_{i}"
-        sd[f"encoder.convs.{i}.weight"] = _conv(get(f"{enc}/kernel"))
-        sd[f"encoder.convs.{i}.bias"] = get(f"{enc}/bias")
-        sd[f"encoder.prelus.{i}.alpha"] = _alpha(get(f"params/encoder/PReLU_{i}/alpha"))
-        dec = f"params/decoder/ConvTranspose2DTF_{i}"
-        sd[f"decoder.convts.{i}.weight"] = _conv(get(f"{dec}/kernel"))
-        sd[f"decoder.convts.{i}.bias"] = get(f"{dec}/bias")
-        sd[f"decoder.prelus.{i}.alpha"] = _alpha(get(f"params/decoder/PReLU_{i + 3}/alpha"))
-    if "flux_cal/scale" in flat:
-        sd["flux_cal_scale"] = get("flux_cal/scale")
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
 
 
@@ -105,6 +132,23 @@ def load_flax_npz(path) -> dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
+def weights_file(survey: str, weights_dir=None) -> Path:
+    """The weights file of ``survey`` under ``weights_dir`` (default: the
+    packaged ``data/weights``): the newest ``ckpt.npz`` below
+    ``<weights_dir>/<survey>/`` that training wrote (on equal times the
+    ``val_loss`` monitor's, then the first path, as the JAX package's
+    ``load_weights`` orders its checkpoints), else ``<weights_dir>/<survey>.npz``."""
+    base = Path(weights_dir or default_weights_dir())
+    survey_dir = base / survey
+    found = sorted(survey_dir.rglob("ckpt.npz")) if survey_dir.is_dir() else []
+    if found:
+        return min(found, key=lambda p: (-p.stat().st_mtime, p.parent.name != "val_loss", str(p)))
+    path = base / f"{survey}.npz"
+    if not path.exists():
+        raise FileNotFoundError(f"no weights for survey {survey!r} under {base}")
+    return path
+
+
 def load_deblender(
     survey: str = "sim_demo",
     device="cuda",
@@ -112,19 +156,23 @@ def load_deblender(
     cfg: ModelConfig | None = None,
     matmul_precision: str | None = None,
     flux_calibration: bool = False,
-) -> DeblenderVAE:
-    """The packaged deblender for ``survey``, in eval mode on ``device``.
+    return_encoder_decoder_z: bool = False,
+):
+    """The deblender for ``survey`` (its weights file, :func:`weights_file`),
+    in eval mode on ``device``.
 
     ``cfg`` selects the precision configuration (the packaged weights have
     the default architecture); ``matmul_precision`` overrides its rung.
     ``flux_calibration=True`` measures the built model's per-band flux gain
     against its own 'highest'-rung forward on ``device`` and attaches the
     correction (utils/flux_cal.py): the fidelity serving mode is
-    ``cfg=fidelity_serving_config(), flux_calibration=True``."""
+    ``cfg=fidelity_serving_config(), flux_calibration=True``.
+    ``return_encoder_decoder_z=True`` returns (model, encode, decode) as the
+    JAX package's form does: ``encode(x)`` gives the posterior of (N, S, S,
+    B) stamps, ``decode(z)`` the PixelNormal of latents, tensors on
+    ``device``, without autograd and with TF32 off."""
     dev = resolve_device(device)
-    path = Path(weights_dir or default_weights_dir()) / f"{survey}.npz"
-    if not path.exists():
-        raise FileNotFoundError(f"no weights for survey {survey!r} at {path}")
+    path = weights_file(survey, weights_dir)
     cfg = cfg or ModelConfig()
     if matmul_precision is not None:
         cfg = dataclasses.replace(cfg, matmul_precision=matmul_precision)
@@ -135,4 +183,14 @@ def load_deblender(
         from debvader_tpu_torch.utils.flux_cal import attach_flux_calibration
 
         attach_flux_calibration(model)
+    if return_encoder_decoder_z:
+        def encode(x):
+            with torch.no_grad(), fp32_math():
+                return model.encode(x)
+
+        def decode(z):
+            with torch.no_grad(), fp32_math():
+                return model.decode(z)
+
+        return model, encode, decode
     return model

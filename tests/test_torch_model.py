@@ -171,6 +171,8 @@ def test_import_pulls_in_no_jax_or_reference_package():
         from debvader_tpu_torch.data import simulate
         from debvader_tpu_torch.ops import measure
         from debvader_tpu_torch.utils import flux_cal, profiling
+        from debvader_tpu_torch.training import checkpoint, losses, train, transfer
+        from debvader_tpu_torch.runtime import loader
         net = dtt.DeblenderVAE(dtt.ModelConfig(stamp_size=23, nb_of_bands=3, latent_dim=4,
                                                filters=(8, 16), kernels=(3, 3)))
         dtt.deblend(net, np.zeros((1, 23, 23, 3), np.float32), z_mode="mean", device="cpu")
@@ -190,8 +192,14 @@ def test_import_pulls_in_no_jax_or_reference_package():
                                cfg=dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1,
                                                       epistemic_samples=2), device="cpu")
         edf.deblend_and_predict(np.zeros((1, 2), np.float32))
+        tiny = dtt.ModelConfig(stamp_size=23, nb_of_bands=3, latent_dim=4, filters=(4, 8), kernels=(3, 3))
+        state = train.create_train_state(dtt.DeblenderVAE(tiny), dtt.TrainConfig(batch_size=2), device="cpu")
+        x = np.zeros((2, 23, 23, 3), np.float32)
+        train.train_network(dtt.DeblenderVAE(tiny), state, 1, (x, x), (x, x), 2, verbose=0,
+                            metrics_log=profiling.MetricsLog())
+        transfer.transfer_band_count(state.variables(), tiny)
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "pandas")
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
                or m == "debvader_tpu" or m.startswith("debvader_tpu.")]
         print(bad)
         """
