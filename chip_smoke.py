@@ -122,7 +122,23 @@ without printing its last line):
    checkpoint reloaded through load_deblender), two seeded 10-step runs
    bit-identical, the native loader's batches equal to the .npy source's,
    and the median warm step time at batch 5 and 64 (the training line);
-19. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+19. int8 quantized serving with the packaged sim_demo_int8 bundle: the
+   two kernels of csrc/int8_conv.cu (the activation quantizer and the
+   implicit-GEMM s8 x s8 -> s32 convolution) on each of the 18 int8 layers
+   at a 128-stamp chunk of the record-array batch's real activations, bit
+   for bit against their plain versions (int8 activations, raw int32,
+   dequantized float32), timed with their bounds, the plain versions,
+   torch._int_mm over an im2col and the float32 cuDNN layer (the
+   int8_layer_groups line, one line a layer after it); a batch of 1, the
+   ragged 295-source batch, all-(+-127) operands and per-tensor scales;
+   then DeblendField(quantized=load_quantized('sim_demo_int8'),
+   z_mode='mean') on the 1024^2 field, both routes in 128-source chunks
+   with the launches counted from 0, two runs bit-identical, the routes
+   against each other, the total-flux error against the float forward on
+   64 simulated stamps, warm deblend_and_render int8 and float32 in turns,
+   a chunk's peak memory, the 256^2 crop card against CPU, and one
+   qat_finetune step at batch 32 card against CPU (the quantized line);
+20. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 Phase 4's default-threshold detection also times the native segment merge
@@ -279,6 +295,7 @@ def check_kernels(torch, field_r: np.ndarray) -> list[dict]:
 
     from debvader_tpu_torch.kernels import clipped_stats as cs
     from debvader_tpu_torch.kernels import detect_fused as df
+    from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.kernels import label_select as ls
     from debvader_tpu_torch.ops.detection import default_filter_kernel, estimate_background
 
@@ -889,6 +906,7 @@ def chain_route_launches(torch, field_r: np.ndarray) -> dict:
     from debvader_tpu_torch.config import DetectionConfig
     from debvader_tpu_torch.kernels import clipped_stats as cs
     from debvader_tpu_torch.kernels import detect_fused as df
+    from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.kernels import label_select as ls
     from debvader_tpu_torch.kernels import matched_filter as mf
     from debvader_tpu_torch.kernels import parent_race as pr
@@ -1937,6 +1955,7 @@ def stack_kernel_times(torch, band, tile: int, overlap: int) -> dict:
     from debvader_tpu_torch.config import DetectionConfig
     from debvader_tpu_torch.kernels import clipped_stats as cs
     from debvader_tpu_torch.kernels import detect_fused as df
+    from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.kernels import label_select as ls
     from debvader_tpu_torch.kernels import render as rd
     from debvader_tpu_torch.ops import detection as td
@@ -2502,6 +2521,459 @@ def run_training(torch) -> dict:
     return out
 
 
+# ------------------------------------------------ int8 quantized serving
+
+# Phase 19: the packaged int8 bundle (sim_demo_int8, 18 int8 layers with
+# per-channel activation scales) on the smoke's field.  Dense int8 rate of
+# the tensor cores (NVIDIA data sheet, SXM).
+PEAK_INT8_OPS_PER_S = 1979e12
+QUANT_CHUNK = 128
+# JAX's envelope of the packaged bundle's total-flux error against the
+# float sim_demo forward (tests/test_quantized.py:381)
+QUANT_FLUX_MEAN_MAX = 5e-2
+# One qat_finetune step, card against CPU.  The fake-quant forward rounds
+# activations to the int8 grid, so a float32 difference at a rounding
+# boundary moves an activation by a whole step, and the card's gradient
+# differs from the CPU's by more than summation order.  So the card's
+# distillation loss and gradients are also taken on the CPU's grid points
+# and clip masks (pinned): then only the float32 summation order differs,
+# and the loss and every gradient leaf (relative to its largest magnitude)
+# are held to the first two limits, three times the readings on an H100
+# (loss 6.3e-6, worst leaf 9.0e-5).  The card on its own grid is held to
+# the next two, set from the readings there (loss 3.3e-4, worst leaf
+# 8.7e-3, 72 of 21 M activations on another grid point).  The parameters
+# that Adam's first step moves differently (by more than lr) are held to
+# the last share.
+QAT_PINNED_LOSS_RTOL = 2e-5
+QAT_PINNED_LEAF_TOL = 3e-4
+QAT_LOSS_RTOL = 1e-3
+QAT_LEAF_TOL = 3e-2
+QAT_MOVED_MAX_SHARE = 1e-2
+QAT_LR = 2e-5
+
+
+def int8_layer_inputs(torch, qv, stamps) -> dict:
+    """{name: float32 input activation} of each int8 layer in one int8
+    forward of ``stamps`` (N, 59, 59, 6) on the bundle's device, caught at
+    the quantization points, in forward order."""
+    from debvader_tpu_torch.models import quantized as tq
+
+    caught = {}
+    orig = tq._quant_point
+
+    def catch(h, name, module, qw, *rest):
+        if qw is not None and name in qw:
+            caught[name] = h.detach().clone()
+        return orig(h, name, module, qw, *rest)
+
+    tq._quant_point = catch
+    try:
+        tq.quantized_forward(qv, stamps, z_mode="mean")
+    finally:
+        tq._quant_point = orig
+    return caught
+
+
+def int8_needed_macs(ic, q, layer) -> int:
+    """The multiply-adds the layer needs on q: every tap that reads an
+    input pixel (the padding taps of a conv and the non-integral taps of a
+    transposed conv read none)."""
+    n, h, w, cin, ho, wo, top, left = ic._geometry(q, layer)
+    k, s = layer.ksize, layer.stride
+
+    def taps(size_out, size_in, pad):
+        o = np.arange(size_out)[:, None]
+        kk = np.arange(k)[None, :]
+        if layer.kind == "conv":
+            i = o * s - pad + kk
+            return int(((i >= 0) & (i < size_in)).sum())
+        t = o + pad - kk
+        return int(((t >= 0) & (t % s == 0) & (t // s < size_in)).sum())
+
+    if layer.kind == "dense":
+        return n * cin * layer.cout
+    return n * taps(ho, h, top) * taps(wo, w, left) * cin * layer.cout
+
+
+def int8_im2col(torch, ic, q, layer):
+    """(A, B) for torch._int_mm: A the (M, K8) int8 im2col of q in the
+    layer's (ky, kx, ci) order, zeros where no input pixel is read, B the
+    (K8, Cout) kernel, K zero-padded to a multiple of 8."""
+    import torch.nn.functional as F
+
+    n, h, w, cin, ho, wo, top, left = ic._geometry(q, layer)
+    k, s = layer.ksize, layer.stride
+    if layer.kind == "dense":
+        a = q
+    else:
+        dev = q.device
+
+        def index(size_out, size_in, pad):
+            o = torch.arange(size_out, device=dev)[:, None]
+            kk = torch.arange(k, device=dev)[None, :]
+            if layer.kind == "conv":
+                i = o * s - pad + kk
+                ok = (i >= 0) & (i < size_in)
+            else:
+                t = o + pad - kk
+                ok = (t >= 0) & (t % s == 0) & (t // s < size_in)
+                i = t // s
+            return i.clamp(0, size_in - 1), ok
+
+        iy, oky = index(ho, h, top)
+        ix, okx = index(wo, w, left)
+        g = q[:, iy[:, None, :, None], ix[None, :, None, :], :]
+        ok = (oky[:, None, :, None] & okx[None, :, None, :])[None, ..., None]
+        a = torch.where(ok, g, torch.zeros((), dtype=q.dtype, device=dev)).reshape(n * ho * wo, k * k * cin)
+    kdim = a.shape[1]
+    k8 = -(-kdim // 8) * 8
+    a = F.pad(a, (0, k8 - kdim)).contiguous()
+    b = F.pad(layer.packed[: layer.cout, :kdim], (0, k8 - kdim)).t()
+    return a, b
+
+
+def check_int8_stamps(torch, ic, qv, stamps, what: str) -> int:
+    """Every int8 layer of the bundle on the inputs of one forward of
+    ``stamps``: the quantized activations, the int32 accumulators and the
+    float32 outputs of the kernels bit for bit their plain versions'."""
+    scales, layers = qv.act_scales, qv.int8_layers()
+    inputs = int8_layer_inputs(torch, qv, stamps)
+    for name, h in inputs.items():
+        layer = layers[name]
+        q = ic.quant_act(h, scales[name])
+        agree = torch.equal(q, ic.quant_act_plain(h, scales[name]))
+        agree &= torch.equal(ic.conv_s8(q, layer, raw=True), ic.conv_s8_plain(q, layer, raw=True))
+        agree &= torch.equal(ic.conv_s8(q, layer).view(torch.int32), ic.conv_s8_plain(q, layer).view(torch.int32))
+        if not agree:
+            raise AssertionError(f"int8 layer {name} ({what}): the kernels differ from their plain versions")
+    return len(inputs)
+
+
+def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
+    """Phase 19, the kernels: csrc/int8_conv.cu's two kernels on each of
+    the 18 int8 layers at a 128-stamp chunk of the field's real
+    activations, bit for bit against their plain versions (quantized
+    activations, raw int32, dequantized float32), timed (CUDA events, the
+    profiler's device time), with the bound, the plain version, torch.
+    _int_mm over an im2col (the library yardstick, checked against the raw
+    accumulators) and the float32 cuDNN layer; then the edge cases: a batch
+    of 1, the ragged 295-source batch, K = 54 (enc/Conv_0), all-(+-127)
+    operands (the largest |acc|) and per-tensor scales."""
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.kernels import int8_conv as ic
+    from debvader_tpu_torch.models import quantized as tq
+
+    dev = torch.device("cuda")
+    scales, layers = qv.act_scales, qv.int8_layers()
+    inputs = int8_layer_inputs(torch, qv, cutouts[:QUANT_CHUNK])
+    rows = []
+    for name, h in inputs.items():
+        layer, s = layers[name], scales[name]
+        q = ic.quant_act(h, s)
+        raw = ic.conv_s8(q, layer, raw=True)
+        y = ic.conv_s8(q, layer)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, ic.quant_act_plain(h, s)) and torch.equal(raw, ic.conv_s8_plain(q, layer, raw=True))
+                and torch.equal(y.view(torch.int32), ic.conv_s8_plain(q, layer).view(torch.int32))):
+            raise AssertionError(f"int8 layer {name}: the kernels differ from their plain versions")
+        macs = int8_needed_macs(ic, q, layer)
+        out_bytes = 4 * y.numel()
+        bytes_conv = q.numel() + layer.qk.numel() + out_bytes + 8 * layer.cout
+        t_conv, by_conv = bound(bytes_conv, 2 * macs, PEAK_INT8_OPS_PER_S)
+        t_quant, by_quant = bound(5 * h.numel(), h.numel())
+        a, b = int8_im2col(torch, ic, q, layer)
+        lib = {"library_ms": None}
+        try:
+            mm = torch._int_mm(a, b)
+            lib = {"library_ms": cuda_ms(torch, lambda: torch._int_mm(a, b)),
+                   "library_max_abs_err": float((mm - (raw if layer.kind == "dense" else raw.permute(0, 2, 3, 1)
+                                                       ).reshape(mm.shape)).abs().max())}
+        except RuntimeError as exc:  # the yardstick only: the port never calls it
+            lib["library_error"] = str(exc).splitlines()[0][:200]
+        module = tq._module(qv.model, name)
+        with fp32_math():
+            cudnn_ms = cuda_ms(torch, lambda: module(h))
+        rows.append({
+            "layer": name, "kind": layer.kind, "stride": layer.stride, "input": list(h.shape),
+            "M": y.numel() // layer.cout, "N": layer.cout, "K": layer.ksize ** 2 * q.shape[-1], "needed_macs": macs,
+            "ms": cuda_ms(torch, lambda: ic.conv_s8(q, layer)),
+            "device_ms": profiled_device_ms(torch, lambda: ic.conv_s8(q, layer), "conv_s8"),
+            "plain_ms": cuda_ms(torch, lambda: ic.conv_s8_plain(q, layer), reps=PLAIN_REPS, warmup=1),
+            "bound_ms": t_conv, "bound_by": by_conv, **lib, "cudnn_f32_ms": cudnn_ms,
+            "quant_ms": cuda_ms(torch, lambda: ic.quant_act(h, s)),
+            "quant_device_ms": profiled_device_ms(torch, lambda: ic.quant_act(h, s), "quant_act"),
+            "quant_plain_ms": cuda_ms(torch, lambda: ic.quant_act_plain(h, s), reps=PLAIN_REPS, warmup=1),
+            "quant_bound_ms": t_quant, "quant_bound_by": by_quant,
+        })
+    cases = {
+        "batch_1": check_int8_stamps(torch, ic, qv, cutouts[:1], "batch of 1"),
+        "ragged_295": check_int8_stamps(torch, ic, qv, cutouts, f"batch of {len(cutouts)}"),
+        "k54": "enc/Conv_0" in inputs and layers["enc/Conv_0"].ksize ** 2 * 6 == 54,
+    }
+    extremes, per_tensor = {}, {}
+    for name, h in inputs.items():
+        layer, s = layers[name], scales[name]
+        # all-(+-127) operands: the largest |acc|, K * 127^2
+        q = torch.full_like(ic.quant_act(h[:2], s), -127)
+        big = ic.make_layer(layer.kind, torch.full_like(layer.qk, 127), torch.ones(layer.cout, device=dev),
+                            torch.ones((), device=dev), torch.zeros(layer.cout, device=dev), layer.stride)
+        raw = ic.conv_s8(q, big, raw=True)
+        if not torch.equal(raw, ic.conv_s8_plain(q, big, raw=True)):
+            raise AssertionError(f"int8 layer {name}: all-(+-127) operands differ from the plain version")
+        extremes[name] = int(raw.abs().max())
+        # per-tensor: one scale for the whole input
+        s0 = s.max()
+        qk, ws = qv.qweights[name]
+        flat = ic.make_layer(layer.kind, qk, ws, s0, layer.bias, layer.stride)
+        q0 = ic.quant_act(h, s0)
+        if not (torch.equal(q0, ic.quant_act_plain(h, s0)) and torch.equal(
+                ic.conv_s8(q0, flat).view(torch.int32), ic.conv_s8_plain(q0, flat).view(torch.int32))):
+            raise AssertionError(f"int8 layer {name}: per-tensor scales differ from the plain version")
+        per_tensor[name] = True
+    cases.update(all_127_max_abs_acc=extremes, per_tensor_scales=per_tensor)
+    groups = {}
+    for r in rows:
+        g = "enc_conv" if r["layer"].startswith("enc/Conv") else "dense" if r["kind"] == "dense" else "dec_convT"
+        groups.setdefault(g, []).append(r)
+    lib_total = None if any(r["library_ms"] is None for r in rows) else sum(r["library_ms"] for r in rows)
+
+    def total(key, rs=rows):
+        vals = [r[key] for r in rs]
+        return None if any(v is None for v in vals) else float(sum(vals))
+
+    summary = {g: {k: total(k, rs) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                              "cudnn_f32_ms")} | {"layers": len(rs)} for g, rs in groups.items()}
+    records = [
+        {"name": "int8_conv", "route": "cuda", "source": "debvader_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "debvader_tpu/models/quantized.py:340 (int8 conv, convT :399, dense :447; XLA, no Pallas "
+                     "kernel)",
+         "max_abs_err": 0.0, "ms": total("ms"), "device_ms": total("device_ms"), "plain_ms": total("plain_ms"),
+         "bound_ms": total("bound_ms"), "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+         else "operations", "library_ms": lib_total, "shape": [QUANT_CHUNK, 59, 59, 6], "layers": len(rows)},
+        {"name": "int8_quant_act", "route": "cuda", "source": "debvader_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "debvader_tpu/models/quantized.py:172 (_quant_act, XLA; no Pallas kernel)",
+         "max_abs_err": 0.0, "ms": total("quant_ms"), "device_ms": total("quant_device_ms"),
+         "plain_ms": total("quant_plain_ms"), "bound_ms": total("quant_bound_ms"), "bound_by": "bytes",
+         "library_ms": None, "shape": [QUANT_CHUNK, 59, 59, 6], "layers": len(rows)},
+    ]
+    return records, {"layers": rows, "groups": summary, "cases": cases}
+
+
+def run_quantized(torch, net, field: np.ndarray, centers: np.ndarray, reset_counts, read_counts) -> dict:
+    """Phase 19, the serving path: load_quantized('sim_demo_int8') on the
+    card, then DeblendField(quantized=qv, z_mode='mean') in 128-source
+    chunks: deblend_field -> get_residual_field and deblend_and_render on
+    the field, the launches counted from 0 just before and read just after;
+    a second deblend_and_render bit-identical; the two routes against each
+    other; the total-flux error against the float sim_demo forward on 64
+    held-out simulated stamps; warm deblend_and_render, int8 and float32 in
+    alternating turns; the peak memory of one 128-stamp forward, int8 and
+    float32; the 256^2 crop on the card against the CPU."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import simulate_batch
+    from debvader_tpu_torch.models import quantized as tq
+
+    out = {}
+    t = time.perf_counter()
+    qv = tq.load_quantized("sim_demo_int8", device="cuda")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t
+    reset_counts()
+    qdf = dt.DeblendField(net, field, z_mode="mean", quantized=qv, cfg=serving_cfg(QUANT_CHUNK), device="cuda")
+    res = qdf.deblend_field(centers)
+    r_residual = qdf.get_residual_field()
+    catalog, residual, model = qdf.deblend_and_render(centers, return_model=True)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts("int8 serving", {"int8_conv": 18, "int8_quant_act": 18, "render": 1})
+    means = np.stack(list(res.output_images_mean))
+    if not (np.isfinite(means).all() and np.isfinite(residual).all() and np.isfinite(r_residual).all()):
+        raise AssertionError("non-finite outputs on the int8 serving path")
+    _, again, _ = qdf.deblend_and_render(centers, return_model=True)
+    if not np.array_equal(again.view(np.int32), residual.view(np.int32)):
+        raise AssertionError("two int8 deblend_and_render runs differ")
+    catalogs_agree(catalog, res)
+    scale = float(np.abs(field).max())
+    routes = float(np.abs(residual - r_residual).max())
+    if routes > 1e-5 * scale:
+        raise AssertionError(f"int8 streaming and record-array residuals differ by {routes}")
+    mask = stamp_mask(field.shape[1], centers[res.list_idx])
+    out.update(sources=int(len(centers)), deblended=int(len(res)), routes_max_abs_err=routes,
+               abs_flux_in_stamps={"field": float(np.abs(field[0][mask]).sum()),
+                                   "residual": float(np.abs(residual[0][mask]).sum())})
+
+    # the total-flux error against the float forward (JAX's envelope)
+    x = simulate_batch(2024, 64)[0]
+    loc_q, _ = tq.make_quantized_forward(qv, z_mode="mean")(torch.as_tensor(x, device="cuda"))
+    loc_f = dt.deblend(net, x, z_mode="mean", device="cuda")[0]
+    fq = loc_q.double().sum(dim=(1, 2, 3)).cpu().numpy()
+    ff = loc_f.astype(np.float64).sum(axis=(1, 2, 3))
+    rel = np.abs(fq - ff) / np.maximum(np.abs(ff), 1e-9)
+    out["flux_rel_err_vs_float"] = {"mean": float(rel.mean()), "max": float(rel.max()), "stamps": 64}
+    if not rel.mean() < QUANT_FLUX_MEAN_MAX:
+        raise AssertionError(f"int8 total-flux error {rel.mean()} against the float forward")
+
+    # warm deblend_and_render, float32 and int8 in turns
+    fdf = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(QUANT_CHUNK), device="cuda")
+    fdf.deblend_and_render(centers)
+    walls = {"float32": [], "int8": []}
+    for _ in range(4):
+        for key, d in (("float32", fdf), ("int8", qdf)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d.deblend_and_render(centers)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t)
+    out["warm_deblend_and_render_s"] = walls
+    out["int8_over_float32"] = float(np.median(walls["int8"]) / np.median(walls["float32"]))
+
+    # the peak memory of one 128-stamp forward, int8 and float32
+    chunk = torch.as_tensor(x[:1].repeat(QUANT_CHUNK, axis=0), device="cuda")
+    peaks = {}
+    for key, fn in (("int8", lambda: tq.make_quantized_forward(qv, z_mode="mean")(chunk)),
+                    ("float32", lambda: dt.api.deblend_tensor(net, chunk, z_mode="mean"))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peaks[key] = int(torch.cuda.max_memory_allocated() - base)
+    out["chunk_peak_bytes"] = peaks
+
+    # the 256^2 crop on the card against the CPU
+    crop = np.ascontiguousarray(field[:, 384:640, 384:640, :])
+    c_centers = dt.detect_objects(crop, dt.DetectionConfig(**DETECTION), device="cpu")
+    qv_cpu = tq.load_quantized("sim_demo_int8", device="cpu")
+    net_cpu = dt.load_deblender("sim_demo", device="cpu")
+    got = {}
+    for dev, q, n in (("cuda", qv, net), ("cpu", qv_cpu, net_cpu)):
+        d = dt.DeblendField(n, crop, z_mode="mean", quantized=q, cfg=serving_cfg(QUANT_CHUNK), device=dev)
+        cat, resid, mdl = d.deblend_and_render(c_centers, return_model=True)
+        got[dev] = (cat, resid, np.asarray(mdl))
+    catalogs_agree(got["cuda"][0], got["cpu"][0])
+    crop_err = {"residual": float(np.abs(got["cuda"][1] - got["cpu"][1]).max()),
+                "model": float(np.abs(got["cuda"][2] - got["cpu"][2]).max()),
+                "model_share_differing": float((got["cuda"][2] != got["cpu"][2]).mean()),
+                "model_max_abs": float(np.abs(got["cpu"][2]).max()), "sources": int(len(c_centers))}
+    out["crop_vs_cpu"] = crop_err
+    if crop_err["model"] > 1e-3 * crop_err["model_max_abs"]:
+        raise AssertionError(f"int8 serving on the crop: card and CPU differ: {crop_err}")
+    return out
+
+
+def run_qat(torch) -> dict:
+    """Phase 19, QAT: one qat_finetune step at batch 32 from the packaged
+    bundle with the sim_demo model as its teacher, card against CPU (the
+    same simulated batch).  The distillation loss and its gradients on the
+    CPU, on the card, and on the card with the CPU's grid points and clip
+    masks (pinned): every one finite; pinned, the loss and each gradient
+    leaf within QAT_PINNED_LOSS_RTOL / QAT_PINNED_LEAF_TOL, with two
+    controls that must fail that check (the gradients halved, the largest
+    leaf zeroed); on the card's own grid within QAT_LOSS_RTOL /
+    QAT_LEAF_TOL, the activations that round to another grid point
+    counted.  The stepped parameters finite on both devices, those moved
+    by more than lr differently held to QAT_MOVED_MAX_SHARE; the step's
+    time."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import simulate_batch
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.models import quantized as tq
+    from debvader_tpu_torch.weights import flax_from_state_dict
+
+    x, y, _ = simulate_batch(7, TRAIN_BATCH)
+    bundles = {dev: (tq.load_quantized("sim_demo_int8", device=dev), dt.load_deblender("sim_demo", device=dev))
+               for dev in ("cpu", "cuda")}
+
+    def loss_and_grads(dev, grid, pinned=False):
+        """The distillation loss and its gradients by leaf on ``dev``; the
+        fake-quant grid points and clip masks are appended to ``grid``, or
+        with ``pinned`` taken from it in order."""
+        qv, teacher = bundles[dev]
+        orig = tq._act_grid
+        if pinned:
+            it = iter(grid)
+            tq._act_grid = lambda hf, s: tuple(t.to(hf.device) for t in next(it))
+        else:
+            tq._act_grid = lambda hf, s: grid.append(orig(hf, s)) or grid[-1]
+        try:
+            xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+            with fp32_math():
+                value, _ = tq._qat_loss(qv.model, teacher, xt, yt, list(qv.qweights), qv.act_scales, "distill", 0.01)
+                g = torch.autograd.grad(value, list(qv.model.parameters()))
+        finally:
+            tq._act_grid = orig
+        names = [k for k, _ in qv.model.named_parameters()]
+        loss, grads = float(value.detach()), {k: v.double().cpu() for k, v in zip(names, g)}
+        if not (np.isfinite(loss) and all(bool(torch.isfinite(v).all()) for v in grads.values())):
+            raise AssertionError(f"qat step: a non-finite loss or gradient on {dev}{' (pinned)' if pinned else ''}")
+        return loss, grads
+
+    def leaf_errors(ga, gb):
+        return {k: float((ga[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30) for k, g in gb.items()}
+
+    grid_cpu, grid_card = [], []
+    loss_cpu, g_cpu = loss_and_grads("cpu", grid_cpu)
+    grid_cpu = [(q.detach().cpu(), m.cpu()) for q, m in grid_cpu]
+    loss_card, g_card = loss_and_grads("cuda", grid_card)
+    flips = [int((a[0].cpu() != b[0]).sum()) for a, b in zip(grid_card, grid_cpu)]
+    elements = int(sum(q.numel() for q, _ in grid_cpu))
+    del grid_card
+    loss_pin, g_pin = loss_and_grads("cuda", grid_cpu, pinned=True)
+
+    def pinned_holds(loss, grads):
+        return (abs(loss / loss_cpu - 1) <= QAT_PINNED_LOSS_RTOL
+                and max(leaf_errors(grads, g_cpu).values()) <= QAT_PINNED_LEAF_TOL)
+
+    pin_err, card_err = leaf_errors(g_pin, g_cpu), leaf_errors(g_card, g_cpu)
+    pin_loss_err, card_loss_err = abs(loss_pin / loss_cpu - 1), abs(loss_card / loss_cpu - 1)
+    if not pinned_holds(loss_pin, g_pin):
+        worst = max(pin_err, key=pin_err.get)
+        raise AssertionError(f"qat step on the CPU's grid: loss {pin_loss_err} relative, gradient of {worst} "
+                             f"{pin_err[worst]} of its scale off the CPU's")
+    largest = max(g_pin, key=lambda k: float(g_pin[k].abs().max()))
+    controls = {"halved": {k: 0.5 * v for k, v in g_pin.items()},
+                "largest_leaf_zeroed": {**g_pin, largest: torch.zeros_like(g_pin[largest])}}
+    for name, grads in controls.items():
+        if pinned_holds(loss_pin, grads):
+            raise AssertionError(f"qat step: the control with the gradients {name} passes the pinned check")
+    if card_loss_err > QAT_LOSS_RTOL or max(card_err.values()) > QAT_LEAF_TOL:
+        worst = max(card_err, key=card_err.get)
+        raise AssertionError(f"qat step on the card's grid: loss {card_loss_err} relative, gradient of {worst} "
+                             f"{card_err[worst]} of its scale off the CPU's ({sum(flips)} grid flips)")
+
+    out, stepped = {}, {}
+    for dev in ("cuda", "cpu"):
+        qv, teacher = bundles[dev]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        new = tq.qat_finetune(qv, steps=1, batch=TRAIN_BATCH, learning_rate=QAT_LR,
+                              make_batch=lambda rng: (x, y), teacher_variables=teacher)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            out["step_s_card"] = time.perf_counter() - t
+        stepped[dev] = flax_from_state_dict(new.model.state_dict(), new.cfg)
+        if not all(np.isfinite(v).all() for v in stepped[dev].values()):
+            raise AssertionError(f"qat step: a non-finite parameter after the step on {dev}")
+        if new.teacher_fingerprint != "a9c76466ebb29188":
+            raise AssertionError(f"qat_finetune: teacher fingerprint {new.teacher_fingerprint}")
+    moved = total = 0
+    for k, v in stepped["cpu"].items():
+        d = np.abs(stepped["cuda"][k] - v)
+        total += d.size
+        moved += int((d > QAT_LR).sum())
+    worst, worst_pin = max(card_err, key=card_err.get), max(pin_err, key=pin_err.get)
+    out.update(loss_card=loss_card, loss_rel_err=card_loss_err, loss_rel_err_pinned=pin_loss_err,
+               fake_quant_grid_flips=flips, fake_quant_elements=elements,
+               grad_worst_leaf=[worst, card_err[worst]], grad_median_leaf=float(np.median(list(card_err.values()))),
+               grad_worst_leaf_pinned=[worst_pin, pin_err[worst_pin]],
+               grad_median_leaf_pinned=float(np.median(list(pin_err.values()))),
+               controls_fail=sorted(controls), moved_more_than_lr=moved, parameters=total)
+    if moved > QAT_MOVED_MAX_SHARE * total:
+        raise AssertionError(f"qat step: {moved} of {total} parameters moved differently on the card")
+    return out
+
+
 def serving_cfg(chunk=128):
     import debvader_tpu_torch as dt
 
@@ -2622,6 +3094,7 @@ def main() -> int:
     from debvader_tpu_torch.kernels import _build
     from debvader_tpu_torch.kernels import clipped_stats as cs
     from debvader_tpu_torch.kernels import detect_fused as df
+    from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.kernels import label_select as ls
     from debvader_tpu_torch.kernels import matched_filter as mf
     from debvader_tpu_torch.kernels import parent_race as pr
@@ -2695,6 +3168,8 @@ def main() -> int:
         "registration": (kr.register_windowed, "launches"),
         "render_bf16": (rd.render_field_kernel, "launches_bf16"),
         "place_bf16": (rd.place_patches, "launches_bf16"),
+        "int8_conv": (ic.conv_s8, "launches"),
+        "int8_quant_act": (ic.quant_act, "launches"),
     }
 
     def reset_counts():
@@ -3002,6 +3477,26 @@ def main() -> int:
         for r in prof["top_device_events"]:
             print(f"  {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['name'][:100]}")
     mark("training")
+    # phase 19: int8 quantized serving: the kernels on the layers' real
+    # activations, the serving path with its launches counted from 0, QAT
+    from debvader_tpu_torch.models import quantized as tq
+
+    qv = tq.load_quantized("sim_demo_int8", device="cuda")
+    int8_recs, int8_layers = check_int8_layers(torch, qv, main_cutouts)
+    records += int8_recs
+    report["int8_layers"] = int8_layers
+    print(json.dumps({"int8_layer_groups": int8_layers["groups"], "int8_cases": int8_layers["cases"]}))
+    for r in int8_layers["layers"]:
+        print(f"  {r['layer']:26s} M {r['M']:7d} N {r['N']:5d} K {r['K']:5d}: {r['ms']:.4f} ms "
+              f"(device {r['device_ms']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms, _int_mm {r['library_ms']}, cuDNN f32 {r['cudnn_f32_ms']:.4f} ms; "
+              f"quant {r['quant_ms']:.4f} ms, bound {r['quant_bound_ms']:.4f} ms")
+    quantized = run_quantized(torch, net, field, centers, reset_counts, read_counts)
+    int8_launches = quantized["launches"]
+    quantized["qat"] = run_qat(torch)
+    report["quantized"] = quantized
+    print(json.dumps({"quantized": quantized}))
+    mark("quantized")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 
@@ -3012,6 +3507,7 @@ def main() -> int:
     counted_on.update(dict.fromkeys(("matched_filter", "parent_race", "render"), serving_launches))
     counted_on["registration"] = reg_launches
     counted_on.update(dict.fromkeys(("render_bf16", "place_bf16"), low_launches))
+    counted_on.update(dict.fromkeys(("int8_conv", "int8_quant_act"), int8_launches))
     for rec in records:
         if rec["name"] in counted_on:
             rec["launches"] = counted_on[rec["name"]][rec["name"]]

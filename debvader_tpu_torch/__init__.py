@@ -19,7 +19,10 @@ calibration that ``load_deblender(..., flux_calibration=True)`` attaches;
 and training: ``train_network`` / ``train_deblender`` (the two-stage
 trainer with the decoder frozen in stage 2) with flax's train-mode
 BatchNorm, optax's Adam, checkpoints, band-count transfer and the native
-data loader (``training/``, ``runtime/loader.py``).
+data loader (``training/``, ``runtime/loader.py``); and int8 quantized
+serving (``models/quantized.py``: ``quantize_vae``, ``qat_finetune``,
+``load_quantized('sim_demo_int8')``, ``DeblendField(quantized=)``) on the
+int8 tensor cores (``csrc/int8_conv.cu``).
 Public functions keep the JAX package's NHWC layout.  Entry points run on the GPU
 (``device="cuda"``) unless the caller passes ``device="cpu"``; the kernels
 are hand-written CUDA (``csrc/``) built with ``nvcc`` at first use, and

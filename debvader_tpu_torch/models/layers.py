@@ -30,6 +30,8 @@ from debvader_tpu_torch.models.precision import SCHEMES, apply_scheme
 
 __all__ = [
     "tf_same_pads",
+    "conv2d_same",
+    "conv_transpose2d_tf",
     "Conv2dSame",
     "ConvTranspose2dTF",
     "PReLU",
@@ -51,6 +53,28 @@ def tf_same_pads(in_size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``F.conv2d`` with TF 'SAME' padding; weight (out, in, kh, kw)."""
+    k = weight.shape[-1]
+    lo_h, hi_h = tf_same_pads(x.shape[-2], k, stride)
+    lo_w, hi_w = tf_same_pads(x.shape[-1], k, stride)
+    return F.conv2d(F.pad(x, (lo_w, hi_w, lo_h, hi_h)), weight, bias, stride=stride)
+
+
+def conv_transpose2d_tf(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                        bias: torch.Tensor | None = None) -> torch.Tensor:
+    """TF ``Conv2DTranspose(padding='same')``: the full transposed conv,
+    cropped ``pad_lo`` from the top/left to ``in * stride``; weight (in,
+    out, kh, kw)."""
+    k = weight.shape[-1]
+    out_h = x.shape[-2] * stride
+    out_w = x.shape[-1] * stride
+    lo_h, _ = tf_same_pads(out_h, k, stride)
+    lo_w, _ = tf_same_pads(out_w, k, stride)
+    y = F.conv_transpose2d(x, weight, bias, stride=stride)
+    return y[..., lo_h : lo_h + out_h, lo_w : lo_w + out_w]
+
+
 class Conv2dSame(nn.Module):
     """Conv2d with TF 'SAME' padding; weight (out, in, kh, kw)."""
 
@@ -62,15 +86,11 @@ class Conv2dSame(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight.shape[-1]
-        lo_h, hi_h = tf_same_pads(x.shape[-2], k, self.stride)
-        lo_w, hi_w = tf_same_pads(x.shape[-1], k, self.stride)
-        x = F.pad(x, (lo_w, hi_w, lo_h, hi_h))
         if self.scheme is None:
-            return F.conv2d(x, self.weight, self.bias, stride=self.stride)
+            return conv2d_same(x, self.weight, self.stride, self.bias)
         y = apply_scheme(
             x, self.weight, self.scheme, 0,
-            lambda xl, wl: F.conv2d(xl, wl, stride=self.stride), out_axis=1,
+            lambda xl, wl: conv2d_same(xl, wl, self.stride), out_axis=1,
         )
         return y + self.bias.view(1, -1, 1, 1)
 
@@ -87,21 +107,15 @@ class ConvTranspose2dTF(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight.shape[-1]
-        out_h = x.shape[-2] * self.stride
-        out_w = x.shape[-1] * self.stride
-        lo_h, _ = tf_same_pads(out_h, k, self.stride)
-        lo_w, _ = tf_same_pads(out_w, k, self.stride)
         if self.scheme is None:
-            y = F.conv_transpose2d(x, self.weight, self.bias, stride=self.stride)
-            return y[..., lo_h : lo_h + out_h, lo_w : lo_w + out_w]
+            return conv_transpose2d_tf(x, self.weight, self.stride, self.bias)
         # the bias joins after the limb terms are summed: inside the
         # contraction it would be added once a term
         y = apply_scheme(
             x, self.weight, self.scheme, 1,
-            lambda xl, wl: F.conv_transpose2d(xl, wl, stride=self.stride), out_axis=1,
+            lambda xl, wl: conv_transpose2d_tf(xl, wl, self.stride), out_axis=1,
         )
-        return y[..., lo_h : lo_h + out_h, lo_w : lo_w + out_w] + self.bias.view(1, -1, 1, 1)
+        return y + self.bias.view(1, -1, 1, 1)
 
 
 class PReLU(nn.Module):

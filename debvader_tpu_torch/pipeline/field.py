@@ -33,8 +33,14 @@ at its detected offset plus the shift.  ``upload_dtype`` /
 under ``device_dtype='bfloat16'`` the serving route's canvases are
 bfloat16 too, and the render kernels round every add to bfloat16.
 
+``quantized=`` (a models/quantized.QuantizedVAE on the same device) runs
+both routes' batched forward through the int8 layers
+(kernels/int8_conv.py), with the bundle's own finite guard and
+normalisation bracket and no flux calibration; the epistemic replicas stay
+on the float model.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item by
-title): mesh fan-out, int8 serving and exported artifacts.
+title): mesh fan-out and exported artifacts.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ import torch
 from debvader_tpu_torch.api import deblend_tensor, sample_stats_tensor
 from debvader_tpu_torch.config import PipelineConfig, _not_ported
 from debvader_tpu_torch.device import resolve_device
+from debvader_tpu_torch.models.distributions import PixelNormal
+from debvader_tpu_torch.models.quantized import make_quantized_forward
 from debvader_tpu_torch.ops.extraction import extract_cutouts, extract_cutouts_np
 from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.registration import position_optimization_batch_windowed
@@ -227,13 +235,26 @@ class DeblendField:
         the canvases' sums); the per-chunk work (cutouts, forward, mse,
         registration) still runs in float32, and the record-array route
         renders in float32.  It implies the reduced upload, so an
-        ``upload_dtype`` must be unset or equal."""
+        ``upload_dtype`` must be unset or equal.
+
+        ``quantized``: a QuantizedVAE (models/quantized.py) on ``device``:
+        the batched stamp forward of both routes runs its int8 path in
+        ``z_mode``; its ``normalise`` must equal the pipeline's (int8
+        activation scales only fit the flux distribution they were
+        calibrated on).  Epistemic sampling stays on ``net``."""
         if mesh is not None:
             _not_ported("mesh=", "multi-device")
-        if quantized is not None:
-            _not_ported("quantized=", "quantized serving")
         if artifact is not None:
             _not_ported("artifact=", "export, CLI, compat and the model options left")
+        self.quantized = quantized
+        if quantized is not None and bool(quantized.normalise) != bool(normalise):
+            raise ValueError(
+                f"quantized bundle was calibrated with normalise="
+                f"{quantized.normalise} but the pipeline "
+                f"runs with normalise={normalise}; int8 activation scales "
+                f"only match the flux distribution they were calibrated "
+                f"on — re-run quantize_vae(..., normalise={normalise})"
+            )
         self.upload_dtype = _check_reduced_dtype("upload_dtype", upload_dtype)
         self.device_dtype = _check_reduced_dtype("device_dtype", device_dtype)
         if self.device_dtype == "float16":
@@ -251,6 +272,11 @@ class DeblendField:
             raise ValueError(f"z_mode must be 'sample' or 'mean', got {z_mode!r}")
         self.device = resolve_device(device)
         self.net = net
+        self._quant_fwd = None
+        if quantized is not None:
+            if quantized.device.type != self.device.type:
+                raise ValueError(f"the quantized bundle lies on {quantized.device}, the pipeline runs on {self.device}")
+            self._quant_fwd = make_quantized_forward(quantized, z_mode=z_mode)
         self.field_image = np.array(field_image, dtype=np.float32)
         _check_field_image(self.field_image)
         self.field_size = self.field_image.shape[1]
@@ -336,18 +362,20 @@ class DeblendField:
         stamps at a time."""
         means, stds = [], []
         for s0 in range(0, cutouts.shape[0], self.cfg.source_chunk):
-            dist = deblend_tensor(
-                self.net,
-                cutouts[s0 : s0 + self.cfg.source_chunk],
-                self.normalise,
-                self.generator,
-                self.z_mode,
-            )
+            dist = self._deblend(cutouts[s0 : s0 + self.cfg.source_chunk])
             means.append(dist.mean())
             stds.append(dist.stddev())
         if len(means) == 1:
             return means[0], stds[0]
         return torch.cat(means), torch.cat(stds)
+
+    def _deblend(self, cutouts: torch.Tensor) -> PixelNormal:
+        """The batched stamp forward of (N, S, S, B) cutouts on the device:
+        the int8 forward of ``quantized`` (its own guard and normalisation
+        bracket, no flux calibration), else the float model's."""
+        if self._quant_fwd is not None:
+            return PixelNormal(*self._quant_fwd(cutouts, self.generator))
+        return deblend_tensor(self.net, cutouts, self.normalise, self.generator, self.z_mode)
 
     def _epistemic(self, cutouts: torch.Tensor, max_chunk: int) -> torch.Tensor:
         """Epistemic stddev stamps (N, S, S, B) on the device: the spread
@@ -812,7 +840,7 @@ class DeblendField:
             dets = part[list_idx]
             dets_dev = torch.as_tensor(dets, device=self.device)
 
-            dist = deblend_tensor(self.net, raw_cutouts, self.normalise, self.generator, self.z_mode)
+            dist = self._deblend(raw_cutouts)
             means_dev = dist.mean()
             std_dev = dist.stddev() if (render_std or measure) else None
             mse_center = torch.mean(

@@ -31,6 +31,7 @@ __all__ = [
     "load_flax_npz",
     "weights_file",
     "load_deblender",
+    "quantized_from_jax",
 ]
 
 
@@ -124,6 +125,43 @@ def state_dict_from_flax(flat: dict, cfg: ModelConfig | None = None) -> dict:
         if path in flat
     }
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def quantized_from_jax(qv_or_parts) -> tuple[dict, dict]:
+    """(arrays, meta) of a JAX ``QuantizedVAE`` (or a dict with its
+    ``variables``, ``qweights``, ``act_scales``, ``cfg`` and flags) in the
+    port's bundle format (models/quantized.py: ``load_quantized`` reads the
+    two, ``_from_arrays`` builds the bundle from them): the float
+    variables under their flax key paths, unchanged; each int8 kernel
+    re-laid-out as the port's weight (conv HWIO -> (out, in, kh, kw), the
+    transposed conv's TF (kh, kw, out, in) -> (in, out, kh, kw), the dense
+    (in, out) as it is) beside its float32 scale; the activation scales,
+    0-d or per channel; and the JAX package's meta.json keys."""
+    def get(key, default=None):
+        if isinstance(qv_or_parts, dict):
+            return qv_or_parts.get(key, default)
+        return getattr(qv_or_parts, key, default)
+
+    arrays = flatten_flax(get("variables"))
+    for name, (qk, wscale) in get("qweights").items():
+        qk = np.asarray(qk)
+        if qk.dtype != np.int8:
+            raise ValueError(f"{name}: the int8 kernel has dtype {qk.dtype}")
+        tag = name.replace("/", "|")
+        arrays[f"qweights/{tag}/kernel"] = np.ascontiguousarray(_conv(qk) if qk.ndim == 4 else qk)
+        arrays[f"qweights/{tag}/scale"] = np.asarray(wscale, np.float32)
+    for name, scale in get("act_scales").items():
+        arrays[f"act_scales/{name.replace('/', '|')}"] = np.asarray(scale, np.float32)
+    meta = {
+        "model_cfg": dataclasses.asdict(get("cfg")),
+        "quantize_dense": bool(get("quantize_dense", True)),
+        "quantize_final_conv": bool(get("quantize_final_conv", False)),
+        "calib_stats": dict(get("calib_stats", {}) or {}),
+        "normalise": bool(get("normalise", False)),
+        "teacher_fingerprint": get("teacher_fingerprint"),
+        "act_granularity": get("act_granularity", "per_tensor"),
+    }
+    return arrays, meta
 
 
 def load_flax_npz(path) -> dict[str, np.ndarray]:

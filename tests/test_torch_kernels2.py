@@ -417,10 +417,12 @@ def test_fmad_is_a_per_source_flag_in_the_library_hash():
     assert not any(f.startswith("-fmad") for f in _build.NVCC_FLAGS)
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert sources == [
-        "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "parent_race",
-        "registration", "render", "tail_fused",
+        "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "label_select", "matched_filter",
+        "parent_race", "registration", "render", "tail_fused",
     ]
     assert "-fmad=false" in _build._flags("parent_race")
+    # the int8 epilogue is held bit for bit: float(acc) * dqw, then + bias
+    assert "-fmad=false" in _build._flags("int8_conv")
     assert "-fmad=false" in _build._flags("registration")
     # the tail pair keeps contraction off: its bias, PReLU and limb sums
     # use rounding intrinsics, and its products run on the tensor cores

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import debvader_tpu_torch as dtt
+from debvader_tpu_torch.models.quantized import load_quantized
 from debvader_tpu.config import ModelConfig as JaxModelConfig
 from debvader_tpu.models.vae import create_model_vae, init_vae
 from debvader_tpu_torch.models.distributions import fill_triangular
@@ -198,6 +199,15 @@ def test_import_pulls_in_no_jax_or_reference_package():
         train.train_network(dtt.DeblenderVAE(tiny), state, 1, (x, x), (x, x), 2, verbose=0,
                             metrics_log=profiling.MetricsLog())
         transfer.transfer_band_count(state.variables(), tiny)
+        from debvader_tpu_torch.kernels import int8_conv
+        from debvader_tpu_torch.models import quantized
+        qv = quantized.quantize_vae(net, np.ones((2, 23, 23, 3), np.float32), act_granularity="per_channel")
+        quantized.quantized_forward(qv, np.ones((1, 23, 23, 3), np.float32), z_mode="mean")
+        qdf = dtt.DeblendField(net, field, cutout_size=23, nb_of_bands=3, z_mode="mean", quantized=qv,
+                               cfg=dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1),
+                               device="cpu")
+        qdf.deblend_and_render(np.zeros((1, 2), np.float32))
+        quantized.load_quantized("sim_demo_int8", device="cpu")
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
                or m == "debvader_tpu" or m.startswith("debvader_tpu.")]
@@ -226,6 +236,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     net = dtt.DeblenderVAE()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dtt.load_deblender("sim_demo")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_quantized("sim_demo_int8")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dtt.deblend(net, field[0, :59, :59], z_mode="mean")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -261,6 +273,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         clipped_stats,
         decoder_tail,
         detect_fused,
+        int8_conv,
         label_select,
         matched_filter,
         parent_race,
@@ -270,8 +283,8 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     )
 
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "clipped_stats", "decoder_tail", "detect_fused", "label_select", "matched_filter", "parent_race",
-        "registration", "render", "tail_fused",
+        "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "label_select", "matched_filter",
+        "parent_race", "registration", "render", "tail_fused",
     ]
 
     def no_build(name):
@@ -290,6 +303,8 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         tail_fused.fused_tail_pair,
         registration.register_windowed,
         registration.register_full,
+        int8_conv.quant_act,
+        int8_conv.conv_s8,
     )
     bf16_counters = (render.render_field_kernel, render.place_patches)
     before = [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters]
@@ -312,4 +327,8 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         torch.ones(1, 8, 8, 4), torch.ones(3, 3, 4, 4), torch.ones(4), torch.ones(8, 8, 4),
         torch.ones(3, 3, 4, 2), torch.ones(2),
     )
+    layer = int8_conv.make_layer(
+        "conv", torch.ones(4, 3, 3, 3, dtype=torch.int8), torch.ones(4), torch.tensor(0.5), torch.zeros(4), 2
+    )
+    int8_conv.conv_s8(int8_conv.quant_act(torch.ones(1, 3, 7, 7), torch.tensor(0.5)), layer)
     assert [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters] == before

@@ -1,0 +1,497 @@
+"""The port's int8 quantized serving (debvader_tpu_torch/models/quantized.py,
+kernels/int8_conv.py) held against the JAX package's models/quantized.py
+on the CPU, on the same numpy inputs.
+
+What is exact and what is held to a tolerance:
+
+- **int8 layers**: s8 x s8 -> s32 sums are exact in any order (|acc| <=
+  K * 127^2 < 2^31), so the int8 activations, the int32 accumulators and
+  the dequantized float32 outputs equal JAX's eager ones bit for bit.
+- **Weights and scales**: ``_quant_weight(_folded)`` and ``_calib_stat``
+  equal JAX's eager functions bit for bit (eager JAX divides by 127 truly;
+  its jitted code multiplies by the reciprocal).
+- **Whole forward** on JAX's TINY model: the int8 activations at every
+  quantization point and ``loc`` equal JAX's eager ``quantized_forward``
+  (read: 0 differing), held at ``LOC_TOL`` of the output scale with no
+  differing int8 activation before dec/Dense_1 (the first point after the
+  float dec/Dense_0, whose summation order may differ).  JAX's jitted
+  closure may contract the dequantization into FMAs: held at ``LOC_TOL``.
+- **Calibration** replays JAX's latent draws through
+  ``quantized._latent_noise``; JAX's calibration forward is jitted XLA, so
+  the scales are held at ``SCALE_RTOL`` relative (read 3.9e-5 per channel,
+  3e-7 per tensor) and the int8 kernels equal but for at most
+  ``FLIP_SHARE`` of +-1 flips (read 0).
+- **QAT**: gradients of one step per leaf within ``GRAD_TOL`` of the
+  leaf's scale against JAX's jitted step, on TINY with non-trivial
+  weights (at flax's init, exact-zero pre-activations put ReLU kinks at
+  the mercy of summation order; see ``_qat_bundles``).  Adam's first step
+  is a sign function: the updated parameters equal JAX's within 1e-6 but
+  for a counted share of at most ``FLIP_SHARE``.
+"""
+
+import functools
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from debvader_tpu.config import ModelConfig as JaxModelConfig
+from debvader_tpu.models import quantized as jq
+from debvader_tpu.models.vae import DeblenderVAE as JaxVAE
+from debvader_tpu.models.vae import init_vae as jax_init_vae
+from debvader_tpu.training import losses as jlosses
+
+from debvader_tpu_torch.config import ModelConfig
+from debvader_tpu_torch.kernels import int8_conv
+from debvader_tpu_torch.models import quantized as tq
+from debvader_tpu_torch.models.vae import DeblenderVAE
+from debvader_tpu_torch.weights import (
+    flatten_flax,
+    flax_from_state_dict,
+    quantized_from_jax,
+    state_dict_from_flax,
+)
+
+torch.set_num_threads(1)
+
+TINY_KW = dict(stamp_size=23, nb_of_bands=3, latent_dim=8, filters=(8, 16), kernels=(3, 3))
+LOC_TOL = 1e-5
+SCALE_RTOL = 1e-4
+FLIP_SHARE = 1e-3
+GRAD_TOL = 1e-3
+REPO = Path(__file__).resolve().parent.parent
+
+
+@functools.lru_cache(maxsize=None)
+def _tiny():
+    """JAX's TINY model of tests/test_quantized.py (init from PRNGKey(0)),
+    the port's on the same variables, and the calibration stamps."""
+    jmodel = JaxVAE(JaxModelConfig(**TINY_KW))
+    # jitted: the same values as eager, without an op-by-op compile
+    variables = jax.jit(lambda key: jax_init_vae(jmodel, key))(jax.random.PRNGKey(0))
+    tmodel = DeblenderVAE(ModelConfig(**TINY_KW))
+    tmodel.load_state_dict(state_dict_from_flax(flatten_flax(variables), tmodel.cfg))
+    x = np.random.default_rng(0).normal(size=(4, 23, 23, 3)).astype(np.float32)
+    return jmodel, variables, tmodel.eval(), x
+
+
+@functools.lru_cache(maxsize=None)
+def _bundles(granularity="per_tensor", normalise=False):
+    """A JAX bundle calibrated by JAX and the port's copy of it
+    (quantized_from_jax): the same int8 kernels and scales."""
+    jmodel, variables, _, x = _tiny()
+    jqv = jq.quantize_vae(jmodel, variables, jnp.asarray(x), rng=jax.random.PRNGKey(1),
+                          act_granularity=granularity, normalise=normalise)
+    return jqv, tq._from_arrays(*quantized_from_jax(jqv))
+
+
+def _stamps(n=6, seed=5):
+    return np.random.default_rng(seed).normal(size=(n, 23, 23, 3)).astype(np.float32)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+# ------------------------------------------------------------ the int8 layers
+
+_LAYERS = [
+    # kind, stride, (n, size, cin, cout)
+    ("conv", 1, (2, 9, 6, 16)),  # K = 54, padded to 64 on a card
+    ("conv", 2, (2, 9, 32, 24)),
+    ("convT", 2, (2, 5, 32, 16)),
+    ("convT", 1, (2, 6, 16, 8)),
+    ("dense", 1, (3, 0, 160, 40)),
+]
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+@pytest.mark.parametrize("kind, stride, dims", _LAYERS, ids=[f"{k}{s}" for k, s, _ in _LAYERS])
+def test_int8_layer_matches_jax(kind, stride, dims, granularity):
+    """quant_act and conv_s8's plain versions against JAX's _quant_act and
+    its int32 lax contraction and dequantization (quantized.py:340-349,
+    :399-409, :447-454): the int8 activations, the int32 accumulators and
+    the float32 outputs bit for bit."""
+    n, size, cin, cout = dims
+    rng = np.random.default_rng([cin, cout, stride, granularity == "per_channel"])
+    shape = (n, cin) if kind == "dense" else (n, size, size, cin)
+    h = (rng.normal(size=shape) * 2.0).astype(np.float32)
+    s_in = (rng.uniform(0.01, 0.05, cin) if granularity == "per_channel" else rng.uniform(0.01, 0.05, ())).astype(
+        np.float32)
+    kshape = {"conv": (3, 3, cin, cout), "convT": (3, 3, cout, cin), "dense": (cin, cout)}[kind]
+    qk = rng.integers(-127, 128, kshape).astype(np.int8)
+    wscale = rng.uniform(1e-3, 1e-2, cout).astype(np.float32)
+    bias = rng.normal(size=cout).astype(np.float32)
+
+    jqa = jq._quant_act(jnp.asarray(h), jnp.asarray(s_in))
+    if kind == "conv":
+        acc = lax.conv_general_dilated(jqa, jnp.asarray(qk), (stride, stride), "SAME",
+                                       dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+    elif kind == "convT":
+        acc = lax.conv_transpose(jqa, jnp.asarray(qk), strides=(stride, stride), padding="SAME",
+                                 dimension_numbers=("NHWC", "HWIO", "NHWC"), transpose_kernel=True,
+                                 preferred_element_type=jnp.int32)
+    else:
+        acc = lax.dot_general(jqa, jnp.asarray(qk), (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)
+    dq = jnp.asarray(s_in) if granularity == "per_tensor" else 1.0
+    want = acc.astype(jnp.float32) * (dq * jnp.asarray(wscale))
+    want = np.asarray(want + jnp.asarray(bias))
+    acc = np.asarray(acc)
+    if kind != "dense":
+        acc, want = np.moveaxis(acc, -1, 1), np.moveaxis(want, -1, 1)
+
+    th = torch.from_numpy(h if kind == "dense" else np.ascontiguousarray(np.moveaxis(h, -1, 1)))
+    tqk = torch.from_numpy(np.ascontiguousarray(qk if kind == "dense" else np.transpose(qk, (3, 2, 0, 1))))
+    layer = int8_conv.make_layer(kind, tqk, torch.from_numpy(wscale), torch.from_numpy(s_in),
+                                 torch.from_numpy(bias), stride)
+    q = int8_conv.quant_act(th, torch.from_numpy(s_in))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jqa))
+    np.testing.assert_array_equal(int8_conv.conv_s8(q, layer, raw=True).numpy(), acc)
+    np.testing.assert_array_equal(_bits(int8_conv.conv_s8(q, layer).numpy()), _bits(want))
+
+
+def test_int8_layer_extremes_and_packing():
+    """All-(+-127) operands give the largest |acc| exactly; the packed
+    kernel the card reads is the (Cout, (ky, kx, ci)) rows of the port's
+    layout padded with zeros to (64, 32) multiples."""
+    q = torch.full((2, 5, 5, 256), -127, dtype=torch.int8)
+    qk = torch.full((256, 256, 3, 3), -127, dtype=torch.int8)
+    layer = int8_conv.make_layer("conv", qk, torch.ones(256), torch.tensor(1.0), torch.zeros(256), 1)
+    acc = int8_conv.conv_s8(q, layer, raw=True)
+    assert int(acc.max()) == 9 * 256 * 127 * 127
+    rng = np.random.default_rng(3)
+    for kind, shape in (("conv", (5, 6, 3, 3)), ("convT", (6, 5, 3, 3)), ("dense", (54, 5))):
+        qk = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        packed = int8_conv.pack_kernel(qk, kind)
+        if kind == "dense":
+            rows = qk.t()
+        else:
+            rows = (qk.permute(0, 2, 3, 1) if kind == "conv" else qk.permute(1, 2, 3, 0)).reshape(5, -1)
+        assert packed.shape == (64, 64)
+        assert torch.equal(packed[:5, :54], rows) and not packed[5:].any() and not packed[:, 54:].any()
+
+
+# ----------------------------------------------------- weights and scales
+
+_KINDS = [("conv", (3, 3, 8, 16), 3, 2, (16, 8, 3, 3)), ("convT", (3, 3, 16, 8), 2, 3, (8, 16, 3, 3)),
+          ("dense", (40, 24), 1, 0, (40, 24))]
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+@pytest.mark.parametrize("kind, jshape, out_axis, in_axis, tshape", _KINDS, ids=[k[0] for k in _KINDS])
+def test_quant_weight_matches_jax(kind, jshape, out_axis, in_axis, tshape, granularity):
+    """_quant_weight_folded bit for bit (the int8 kernel after the port's
+    re-layout, and the float32 scales: a true division by 127, as JAX's
+    eager code divides)."""
+    rng = np.random.default_rng(7)
+    k = rng.normal(size=jshape).astype(np.float32)
+    cin = jshape[in_axis]
+    s_in = np.asarray(rng.uniform(0.01, 2.0, cin) if granularity == "per_channel" else 0.3, np.float32)
+    jqk, jscale = jq._quant_weight_folded(jnp.asarray(k), out_axis, in_axis, jnp.asarray(s_in))
+    tk = k if kind == "dense" else np.transpose(k, (3, 2, 0, 1))
+    assert tk.shape == tshape
+    t_out, t_in = tq._axes({"conv": "enc/Conv_0", "convT": "dec/ConvTranspose2DTF_0", "dense": "enc/Dense_0"}[kind])
+    tqk, tscale = tq._quant_weight_folded(torch.from_numpy(np.ascontiguousarray(tk)), t_out, t_in,
+                                          torch.from_numpy(s_in))
+    want = np.asarray(jqk) if kind == "dense" else np.transpose(np.asarray(jqk), (3, 2, 0, 1))
+    np.testing.assert_array_equal(tqk.numpy(), want)
+    np.testing.assert_array_equal(_bits(tscale.numpy()), _bits(jscale))
+
+
+@pytest.mark.parametrize("q, per_channel", [(1.0, False), (1.0, True), (0.999, False), (0.97, True)])
+def test_calib_stat_matches_jax(q, per_channel):
+    """_calib_stat against JAX's eager one, bit for bit: the abs-max or
+    jnp.quantile's linear interpolation, over all or per channel."""
+    h = np.random.default_rng(11).normal(size=(3, 9, 9, 5)).astype(np.float32)
+    want = np.asarray(jq._calib_stat(jnp.asarray(h), q, per_channel))
+    got = tq._calib_stat(torch.from_numpy(np.ascontiguousarray(np.moveaxis(h, -1, 1))), q, per_channel).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_calib_quantile_above_2_24_elements():
+    """A quantile over more than 2^24 elements (torch.quantile refuses
+    them; the port takes two order statistics) equals jnp.quantile's."""
+    n = (1 << 24) + 37
+    a = ((np.arange(n, dtype=np.int64) * 7919) % 1_000_003).astype(np.float32) / np.float32(1e6)
+    with pytest.raises(RuntimeError):
+        torch.quantile(torch.from_numpy(a), 0.5)
+    want = np.asarray(jq._calib_stat(jnp.asarray(a), 0.9999))
+    got = tq._calib_stat(torch.from_numpy(a), 0.9999).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+# ------------------------------------------------------------- the forward
+
+
+@pytest.mark.parametrize("z_mode", ["mean", "sample"])
+def test_float_path_bit_identical(z_mode):
+    """_forward with no quantized layer is the model's own forward, bit for
+    bit (as JAX asserts for its own, tests/test_quantized.py:35)."""
+    _, _, model, _ = _tiny()
+    x = torch.from_numpy(_stamps())
+    eps = torch.from_numpy(np.random.default_rng(2).normal(size=(6, 8)).astype(np.float32))
+    with torch.no_grad():
+        d0, p0 = model(x, z_mode=z_mode, eps=eps)
+        d1, p1 = tq._forward(model, x, z_mode, eps=eps)
+    for a, b in ((d0.loc, d1.loc), (d0.scale, d1.scale), (p0.loc, p1.loc), (p0.scale_tril, p1.scale_tril)):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b.numpy()))
+
+
+def _record_quant_act(monkeypatch, module, sink):
+    orig = module._quant_act
+
+    def rec(h, scale):
+        out = orig(h, scale)
+        sink.append(np.asarray(out))
+        return out
+
+    monkeypatch.setattr(module, "_quant_act", rec)
+
+
+@pytest.mark.parametrize("z_mode", ["mean", "sample"])
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+def test_int8_forward_matches_jax_eager(monkeypatch, granularity, z_mode):
+    """The int8 forward against JAX's eager quantized_forward on the same
+    bundle and stamps ('sample': JAX's eps injected): the share of int8
+    activations that differ at each quantization point, 0 before
+    dec/Dense_1; loc and scale within LOC_TOL of their scale."""
+    jqv, tqv = _bundles(granularity)
+    x = _stamps()
+    rng = jax.random.PRNGKey(7)
+    eps = torch.from_numpy(np.asarray(jax.random.normal(rng, (6, 8)))) if z_mode == "sample" else None
+    jacts, tacts = [], []
+    _record_quant_act(monkeypatch, jq, jacts)
+    _record_quant_act(monkeypatch, tq, tacts)
+    jd, jpost = jq.quantized_forward(jqv, jnp.asarray(x), rng, z_mode=z_mode)
+    td, tpost = tq.quantized_forward(tqv, x, z_mode=z_mode, eps=eps)
+    names = ["enc/Conv_0", "enc/Conv_1", "enc/Conv_2", "enc/Conv_3", "enc/Dense_0", "dec/Dense_1",
+             "dec/ConvTranspose2DTF_0", "dec/ConvTranspose2DTF_1", "dec/ConvTranspose2DTF_2",
+             "dec/ConvTranspose2DTF_3"]
+    assert len(jacts) == len(tacts) == len(names)
+    shares = {n: float((a != b).mean()) for n, a, b in zip(names, jacts, tacts)}
+    print(f"{granularity} {z_mode}: int8 activations differing from JAX's {shares}")
+    assert all(shares[n] == 0.0 for n in names[:5])
+    for got, want in ((td.loc, jd.loc), (td.scale, jd.scale)):
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        print(f"{granularity} {z_mode}: max abs difference {err} of scale {float(np.abs(want).max())}")
+        assert err <= LOC_TOL * float(np.abs(want).max())
+    np.testing.assert_array_equal(_bits(tpost.loc.numpy()), _bits(jpost.loc))
+
+
+@pytest.mark.parametrize("granularity, normalise", [("per_tensor", False), ("per_channel", False),
+                                                    ("per_channel", True)])
+def test_closure_matches_jax_jitted(granularity, normalise):
+    """make_quantized_forward against JAX's jitted closure (finite guard
+    and normalisation bracket inside; XLA may contract the dequantization
+    into FMAs): loc and scale within LOC_TOL of their scale."""
+    jqv, tqv = _bundles(granularity, normalise)
+    x = _stamps(seed=9) * 3.0
+    x[0, 3, 4, 1] = np.nan
+    jloc, jscale = jq.make_quantized_forward(jqv, z_mode="mean")(jnp.asarray(x), jax.random.PRNGKey(0))
+    tloc, tscale = tq.make_quantized_forward(tqv, z_mode="mean")(x)
+    for got, want in ((tloc, jloc), (tscale, jscale)):
+        want = np.asarray(want)
+        assert np.isfinite(got.numpy()).all()
+        err = float(np.abs(got.numpy() - want).max())
+        print(f"jitted closure, {granularity}, normalise={normalise}: max abs difference {err}")
+        assert err <= LOC_TOL * float(np.abs(want).max())
+
+
+# ------------------------------------------------------------- calibration
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+def test_quantize_vae_matches_jax(monkeypatch, granularity):
+    """quantize_vae with JAX's latent draws replayed: every activation
+    scale within SCALE_RTOL of JAX's, the int8 kernels equal but for a
+    counted share of +-1 flips, the same layers, statistics and flags."""
+    jqv, _ = _bundles(granularity)
+    _, _, model, x = _tiny()
+    eps = torch.from_numpy(np.asarray(jax.random.normal(jax.random.PRNGKey(1), (4, 8))))
+    monkeypatch.setattr(tq, "_latent_noise", lambda generator, shape, like: eps)
+    tqv = tq.quantize_vae(model, x, act_granularity=granularity)
+    assert sorted(tqv.act_scales) == sorted(jqv.act_scales) and list(tqv.qweights) == list(jqv.qweights)
+    worst = 0.0
+    for name, js in jqv.act_scales.items():
+        js = np.asarray(js)
+        assert tqv.act_scales[name].shape == js.shape
+        worst = max(worst, float(np.max(np.abs(tqv.act_scales[name].numpy() / js - 1))))
+    flips = total = 0
+    for name, (jk, jw) in jqv.qweights.items():
+        jk = np.asarray(jk)
+        want = jk if jk.ndim == 2 else np.transpose(jk, (3, 2, 0, 1))
+        d = tqv.qweights[name][0].numpy().astype(np.int32) - want
+        assert np.abs(d).max() <= 1, name
+        flips, total = flips + int(np.count_nonzero(d)), total + d.size
+        np.testing.assert_allclose(tqv.qweights[name][1].numpy(), np.asarray(jw), rtol=SCALE_RTOL)
+    print(f"{granularity}: scales within {worst} of JAX's, {flips} of {total} int8 weights flipped")
+    assert worst <= SCALE_RTOL and flips <= FLIP_SHARE * total
+    assert tqv.act_granularity == granularity and tqv.teacher_fingerprint is None
+
+
+def test_quantize_vae_layers_and_quantile(monkeypatch):
+    """layers= picks the quantized layers (none: the int8 forward is the
+    float one); calib_quantile < 1 calibrates quantiles as JAX's jitted
+    calibration does, within SCALE_RTOL."""
+    jmodel, variables, model, x = _tiny()
+    monkeypatch.setattr(tq, "_latent_noise", lambda generator, shape, like: torch.from_numpy(
+        np.asarray(jax.random.normal(jax.random.PRNGKey(1), shape))))
+    none = tq.quantize_vae(model, x, layers=[])
+    assert none.qweights == {}
+    a, _ = tq.quantized_forward(none, _stamps(), z_mode="mean")
+    b, _ = tq.quantized_forward(none, _stamps(), z_mode="mean", quant=False)
+    np.testing.assert_array_equal(_bits(a.loc.numpy()), _bits(b.loc.numpy()))
+    sub = tq.quantize_vae(model, x, layers=["enc/Conv_0", "dec/ConvTranspose2DTF_1"])
+    assert sorted(sub.qweights) == ["dec/ConvTranspose2DTF_1", "enc/Conv_0"]
+    jqv = jq.quantize_vae(jmodel, variables, jnp.asarray(x), rng=jax.random.PRNGKey(1), calib_quantile=0.999)
+    tqv = tq.quantize_vae(model, x, calib_quantile=0.999)
+    for name, js in jqv.act_scales.items():
+        np.testing.assert_allclose(tqv.act_scales[name].numpy(), np.asarray(js), rtol=SCALE_RTOL, err_msg=name)
+
+
+# --------------------------------------------------------------------- QAT
+
+
+def _unflatten(flat: dict) -> dict:
+    tree = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(v)
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def _qat_bundles(granularity):
+    """JAX's bundle and the port's copy for TINY with non-trivial weights:
+    flax's init plus noise (positive BatchNorm variances), as
+    tests/test_torch_model.py perturbs them.  At the init itself (zero
+    biases and PReLU alphas) the fake-quant forward sums exact grid values
+    to exact zeros, whose float sign, and with it a ReLU kink, follows the
+    summation order: one such pre-activation moved a leaf's gradient by 4%
+    of its scale (read on TINY)."""
+    jmodel, variables, _, x = _tiny()
+    rng = np.random.default_rng(3)
+    flat = {}
+    for k, v in flatten_flax(jax.tree_util.tree_map(np.asarray, variables)).items():
+        noise = 0.05 * rng.normal(size=v.shape).astype(np.float32)
+        flat[k] = (np.abs(v) + 0.5 + noise if k.endswith("/var") else v + noise).astype(np.float32)
+    jqv = jq.quantize_vae(jmodel, _unflatten(flat), jnp.asarray(x), rng=jax.random.PRNGKey(1),
+                          act_granularity=granularity)
+    return jqv, tq._from_arrays(*quantized_from_jax(jqv))
+
+
+def _jax_qat_grads(jqv, x, y, loss, key):
+    """JAX's jitted gradients of qat_finetune's loss (its loss_fn,
+    quantized.py:797-829) at the bundle's own weights."""
+    cfg, stats, params = jqv.cfg, jqv.variables["batch_stats"], jqv.variables["params"]
+
+    def loss_fn(p, x, y):
+        mode = "mean" if loss == "distill" else "sample"
+        dist, post = jq._forward(cfg, {"params": p, "batch_stats": stats}, x, key, mode,
+                                 dict.fromkeys(jqv.qweights), jqv.act_scales, None, fake=True)
+        if loss == "distill":
+            t, _ = jq._forward(cfg, {"params": params, "batch_stats": stats}, x, None, "mean", None, None, None)
+            return jnp.mean(jnp.sum(jnp.square(dist.loc - lax.stop_gradient(t.loc)), axis=(1, 2, 3)))
+        return jlosses.elbo_terms(dist, post, y, kl_weight=0.01, kl_mode="analytic")["loss"]
+
+    grads = jax.jit(jax.grad(loss_fn))(params, jnp.asarray(x), jnp.asarray(y))
+    return flatten_flax({"params": jax.device_get(grads)})
+
+
+def _qat_batch(n=8):
+    rng = np.random.default_rng(21)
+    x = np.abs(rng.normal(size=(n, 23, 23, 3))).astype(np.float32)
+    return x, (0.8 * x).astype(np.float32)
+
+
+def _worst(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k] - b[k]).max()) / max(float(np.abs(b[k]).max()), 1e-30) for k in b)
+
+
+@pytest.mark.parametrize("loss", ["distill", "elbo"])
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+def test_qat_gradients_match_jax(monkeypatch, granularity, loss):
+    """One QAT step's gradients per leaf (the STE forward through
+    ``.detach()``, BatchNorm frozen), JAX's latent draw injected, against
+    JAX's jitted step (the step qat_finetune runs): every leaf within
+    GRAD_TOL of its largest magnitude (read 1.2e-4 at most; JAX's own eager
+    step reads 1.6e-4 off its jitted one)."""
+    jqv, tqv = _qat_bundles(granularity)
+    x, y = _qat_batch()
+    key = jax.random.PRNGKey(3)
+    jit = _jax_qat_grads(jqv, x, y, loss, key)
+    eps = torch.from_numpy(np.asarray(jax.random.normal(key, (8, 8))))
+    monkeypatch.setattr(tq, "_latent_noise", lambda generator, shape, like: eps)
+    student = tqv.model
+    value, _ = tq._qat_loss(student, tqv.model, torch.from_numpy(x), torch.from_numpy(y), list(tqv.qweights),
+                            tqv.act_scales, loss, 0.01)
+    grads = torch.autograd.grad(value, list(student.parameters()))
+    got = flax_from_state_dict(dict(zip([k for k, _ in student.named_parameters()], grads)), student.cfg)
+    worst = _worst(got, jit)
+    print(f"QAT {granularity} {loss}: worst leaf {worst} of its scale off JAX's jitted step")
+    assert worst <= GRAD_TOL
+
+
+def test_qat_step_matches_jax():
+    """qat_finetune for one step on an injected batch, both packages:
+    Adam's first step moves each parameter by lr g / (|g| + eps), about
+    lr sign(g), so the parameters are held within 1e-6 but for at most
+    FLIP_SHARE of them (a sign flip, or a gradient near Adam's eps), each
+    within 2 lr (read: 1 of 86,120, by 1.2e-6); the activation scales
+    kept, the weights requantized from the new floats, and the teacher's
+    fingerprint JAX's."""
+    jqv, tqv = _qat_bundles("per_channel")
+    x, y = _qat_batch()
+    lr = 1e-4
+    jout = jq.qat_finetune(jqv, steps=1, batch=8, learning_rate=lr, steps_per_dispatch=1,
+                           make_batch=lambda key: (jnp.asarray(x), jnp.asarray(y)))
+    tout = tq.qat_finetune(tqv, steps=1, batch=8, learning_rate=lr, make_batch=lambda rng: (x, y))
+    assert tout.teacher_fingerprint == jout.teacher_fingerprint == jq.params_fingerprint(jqv.variables["params"])
+    want = flatten_flax({"params": jax.device_get(jout.variables["params"])})
+    got = {k: v for k, v in flax_from_state_dict(tout.model.state_dict(), tout.cfg).items() if k in want}
+    n_off = n_all = 0
+    for k in want:
+        d = np.abs(got[k] - want[k])
+        n_all += d.size
+        n_off += int((d > 1e-6).sum())
+        assert float(d.max()) <= 2.1 * lr, k
+    print(f"QAT step: {n_off} of {n_all} parameters more than 1e-6 off JAX's")
+    assert n_off <= FLIP_SHARE * n_all
+    for name in jqv.act_scales:
+        assert torch.equal(tout.act_scales[name], tqv.act_scales[name])
+    requant = tq._requantize(tout.model, list(tout.qweights), tout.act_scales)
+    for name, (qk, ws) in tout.qweights.items():
+        assert torch.equal(requant[name][0], qk) and torch.equal(requant[name][1], ws)
+
+
+def test_qat_elbo_with_recalibration():
+    """qat_finetune(loss='elbo', recalibrate=True): the ELBO step runs with
+    the latents of ``_latent_noise``, the scales are recalibrated on
+    ``make_batch(np.random.default_rng(seed + 999))`` (equal to a fresh
+    quantize_vae of the fine-tuned model on it), and the teacher's
+    fingerprint survives the recalibration, as in JAX (quantized.py:900-912)."""
+    _, tqv = _qat_bundles("per_tensor")
+    x, y = _qat_batch(4)
+    seen = []
+
+    def make_batch(rng):
+        seen.append(rng)
+        return x, y
+
+    out = tq.qat_finetune(tqv, steps=1, learning_rate=1e-4, make_batch=make_batch, loss="elbo", recalibrate=True)
+    assert len(seen) == 2 and out.teacher_fingerprint == tq.params_fingerprint(tqv.model)
+    fresh = tq.quantize_vae(out.model, x, layers=list(tqv.qweights))
+    for name, s in fresh.act_scales.items():
+        assert torch.equal(out.act_scales[name], s)
+    for name, (qk, _) in fresh.qweights.items():
+        assert torch.equal(out.qweights[name][0], qk)
+    assert any(not torch.equal(out.act_scales[n], tqv.act_scales[n]) for n in tqv.act_scales)
+
