@@ -123,21 +123,28 @@ without printing its last line):
    bit-identical, the native loader's batches equal to the .npy source's,
    and the median warm step time at batch 5 and 64 (the training line);
 19. int8 quantized serving with the packaged sim_demo_int8 bundle: the
-   two kernels of csrc/int8_conv.cu (the activation quantizer and the
-   implicit-GEMM s8 x s8 -> s32 convolution) on each of the 18 int8 layers
-   at a 128-stamp chunk of the record-array batch's real activations, bit
-   for bit against their plain versions (int8 activations, raw int32,
-   dequantized float32), timed with their bounds, the plain versions,
-   torch._int_mm over an im2col and the float32 cuDNN layer (the
+   fused layer of csrc/int8_conv.cu (the implicit-GEMM s8 x s8 -> s32
+   convolution on wgmma, its dequantization, PReLU(s) and the next layer's
+   quantizer in one launch; stride-2 transposed convs as four parity
+   sub-convolutions; split K where tiles leave SMs idle) on each of the 18
+   int8 layers at a 128-stamp chunk of the record-array batch's real
+   activations (their int8 inputs and epilogues as the forward gives
+   them), bit for bit against its plain version (also as raw int32 and as
+   the float32 layer, and against the unfused chain of conv_s8, the eager
+   PReLU and quant_act), timed with its bound, the plain version,
+   torch._int_mm over an im2col, the float32 cuDNN layer and the unfused
+   chain, and the stand-alone quantizer at its two points (the
    int8_layer_groups line, one line a layer after it); a batch of 1, the
-   ragged 295-source batch, all-(+-127) operands and per-tensor scales;
-   then DeblendField(quantized=load_quantized('sim_demo_int8'),
-   z_mode='mean') on the 1024^2 field, both routes in 128-source chunks
-   with the launches counted from 0, two runs bit-identical, the routes
-   against each other, the total-flux error against the float forward on
-   64 simulated stamps, warm deblend_and_render int8 and float32 in turns,
-   a chunk's peak memory, the 256^2 crop card against CPU, and one
-   qat_finetune step at batch 32 card against CPU (the quantized line);
+   ragged 295-source batch, all-(+-127) operands, per-tensor scales and
+   NaN, infinite and signed-zero epilogue values; then
+   DeblendField(quantized=load_quantized('sim_demo_int8'), z_mode='mean')
+   on the 1024^2 field, both routes in 128-source chunks with the launches
+   of each route counted from 0 and held to exactly 18 fused layers and 2
+   quantizers a chunk, two runs bit-identical, the routes against each
+   other, the total-flux error against the float forward on 64 simulated
+   stamps, warm deblend_and_render int8 and float32 in turns, a chunk's
+   peak memory, the 256^2 crop card against CPU, and one qat_finetune step
+   at batch 32 card against CPU (the quantized line);
 20. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
@@ -152,6 +159,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -2552,34 +2560,45 @@ QAT_MOVED_MAX_SHARE = 1e-2
 QAT_LR = 2e-5
 
 
-def int8_layer_inputs(torch, qv, stamps) -> dict:
-    """{name: float32 input activation} of each int8 layer in one int8
-    forward of ``stamps`` (N, 59, 59, 6) on the bundle's device, caught at
-    the quantization points, in forward order."""
+def int8_calls(torch, qv, stamps) -> tuple[list, list]:
+    """One int8 forward of ``stamps`` (N, 59, 59, 6) on the bundle's
+    device, its kernel calls caught in forward order: ([(layer name, int8
+    input, Int8Layer, (alpha, flat_alpha, next_scale))] of conv_fused,
+    [(layer name, float32 input, scale)] of the stand-alone quant_act)."""
+    from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.models import quantized as tq
 
-    caught = {}
-    orig = tq._quant_point
+    names = {id(layer): name for name, layer in qv.int8_layers().items()}
+    by_scale = {id(s): name for name, s in qv.act_scales.items()}
+    convs, quants = [], []
+    fused, quant = ic.conv_fused, ic.quant_act
 
-    def catch(h, name, module, qw, *rest):
-        if qw is not None and name in qw:
-            caught[name] = h.detach().clone()
-        return orig(h, name, module, qw, *rest)
+    def catch_conv(q, layer, *args):
+        convs.append((names[id(layer)], q.detach().clone(), layer, (tuple(args) + (None,) * 3)[:3]))
+        return fused(q, layer, *args)
 
-    tq._quant_point = catch
+    def catch_quant(h, scale):
+        quants.append((by_scale[id(scale)], h.detach().clone(), scale))
+        return quant(h, scale)
+
+    ic.conv_fused, ic.quant_act = catch_conv, catch_quant
     try:
         tq.quantized_forward(qv, stamps, z_mode="mean")
     finally:
-        tq._quant_point = orig
-    return caught
+        ic.conv_fused, ic.quant_act = fused, quant
+    return convs, quants
 
 
 def int8_needed_macs(ic, q, layer) -> int:
     """The multiply-adds the layer needs on q: every tap that reads an
     input pixel (the padding taps of a conv and the non-integral taps of a
     transposed conv read none)."""
-    n, h, w, cin, ho, wo, top, left = ic._geometry(q, layer)
+    n, h, w, ho, wo = ic._geometry(q, layer)
     k, s = layer.ksize, layer.stride
+    if layer.kind == "dense":
+        return n * layer.cin * layer.cout
+    top = ic.tf_same_pads(h if layer.kind == "conv" else ho, k, s)[0]
+    left = ic.tf_same_pads(w if layer.kind == "conv" else wo, k, s)[0]
 
     def taps(size_out, size_in, pad):
         o = np.arange(size_out)[:, None]
@@ -2590,9 +2609,7 @@ def int8_needed_macs(ic, q, layer) -> int:
         t = o + pad - kk
         return int(((t >= 0) & (t % s == 0) & (t // s < size_in)).sum())
 
-    if layer.kind == "dense":
-        return n * cin * layer.cout
-    return n * taps(ho, h, top) * taps(wo, w, left) * cin * layer.cout
+    return n * taps(ho, h, top) * taps(wo, w, left) * layer.cin * layer.cout
 
 
 def int8_im2col(torch, ic, q, layer):
@@ -2601,12 +2618,14 @@ def int8_im2col(torch, ic, q, layer):
     (K8, Cout) kernel, K zero-padded to a multiple of 8."""
     import torch.nn.functional as F
 
-    n, h, w, cin, ho, wo, top, left = ic._geometry(q, layer)
+    n, h, w, ho, wo = ic._geometry(q, layer)
     k, s = layer.ksize, layer.stride
     if layer.kind == "dense":
         a = q
     else:
         dev = q.device
+        top = ic.tf_same_pads(h if layer.kind == "conv" else ho, k, s)[0]
+        left = ic.tf_same_pads(w if layer.kind == "conv" else wo, k, s)[0]
 
         def index(size_out, size_in, pad):
             o = torch.arange(size_out, device=dev)[:, None]
@@ -2624,63 +2643,137 @@ def int8_im2col(torch, ic, q, layer):
         ix, okx = index(wo, w, left)
         g = q[:, iy[:, None, :, None], ix[None, :, None, :], :]
         ok = (oky[:, None, :, None] & okx[None, :, None, :])[None, ..., None]
-        a = torch.where(ok, g, torch.zeros((), dtype=q.dtype, device=dev)).reshape(n * ho * wo, k * k * cin)
+        a = torch.where(ok, g, torch.zeros((), dtype=q.dtype, device=dev)).reshape(n * ho * wo, k * k * layer.cin)
     kdim = a.shape[1]
     k8 = -(-kdim // 8) * 8
     a = F.pad(a, (0, k8 - kdim)).contiguous()
-    b = F.pad(layer.packed[: layer.cout, :kdim], (0, k8 - kdim)).t()
+    b = F.pad(layer.rows, (0, k8 - kdim)).t()
     return a, b
 
 
+def bits_equal(torch, got, want) -> bool:
+    """Bit for bit, a NaN equal to any NaN (the card's arithmetic writes
+    one payload, but the comparison should not depend on it)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype != torch.float32:
+        return torch.equal(got, want)
+    nan = torch.isnan(got)
+    return torch.equal(nan, torch.isnan(want)) and torch.equal(got.view(torch.int32)[~nan],
+                                                                want.view(torch.int32)[~nan])
+
+
+def unfused_chain(torch, ic, q, layer, alpha, flat_alpha, next_scale):
+    """The same unit of work as one conv_fused launch, unfused as the
+    parent ran it: conv_s8's float32 output, the eager PReLU, the flatten,
+    the eager flat PReLU and the stand-alone quantizer."""
+    from debvader_tpu_torch.models.layers import prelu
+
+    y = ic.conv_s8(q, layer)
+    if alpha is not None:
+        y = prelu(y, alpha)
+    if next_scale is None:
+        return y
+    y = (y.permute(0, 2, 3, 1) if y.ndim == 4 else y).reshape(y.shape[0], -1)
+    if flat_alpha is not None:
+        y = prelu(y, flat_alpha)
+    return ic.quant_act(y.reshape(-1, 1 if next_scale.ndim == 0 else next_scale.shape[0]), next_scale)
+
+
 def check_int8_stamps(torch, ic, qv, stamps, what: str) -> int:
-    """Every int8 layer of the bundle on the inputs of one forward of
-    ``stamps``: the quantized activations, the int32 accumulators and the
-    float32 outputs of the kernels bit for bit their plain versions'."""
-    scales, layers = qv.act_scales, qv.int8_layers()
-    inputs = int8_layer_inputs(torch, qv, stamps)
-    for name, h in inputs.items():
-        layer = layers[name]
-        q = ic.quant_act(h, scales[name])
-        agree = torch.equal(q, ic.quant_act_plain(h, scales[name]))
-        agree &= torch.equal(ic.conv_s8(q, layer, raw=True), ic.conv_s8_plain(q, layer, raw=True))
-        agree &= torch.equal(ic.conv_s8(q, layer).view(torch.int32), ic.conv_s8_plain(q, layer).view(torch.int32))
-        if not agree:
-            raise AssertionError(f"int8 layer {name} ({what}): the kernels differ from their plain versions")
-    return len(inputs)
+    """Every kernel call of one int8 forward of ``stamps``: conv_fused's
+    output and the stand-alone quantizer's bit for bit their plain
+    versions'."""
+    convs, quants = int8_calls(torch, qv, stamps)
+    for name, q, layer, args in convs:
+        if not bits_equal(torch, ic.conv_fused(q, layer, *args), ic.conv_fused_plain(q, layer, *args)):
+            raise AssertionError(f"int8 layer {name} ({what}): the kernel differs from its plain version")
+    for name, h, s in quants:
+        if not torch.equal(ic.quant_act(h, s), ic.quant_act_plain(h, s)):
+            raise AssertionError(f"quantizer before {name} ({what}): the kernel differs from its plain version")
+    return len(convs)
+
+
+def int8_specials(torch, ic, q, layer, args) -> dict:
+    """The epilogue on non-finite and signed-zero values: dqw[0] NaN,
+    bias[1] +inf, bias[2] -inf, dqw[3] 0 with bias[3] -0.0 (so y is a zero
+    of either sign) and the PReLU's alpha negated on channel 3; the kernel
+    bit for bit its plain version with the quantizer (a NaN gives 0) and
+    with the float32 output (NaN and the zeros' signs kept)."""
+    dqw, bias = layer.dqw.clone(), layer.bias.clone()
+    dqw[0], bias[1], bias[2], dqw[3], bias[3] = float("nan"), float("inf"), float("-inf"), 0.0, -0.0
+    sp = dataclasses.replace(layer, dqw=dqw, bias=bias)
+    alpha, flat_alpha, next_scale = args
+    if alpha is not None:
+        alpha = alpha.detach().clone()
+        alpha[3] = -alpha[3]
+    out = {}
+    for mode, a in (("int8", (alpha, flat_alpha, next_scale)), ("float32", (alpha, None, None))):
+        if mode == "int8" and next_scale is None:
+            continue
+        got, want = ic.conv_fused(q, sp, *a), ic.conv_fused_plain(q, sp, *a)
+        if not bits_equal(torch, got, want):
+            raise AssertionError(f"int8 layer, special values ({mode}): the kernel differs from its plain version")
+        if mode == "float32":
+            out["nan"] = int(torch.isnan(got).sum())
+            out["negative_zeros"] = int(((got == 0) & torch.signbit(got)).sum())
+            out["positive_zeros"] = int(((got == 0) & ~torch.signbit(got)).sum())
+    return out
+
+
+def profiled_all_ms(torch, fn):
+    """Mean device time of every CUDA kernel ``fn`` launches, over REPS
+    calls, from torch.profiler; None when the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+                for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return total / REPS / 1e3 if total > 0 else None
 
 
 def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
-    """Phase 19, the kernels: csrc/int8_conv.cu's two kernels on each of
+    """Phase 19, the kernels: csrc/int8_conv.cu's fused layer on each of
     the 18 int8 layers at a 128-stamp chunk of the field's real
-    activations, bit for bit against their plain versions (quantized
-    activations, raw int32, dequantized float32), timed (CUDA events, the
-    profiler's device time), with the bound, the plain version, torch.
-    _int_mm over an im2col (the library yardstick, checked against the raw
-    accumulators) and the float32 cuDNN layer; then the edge cases: a batch
-    of 1, the ragged 295-source batch, K = 54 (enc/Conv_0), all-(+-127)
-    operands (the largest |acc|) and per-tensor scales."""
+    activations (their int8 inputs and epilogues as the forward calls
+    them), bit for bit against its plain version, also as the raw int32
+    sums and the float32 layer; timed (CUDA events, the profiler's device
+    time) beside its bound, its plain version, torch._int_mm over an
+    im2col (the library yardstick, checked against the raw sums), the
+    float32 cuDNN layer and the unfused chain of the same work (conv_s8,
+    the eager PReLU, quant_act); the stand-alone quantizer at its two
+    points.  Then the edge cases: a batch of 1, the ragged 295-source
+    batch, K = 54 (enc/Conv_0), all-(+-127) operands (the largest |acc|),
+    per-tensor scales and non-finite and signed-zero epilogue values."""
     from debvader_tpu_torch.device import fp32_math
     from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.models import quantized as tq
 
     dev = torch.device("cuda")
-    scales, layers = qv.act_scales, qv.int8_layers()
-    inputs = int8_layer_inputs(torch, qv, cutouts[:QUANT_CHUNK])
+    convs, quants = int8_calls(torch, qv, cutouts[:QUANT_CHUNK])
     rows = []
-    for name, h in inputs.items():
-        layer, s = layers[name], scales[name]
-        q = ic.quant_act(h, s)
+    for name, q, layer, args in convs:
+        alpha, flat_alpha, next_scale = args
+        y = ic.conv_fused(q, layer, *args)
         raw = ic.conv_s8(q, layer, raw=True)
-        y = ic.conv_s8(q, layer)
+        flt = ic.conv_s8(q, layer)
         torch.cuda.synchronize()
-        if not (torch.equal(q, ic.quant_act_plain(h, s)) and torch.equal(raw, ic.conv_s8_plain(q, layer, raw=True))
-                and torch.equal(y.view(torch.int32), ic.conv_s8_plain(q, layer).view(torch.int32))):
-            raise AssertionError(f"int8 layer {name}: the kernels differ from their plain versions")
+        if not (bits_equal(torch, y, ic.conv_fused_plain(q, layer, *args))
+                and torch.equal(raw, ic.conv_s8_plain(q, layer, raw=True))
+                and bits_equal(torch, flt, ic.conv_s8_plain(q, layer))):
+            raise AssertionError(f"int8 layer {name}: the kernel differs from its plain version")
+        chain = unfused_chain(torch, ic, q, layer, *args)
+        if not bits_equal(torch, chain.reshape(y.shape), y):
+            raise AssertionError(f"int8 layer {name}: the unfused chain differs from the fused kernel")
         macs = int8_needed_macs(ic, q, layer)
-        out_bytes = 4 * y.numel()
-        bytes_conv = q.numel() + layer.qk.numel() + out_bytes + 8 * layer.cout
-        t_conv, by_conv = bound(bytes_conv, 2 * macs, PEAK_INT8_OPS_PER_S)
-        t_quant, by_quant = bound(5 * h.numel(), h.numel())
+        extra = sum(4 * t.numel() for t in args if t is not None)
+        bytes_layer = q.numel() + layer.qk.numel() + y.numel() * y.element_size() + 8 * layer.cout + extra
+        t_bound, by = bound(bytes_layer, 2 * macs, PEAK_INT8_OPS_PER_S)
         a, b = int8_im2col(torch, ic, q, layer)
         lib = {"library_ms": None}
         try:
@@ -2691,72 +2784,99 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
         except RuntimeError as exc:  # the yardstick only: the port never calls it
             lib["library_error"] = str(exc).splitlines()[0][:200]
         module = tq._module(qv.model, name)
+        plan = ic._plan(q, layer, ic._sm_count(q.device.index or 0))
+        h = q.float() if layer.kind == "dense" else q.permute(0, 3, 1, 2).float().contiguous()
         with fp32_math():
             cudnn_ms = cuda_ms(torch, lambda: module(h))
         rows.append({
-            "layer": name, "kind": layer.kind, "stride": layer.stride, "input": list(h.shape),
-            "M": y.numel() // layer.cout, "N": layer.cout, "K": layer.ksize ** 2 * q.shape[-1], "needed_macs": macs,
-            "ms": cuda_ms(torch, lambda: ic.conv_s8(q, layer)),
-            "device_ms": profiled_device_ms(torch, lambda: ic.conv_s8(q, layer), "conv_s8"),
-            "plain_ms": cuda_ms(torch, lambda: ic.conv_s8_plain(q, layer), reps=PLAIN_REPS, warmup=1),
-            "bound_ms": t_conv, "bound_by": by_conv, **lib, "cudnn_f32_ms": cudnn_ms,
-            "quant_ms": cuda_ms(torch, lambda: ic.quant_act(h, s)),
-            "quant_device_ms": profiled_device_ms(torch, lambda: ic.quant_act(h, s), "quant_act"),
-            "quant_plain_ms": cuda_ms(torch, lambda: ic.quant_act_plain(h, s), reps=PLAIN_REPS, warmup=1),
-            "quant_bound_ms": t_quant, "quant_bound_by": by_quant,
+            "layer": name, "kind": layer.kind, "stride": layer.stride, "input": list(q.shape),
+            "out": [str(y.dtype).replace("torch.", "")] + list(y.shape), "classes": plan.dims[11],
+            "splits": plan.splits,
+            "M": flt.numel() // layer.cout, "N": layer.cout, "K": layer.ksize ** 2 * layer.cin, "needed_macs": macs,
+            "ms": cuda_ms(torch, lambda: ic.conv_fused(q, layer, *args)),
+            "device_ms": profiled_device_ms(torch, lambda: ic.conv_fused(q, layer, *args), "conv_fused"),
+            "plain_ms": cuda_ms(torch, lambda: ic.conv_fused_plain(q, layer, *args), reps=PLAIN_REPS, warmup=1),
+            "bound_ms": t_bound, "bound_by": by, "bound_bytes": bytes_layer, "bound_ops": 2 * macs,
+            **lib, "cudnn_f32_ms": cudnn_ms,
+            "chain_ms": cuda_ms(torch, lambda: unfused_chain(torch, ic, q, layer, *args)),
+            "chain_device_ms": profiled_all_ms(torch, lambda: unfused_chain(torch, ic, q, layer, *args)),
+        })
+    quant_rows = []
+    for name, h, s in quants:
+        if not torch.equal(ic.quant_act(h, s), ic.quant_act_plain(h, s)):
+            raise AssertionError(f"quantizer before {name}: the kernel differs from its plain version")
+        t_quant, by_quant = bound(5 * h.numel() + 4 * s.numel(), h.numel())
+        quant_rows.append({
+            "before": name, "input": list(h.shape), "ms": cuda_ms(torch, lambda: ic.quant_act(h, s)),
+            "device_ms": profiled_device_ms(torch, lambda: ic.quant_act(h, s), "quant_act"),
+            "plain_ms": cuda_ms(torch, lambda: ic.quant_act_plain(h, s), reps=PLAIN_REPS, warmup=1),
+            "bound_ms": t_quant, "bound_by": by_quant,
         })
     cases = {
         "batch_1": check_int8_stamps(torch, ic, qv, cutouts[:1], "batch of 1"),
         "ragged_295": check_int8_stamps(torch, ic, qv, cutouts, f"batch of {len(cutouts)}"),
-        "k54": "enc/Conv_0" in inputs and layers["enc/Conv_0"].ksize ** 2 * 6 == 54,
+        "k54": convs[0][2].ksize ** 2 * convs[0][2].cin == 54,
     }
-    extremes, per_tensor = {}, {}
-    for name, h in inputs.items():
-        layer, s = layers[name], scales[name]
+    extremes, per_tensor, specials = {}, {}, {}
+    for name, q, layer, args in convs:
         # all-(+-127) operands: the largest |acc|, K * 127^2
-        q = torch.full_like(ic.quant_act(h[:2], s), -127)
+        q127 = torch.full_like(q[:2], -127)
         big = ic.make_layer(layer.kind, torch.full_like(layer.qk, 127), torch.ones(layer.cout, device=dev),
                             torch.ones((), device=dev), torch.zeros(layer.cout, device=dev), layer.stride)
-        raw = ic.conv_s8(q, big, raw=True)
-        if not torch.equal(raw, ic.conv_s8_plain(q, big, raw=True)):
+        raw = ic.conv_s8(q127, big, raw=True)
+        if not torch.equal(raw, ic.conv_s8_plain(q127, big, raw=True)):
             raise AssertionError(f"int8 layer {name}: all-(+-127) operands differ from the plain version")
         extremes[name] = int(raw.abs().max())
-        # per-tensor: one scale for the whole input
-        s0 = s.max()
+        # per-tensor: one scale for the layer's input and one for the next's
         qk, ws = qv.qweights[name]
-        flat = ic.make_layer(layer.kind, qk, ws, s0, layer.bias, layer.stride)
-        q0 = ic.quant_act(h, s0)
-        if not (torch.equal(q0, ic.quant_act_plain(h, s0)) and torch.equal(
-                ic.conv_s8(q0, flat).view(torch.int32), ic.conv_s8_plain(q0, flat).view(torch.int32))):
+        flat = ic.make_layer(layer.kind, qk, ws, qv.act_scales[name].max(), layer.bias, layer.stride)
+        pt_args = args[:2] + (None if args[2] is None else args[2].max(),)
+        if not bits_equal(torch, ic.conv_fused(q, flat, *pt_args), ic.conv_fused_plain(q, flat, *pt_args)):
             raise AssertionError(f"int8 layer {name}: per-tensor scales differ from the plain version")
         per_tensor[name] = True
-    cases.update(all_127_max_abs_acc=extremes, per_tensor_scales=per_tensor)
+        specials[name] = int8_specials(torch, ic, q, layer, args)
+    cases.update(all_127_max_abs_acc=extremes, per_tensor_scales=per_tensor, special_values=specials)
     groups = {}
     for r in rows:
         g = "enc_conv" if r["layer"].startswith("enc/Conv") else "dense" if r["kind"] == "dense" else "dec_convT"
         groups.setdefault(g, []).append(r)
-    lib_total = None if any(r["library_ms"] is None for r in rows) else sum(r["library_ms"] for r in rows)
 
     def total(key, rs=rows):
         vals = [r[key] for r in rs]
         return None if any(v is None for v in vals) else float(sum(vals))
 
     summary = {g: {k: total(k, rs) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                                              "cudnn_f32_ms")} | {"layers": len(rs)} for g, rs in groups.items()}
+                                              "cudnn_f32_ms", "chain_ms", "chain_device_ms")}
+               | {"layers": len(rs), "bound_bytes": sum(r["bound_bytes"] for r in rs),
+                  "bound_ops": sum(r["bound_ops"] for r in rs)} for g, rs in groups.items()}
+    summary["all"] = {k: total(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "cudnn_f32_ms",
+                                            "chain_ms", "chain_device_ms")}
+    summary["all"].update(bound_bytes_ms=sum(r["bound_bytes"] for r in rows) / PEAK_BYTES_PER_S * 1e3,
+                          bound_ops_ms=sum(r["bound_ops"] for r in rows) / PEAK_INT8_OPS_PER_S * 1e3)
     records = [
         {"name": "int8_conv", "route": "cuda", "source": "debvader_tpu_torch/csrc/int8_conv.cu",
-         "replaces": "debvader_tpu/models/quantized.py:340 (int8 conv, convT :399, dense :447; XLA, no Pallas "
-                     "kernel)",
+         "replaces": "debvader_tpu/models/quantized.py:340 (int8 conv, convT :399, dense :447, with _prelu :115 "
+                     "and the next _quant_act :172; XLA, no Pallas kernel)",
          "max_abs_err": 0.0, "ms": total("ms"), "device_ms": total("device_ms"), "plain_ms": total("plain_ms"),
-         "bound_ms": total("bound_ms"), "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-         else "operations", "library_ms": lib_total, "shape": [QUANT_CHUNK, 59, 59, 6], "layers": len(rows)},
+         "bound_ms": total("bound_ms"), "bound_by": "bytes" if summary["all"]["bound_bytes_ms"] >=
+         summary["all"]["bound_ops_ms"] else "operations", "library_ms": total("library_ms"),
+         "chain_ms": total("chain_ms"), "shape": [QUANT_CHUNK, 59, 59, 6], "layers": len(rows)},
         {"name": "int8_quant_act", "route": "cuda", "source": "debvader_tpu_torch/csrc/int8_conv.cu",
-         "replaces": "debvader_tpu/models/quantized.py:172 (_quant_act, XLA; no Pallas kernel)",
-         "max_abs_err": 0.0, "ms": total("quant_ms"), "device_ms": total("quant_device_ms"),
-         "plain_ms": total("quant_plain_ms"), "bound_ms": total("quant_bound_ms"), "bound_by": "bytes",
-         "library_ms": None, "shape": [QUANT_CHUNK, 59, 59, 6], "layers": len(rows)},
+         "replaces": "debvader_tpu/models/quantized.py:172 (_quant_act after a float layer, XLA; no Pallas kernel)",
+         "max_abs_err": 0.0, "ms": total("ms", quant_rows), "device_ms": total("device_ms", quant_rows),
+         "plain_ms": total("plain_ms", quant_rows), "bound_ms": total("bound_ms", quant_rows), "bound_by": "bytes",
+         "library_ms": None, "shape": [QUANT_CHUNK, 59, 59, 6], "points": len(quant_rows)},
     ]
-    return records, {"layers": rows, "groups": summary, "cases": cases}
+    return records, {"layers": rows, "quantizer": quant_rows, "groups": summary, "cases": cases}
+
+
+def exact_counts(counts: dict, want: dict, path: str) -> dict:
+    """``counts`` unless one of ``want``'s kernels launched another number
+    of times on ``path``."""
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"kernel {name} was launched {counts[name]} times on the {path} path, expected {n}")
+    return counts
 
 
 def run_quantized(torch, net, field: np.ndarray, centers: np.ndarray, reset_counts, read_counts) -> dict:
@@ -2778,13 +2898,21 @@ def run_quantized(torch, net, field: np.ndarray, centers: np.ndarray, reset_coun
     qv = tq.load_quantized("sim_demo_int8", device="cuda")
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t
+    # each int8 forward of a chunk: 18 fused layers and the quantizer at its
+    # two points, on either route; conv_s8 (no epilogue) never
+    chunks = -(-len(centers) // QUANT_CHUNK)
+    want = {"int8_conv": 18 * chunks, "int8_quant_act": 2 * chunks, "int8_conv_s8": 0}
     reset_counts()
     qdf = dt.DeblendField(net, field, z_mode="mean", quantized=qv, cfg=serving_cfg(QUANT_CHUNK), device="cuda")
     res = qdf.deblend_field(centers)
     r_residual = qdf.get_residual_field()
+    torch.cuda.synchronize()
+    out["record_array_launches"] = exact_counts(read_counts("int8 record-array", {}), want, "int8 record-array")
+    reset_counts()
     catalog, residual, model = qdf.deblend_and_render(centers, return_model=True)
     torch.cuda.synchronize()
-    out["launches"] = read_counts("int8 serving", {"int8_conv": 18, "int8_quant_act": 18, "render": 1})
+    out["launches"] = exact_counts(read_counts("int8 serving", {"render": 1}), want, "int8 deblend_and_render")
+    out["chunks"] = chunks
     means = np.stack(list(res.output_images_mean))
     if not (np.isfinite(means).all() and np.isfinite(residual).all() and np.isfinite(r_residual).all()):
         raise AssertionError("non-finite outputs on the int8 serving path")
@@ -2825,6 +2953,11 @@ def run_quantized(torch, net, field: np.ndarray, centers: np.ndarray, reset_coun
             walls[key].append(time.perf_counter() - t)
     out["warm_deblend_and_render_s"] = walls
     out["int8_over_float32"] = float(np.median(walls["int8"]) / np.median(walls["float32"]))
+    # one profiled warm call of each: device busy time and idle share
+    for key, d in (("float32", fdf), ("int8", qdf)):
+        prof = profile_run(torch, lambda: d.deblend_and_render(centers))
+        out[f"profiled_{key}"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")} | {
+            "top_device_events": prof["top_device_events"][:8]}
 
     # the peak memory of one 128-stamp forward, int8 and float32
     chunk = torch.as_tensor(x[:1].repeat(QUANT_CHUNK, axis=0), device="cuda")
@@ -3168,8 +3301,9 @@ def main() -> int:
         "registration": (kr.register_windowed, "launches"),
         "render_bf16": (rd.render_field_kernel, "launches_bf16"),
         "place_bf16": (rd.place_patches, "launches_bf16"),
-        "int8_conv": (ic.conv_s8, "launches"),
+        "int8_conv": (ic.conv_fused, "launches"),
         "int8_quant_act": (ic.quant_act, "launches"),
+        "int8_conv_s8": (ic.conv_s8, "launches"),
     }
 
     def reset_counts():
@@ -3487,10 +3621,13 @@ def main() -> int:
     report["int8_layers"] = int8_layers
     print(json.dumps({"int8_layer_groups": int8_layers["groups"], "int8_cases": int8_layers["cases"]}))
     for r in int8_layers["layers"]:
-        print(f"  {r['layer']:26s} M {r['M']:7d} N {r['N']:5d} K {r['K']:5d}: {r['ms']:.4f} ms "
-              f"(device {r['device_ms']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.3f} ms, _int_mm {r['library_ms']}, cuDNN f32 {r['cudnn_f32_ms']:.4f} ms; "
-              f"quant {r['quant_ms']:.4f} ms, bound {r['quant_bound_ms']:.4f} ms")
+        print(f"  {r['layer']:26s} M {r['M']:7d} N {r['N']:5d} K {r['K']:5d} classes {r['classes']} splits "
+              f"{r['splits']}: {r['ms']:.4f} ms (device {r['device_ms']}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, _int_mm {r['library_ms']}, cuDNN f32 "
+              f"{r['cudnn_f32_ms']:.4f} ms, unfused chain {r['chain_ms']:.4f} ms (device {r['chain_device_ms']})")
+    for r in int8_layers["quantizer"]:
+        print(f"  quantizer before {r['before']:26s}: {r['ms']:.4f} ms (device {r['device_ms']}), bound "
+              f"{r['bound_ms']:.4f} ms")
     quantized = run_quantized(torch, net, field, centers, reset_counts, read_counts)
     int8_launches = quantized["launches"]
     quantized["qat"] = run_qat(torch)

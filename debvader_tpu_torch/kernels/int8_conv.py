@@ -3,83 +3,173 @@
 The JAX package's quantized forward (debvader_tpu/models/quantized.py)
 runs its quantized convs, transposed convs and dense layers as XLA
 contractions of int8 operands with ``preferred_element_type=int32``
-(``:340-347``, ``:399-407``, ``:447-452``); it has no Pallas kernel.
-PyTorch has no int8 convolution on CUDA, so the port has its own,
-``csrc/int8_conv.cu``, on the int8 tensor cores (``mma.sync`` m16n8k32
-s8 x s8 -> s32), in two steps:
+(``:340-347``, ``:399-407``, ``:447-452``), each followed by ``_prelu``
+(``:115``) and the next layer's ``_quant_act`` (``:172``); it has no
+Pallas kernel.  PyTorch has no int8 convolution on CUDA, so the port has
+its own, ``csrc/int8_conv.cu``:
 
 - ``quant_act(h, scale)``: float32 activations (N, C, H, W) or (N, F) to
   int8 ``clip(round_half_even(h / scale), -127, 127)``, channels last
   ((N, H, W, C) or (N, F)); ``scale`` is a 0-d tensor (per tensor) or a
-  (C,) vector (per input channel);
-- ``conv_s8(q, layer)``: the int8 product of those activations with a
-  layer's int8 kernel, dequantized as JAX does,
+  (C,) vector (per input channel).  The forward needs it only where no
+  int8 layer comes before a quantization point;
+- ``conv_fused(q, layer, alpha, flat_alpha, next_scale)``: one launch of
+  the layer on int8 channels-last activations, dequantized as JAX does,
   ``float32(acc) * dqw[c] + bias[c]`` (``dqw = dq * wscale`` formed once,
-  by ``make_layer``), as float32 NCHW or (N, Cout); ``raw=True`` returns
-  the int32 accumulators.
+  by ``make_layer``), then the PReLU ``alpha`` (per element of the
+  layer's (C, H, W) output, or (C,) for a dense layer), then, over the
+  output flattened channels last, the PReLU ``flat_alpha``, then the next
+  layer's quantizer: ``next_scale`` 0-d or a vector of L values, element
+  f of the flattened output taking ``next_scale[f % L]``.  With
+  ``next_scale`` it returns the next layer's int8 input, channels last
+  ((N, Ho, Wo, C) or (N, C)); without it float32 NCHW or (N, C);
+  ``raw=True`` returns the int32 accumulators (NCHW).  ``conv_s8(q,
+  layer, raw)`` is the same kernel with no epilogue beyond the
+  dequantization.
+
+The kernel computes a layer as one or more tap classes (``tap_classes``):
+a stride-2 transposed conv as four stride-1 sub-convolutions, one for
+each output parity, each with only the taps whose input index is
+integral; a conv or a stride-1 transposed conv as one class of all its
+taps; a dense layer as one 1 x 1 tap.  Each class's weights are packed in
+the order the tensor cores read them (``pack_operand``).
 
 The int32 sums are exact in any order (|acc| <= K * 127^2 < 2^31), so the
 kernel, the plain version and XLA agree bit for bit.  The plain versions
 convolve the int8 values in float64 (exact: every partial sum is below
 2^53) and apply the same epilogue in float32 ops.  A wrapper takes them
 only for CPU tensors; a CUDA tensor launches the kernel, and a failed build
-or launch raises.  ``quant_act.launches`` and ``conv_s8.launches`` count
-the launches.
+or launch raises.  ``quant_act.launches``, ``conv_fused.launches`` and
+``conv_s8.launches`` count the launches.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from debvader_tpu_torch.kernels import _build
-from debvader_tpu_torch.models.layers import conv2d_same, conv_transpose2d_tf, tf_same_pads
+from debvader_tpu_torch.models.layers import conv2d_same, conv_transpose2d_tf, prelu, tf_same_pads
 
-__all__ = ["Int8Layer", "make_layer", "pack_kernel", "quant_act", "quant_act_plain", "conv_s8", "conv_s8_plain"]
+__all__ = [
+    "Int8Layer", "TapClass", "make_layer", "pack_kernel", "pack_operand", "tap_classes", "quant_act",
+    "quant_act_plain", "conv_fused", "conv_fused_plain", "conv_s8", "conv_s8_plain",
+]
 
 KINDS = ("conv", "convT", "dense")
-_BN, _BK = 64, 32
+_BM, _BK = 64, 32
+# epilogue modes of dvt_conv_fused
+_FLOAT, _INT8, _RAW = 0, 1, 2
+# the per-class table the launcher reads: oy0, ox0, taps, kp, operand offset, 9 dy, 9 dx
+_TABLE_INTS = 23
+_MAX_CLASSES, _MAX_TAPS = 4, 9
 
 
 @dataclasses.dataclass(frozen=True)
 class Int8Layer:
     """One quantized layer: ``qk`` the int8 kernel in the port's layout
     (conv (out, in, kh, kw), convT (in, out, kh, kw), dense (in, out)),
-    ``packed`` the same as (Cout rounded up to 64, K rounded up to 32)
-    rows ordered (ky, kx, ci), which the kernel reads; ``dqw`` and
-    ``bias`` float32 (Cout,)."""
+    ``rows`` the same as (Cout, K) rows ordered (ky, kx, ci); ``dqw`` and
+    ``bias`` float32 (Cout,).  ``plans`` caches the kernel's packed
+    operands and launch geometry by input shape."""
 
     kind: str
     qk: torch.Tensor
-    packed: torch.Tensor
+    rows: torch.Tensor
     dqw: torch.Tensor
     bias: torch.Tensor
     stride: int = 1
+    plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def cout(self) -> int:
         return self.qk.shape[1] if self.kind in ("convT", "dense") else self.qk.shape[0]
 
     @property
+    def cin(self) -> int:
+        return self.qk.shape[0] if self.kind in ("convT", "dense") else self.qk.shape[1]
+
+    @property
     def ksize(self) -> int:
         return 1 if self.kind == "dense" else self.qk.shape[-1]
 
 
+@dataclasses.dataclass(frozen=True)
+class TapClass:
+    """Output pixels (oy0 + ostep * qy, ox0 + ostep * qx) of one class and
+    its taps (ky, kx, dy, dx): input pixel (istride * qy + dy, istride *
+    qx + dx) times kernel tap (ky, kx), where that pixel lies in the
+    input."""
+
+    oy0: int
+    ox0: int
+    taps: tuple
+
+
 def pack_kernel(qk: torch.Tensor, kind: str) -> torch.Tensor:
-    """The int8 kernel as (Cout, K) rows, K ordered (ky, kx, ci), padded
-    with zeros to (multiple of 64, multiple of 32)."""
+    """The int8 kernel as (Cout, K) rows, K ordered (ky, kx, ci)."""
     if kind == "conv":
         rows = qk.permute(0, 2, 3, 1)
     elif kind == "convT":
         rows = qk.permute(1, 2, 3, 0)
     else:
         rows = qk.t()
-    rows = rows.reshape(rows.shape[0], -1)
-    cout, k = rows.shape
-    out = torch.zeros((-(-cout // _BN) * _BN, -(-k // _BK) * _BK), dtype=torch.int8, device=qk.device)
-    out[:cout, :k] = rows
-    return out
+    return rows.reshape(rows.shape[0], -1).contiguous()
+
+
+def _block_n(cout: int) -> int:
+    """The kernel's output-channel tile: 32, 64 or 128."""
+    return 32 if cout <= 32 else 64 if cout <= 64 else 128
+
+
+def pack_operand(rows: torch.Tensor, cin: int, ksize: int, taps) -> torch.Tensor:
+    """One tap class's weights as the kernel's B operand: B[co, t * cin +
+    ci] = rows[co, (ky_t * ksize + kx_t) * cin + ci], padded with zeros to
+    (Cout rounded up to the channel tile, K rounded up to 32), in the
+    order of wgmma's K-major shared-memory layout without swizzle: k-step
+    of 32 bytes, group of 8 rows, 16-byte half of the k-step, row, byte."""
+    cout = rows.shape[0]
+    np_pad = -(-cout // _block_n(cout)) * _block_n(cout)
+    index = torch.tensor([ky * ksize + kx for ky, kx, _, _ in taps], dtype=torch.long, device=rows.device)
+    b = rows.view(cout, ksize * ksize, cin).index_select(1, index).reshape(cout, -1)
+    kp = -(-b.shape[1] // _BK) * _BK
+    out = torch.zeros((np_pad, kp), dtype=torch.int8, device=rows.device)
+    out[:cout, : b.shape[1]] = b
+    return out.view(np_pad // 8, 8, kp // _BK, 2, 16).permute(2, 0, 3, 1, 4).reshape(-1)
+
+
+def tap_classes(kind: str, ksize: int, stride: int, h: int, w: int) -> tuple:
+    """(ho, wo, hq, wq, istride, ostep, classes) of a layer on an (h, w)
+    input.  A TF-SAME conv is one class: output (oy, ox) reads input (s *
+    oy - top + ky, s * ox - left + kx).  A TF transposed conv sums, at
+    output oy, the taps ky whose (oy + lo - ky) / s is integral (lo the
+    crop of ConvTranspose2dTF): at stride s that set depends on oy mod s
+    only, so the layer is s * s stride-1 sub-convolutions over the input's
+    grid, class (py, px) with the taps ky = py + lo mod s, reading input
+    qy + (py + lo - ky) / s.  A dense layer is one 1 x 1 tap."""
+    if kind == "dense":
+        return 1, 1, 1, 1, 1, 1, (TapClass(0, 0, ((0, 0, 0, 0),)),)
+    k, s = ksize, stride
+    if kind == "conv":
+        ho, wo = -(-h // s), -(-w // s)
+        top, left = tf_same_pads(h, k, s)[0], tf_same_pads(w, k, s)[0]
+        taps = tuple((ky, kx, ky - top, kx - left) for ky in range(k) for kx in range(k))
+        return ho, wo, ho, wo, s, 1, (TapClass(0, 0, taps),)
+    ho, wo = h * s, w * s
+    lo_h, lo_w = tf_same_pads(ho, k, s)[0], tf_same_pads(wo, k, s)[0]
+    classes = []
+    for py in range(s):
+        for px in range(s):
+            taps = tuple(
+                (ky, kx, (py + lo_h - ky) // s, (px + lo_w - kx) // s)
+                for ky in range(k) if (py + lo_h - ky) % s == 0
+                for kx in range(k) if (px + lo_w - kx) % s == 0
+            )
+            classes.append(TapClass(py, px, taps))
+    return ho, wo, h, w, 1, s, tuple(classes)
 
 
 def make_layer(kind: str, qk: torch.Tensor, wscale: torch.Tensor, s_in: torch.Tensor, bias: torch.Tensor,
@@ -135,27 +225,26 @@ def quant_act(h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     fn = _build.launcher("int8_conv", "dvt_quant_act", 3, 4)
     status = _build.call(fn, h.device, h.data_ptr(), scale.data_ptr(), q.data_ptr(), n, c, hw, int(scale.ndim == 1))
     _build.check(status, "int8_quant_act")
-    quant_act.launches += 1
+    _quant_act.launches += 1
     return q
 
 
+# the counters live on the functions themselves, which a caller may wrap
+_quant_act = quant_act
 quant_act.launches = 0
 
 
 def _geometry(q: torch.Tensor, layer: Int8Layer) -> tuple:
-    """(n, h, w, cin, ho, wo, pad_top, pad_left) of the layer on q."""
-    k, s = layer.ksize, layer.stride
+    """(n, h, w, ho, wo) of the layer on q."""
     if layer.kind == "dense":
-        if q.ndim != 2 or q.shape[1] != layer.qk.shape[0]:
-            raise ValueError(f"dense input must be (N, {layer.qk.shape[0]}), got {tuple(q.shape)}")
-        return q.shape[0], 1, 1, q.shape[1], 1, 1, 0, 0
-    cin = layer.qk.shape[0] if layer.kind == "convT" else layer.qk.shape[1]
-    if q.ndim != 4 or q.shape[3] != cin:
-        raise ValueError(f"{layer.kind} input must be (N, H, W, {cin}), got {tuple(q.shape)}")
+        if q.ndim != 2 or q.shape[1] != layer.cin:
+            raise ValueError(f"dense input must be (N, {layer.cin}), got {tuple(q.shape)}")
+        return q.shape[0], 1, 1, 1, 1
+    if q.ndim != 4 or q.shape[3] != layer.cin:
+        raise ValueError(f"{layer.kind} input must be (N, H, W, {layer.cin}), got {tuple(q.shape)}")
     n, h, w, _ = q.shape
-    if layer.kind == "conv":
-        return n, h, w, cin, -(-h // s), -(-w // s), tf_same_pads(h, k, s)[0], tf_same_pads(w, k, s)[0]
-    return n, h, w, cin, h * s, w * s, tf_same_pads(h * s, k, s)[0], tf_same_pads(w * s, k, s)[0]
+    ho, wo = tap_classes(layer.kind, layer.ksize, layer.stride, h, w)[:2]
+    return n, h, w, ho, wo
 
 
 def _epilogue(acc: torch.Tensor, layer: Int8Layer, raw: bool) -> torch.Tensor:
@@ -177,40 +266,179 @@ def conv_s8_plain(q: torch.Tensor, layer: Int8Layer, raw: bool = False) -> torch
     return _epilogue(acc.to(torch.int32), layer, raw)
 
 
-def _launch(q: torch.Tensor, layer: Int8Layer, raw: bool) -> torch.Tensor:
-    n, h, w, cin, ho, wo, top, left = _geometry(q, layer)
-    kp = layer.packed.shape[1]
-    if layer.ksize * layer.ksize * cin * 127 * 127 >= 2**31:
+def _check_epilogue(shape: tuple, alpha, flat_alpha, next_scale) -> int:
+    """Validate the fused epilogue's tensors for an output of ``shape``
+    ((N, C, Ho, Wo) or (N, C)); returns L, the length of next_scale."""
+    per_sample = tuple(shape[1:])
+    if alpha is not None and tuple(alpha.shape) != per_sample:
+        raise ValueError(f"alpha must be {per_sample}, got {tuple(alpha.shape)}")
+    flat = int(np.prod(per_sample))
+    if flat_alpha is not None:
+        if next_scale is None:
+            raise ValueError("flat_alpha needs next_scale: only a quantized output is flattened")
+        if tuple(flat_alpha.shape) != (flat,):
+            raise ValueError(f"flat_alpha must be ({flat},), got {tuple(flat_alpha.shape)}")
+    if next_scale is None:
+        return 0
+    if next_scale.ndim == 0:
+        return 1
+    if next_scale.ndim != 1 or flat % next_scale.shape[0]:
+        raise ValueError(f"next_scale must be 0-d or (L,) with L dividing {flat}, got {tuple(next_scale.shape)}")
+    return next_scale.shape[0]
+
+
+def conv_fused_plain(q: torch.Tensor, layer: Int8Layer, alpha: torch.Tensor | None = None,
+                     flat_alpha: torch.Tensor | None = None, next_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """quant_act_plain(prelu(conv_s8_plain(q, layer)), next_scale), laid out
+    as the kernel writes it: the PReLU ``alpha`` on the NCHW output, then
+    the output flattened channels last, the PReLU ``flat_alpha`` and the
+    quantizer with ``next_scale[f % L]`` at flat index f; float32 NCHW when
+    ``next_scale`` is None."""
+    y = conv_s8_plain(q, layer)
+    length = _check_epilogue(tuple(y.shape), alpha, flat_alpha, next_scale)
+    if alpha is not None:
+        y = prelu(y, alpha)
+    if next_scale is None:
+        return y
+    nhwc = y.permute(0, 2, 3, 1) if y.ndim == 4 else y
+    flat = nhwc.reshape(y.shape[0], -1)
+    if flat_alpha is not None:
+        flat = prelu(flat, flat_alpha)
+    return quant_act_plain(flat.reshape(-1, length), next_scale).reshape(nhwc.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What the launcher needs of a layer on one input shape."""
+
+    operand: torch.Tensor
+    table: np.ndarray
+    dims: tuple  # n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, nclass, np_pad
+    splits: int
+    ws_ints: int
+
+
+def _plan(q: torch.Tensor, layer: Int8Layer, sms: int) -> _Plan:
+    """The packed operands, class table and split of the layer on q's
+    shape for a card of ``sms`` multiprocessors, made once and cached on
+    the layer."""
+    key = (tuple(q.shape), q.device)
+    plan = layer.plans.get(key)
+    if plan is not None:
+        return plan
+    n, h, w, ho, wo = _geometry(q, layer)
+    _, _, hq, wq, istride, ostep, classes = tap_classes(layer.kind, layer.ksize, layer.stride, h, w)
+    if len(classes) > _MAX_CLASSES or layer.ksize > 3:
+        raise ValueError(f"the kernel takes at most {_MAX_CLASSES} tap classes of at most {_MAX_TAPS} taps "
+                         f"(a stride of 2 or less, kernels up to 3 x 3), got stride {layer.stride}, "
+                         f"kernel {layer.ksize}")
+    cin, cout = layer.cin, layer.cout
+    bn = _block_n(cout)
+    np_pad = -(-cout // bn) * bn
+    table = np.zeros((len(classes), _TABLE_INTS), np.int32)
+    operands, offset = [], 0
+    for c, cls in enumerate(classes):
+        operand = pack_operand(layer.rows, cin, layer.ksize, cls.taps)
+        kp = operand.numel() // np_pad
+        table[c, :5] = (cls.oy0, cls.ox0, len(cls.taps), kp, offset)
+        for t, (_, _, dy, dx) in enumerate(cls.taps):
+            table[c, 5 + t], table[c, 5 + _MAX_TAPS + t] = dy, dx
+        operands.append(operand)
+        offset += operand.numel()
+    m = n * hq * wq
+    tiles = -(-m // _BM) * (np_pad // bn) * len(classes)
+    steps = max(int(t) for t in table[:, 3]) // _BK
+    # K slices where the output tiles leave SMs idle, at least 8 k-steps a slice
+    splits = 1 if tiles >= sms else max(1, min(-(-sms // tiles), steps // 8))
+    ws_ints = len(classes) * (m * np_pad + tiles // len(classes)) if splits > 1 else 0
+    plan = _Plan(torch.cat(operands), table, (n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, len(classes),
+                                              np_pad), splits, ws_ints)
+    layer.plans[key] = plan
+    return plan
+
+
+def _launch(q: torch.Tensor, layer: Int8Layer, mode: int, alpha, flat_alpha, next_scale) -> torch.Tensor:
+    if layer.ksize * layer.ksize * layer.cin * 127 * 127 >= 2**31:
         raise ValueError("K is too large for exact int32 accumulation")
-    if n * ho * wo >= 2**31:
-        raise ValueError("too many output pixels for one launch")
-    out_shape = (n, layer.cout) if layer.kind == "dense" else (n, layer.cout, ho, wo)
-    out = torch.empty(out_shape, dtype=torch.int32 if raw else torch.float32, device=q.device)
-    fn = _build.launcher("int8_conv", "dvt_conv_s8", 5, 14)
+    plan = _plan(q, layer, _sm_count(q.device.index if q.device.index is not None else torch.cuda.current_device()))
+    n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, nclass, np_pad = plan.dims
+    if n * ho * wo * cout >= 2**31:
+        raise ValueError("too many outputs for one launch")
+    dev = q.device
+    if mode == _INT8:
+        shape = (n, cout) if layer.kind == "dense" else (n, ho, wo, cout)
+        dtype = torch.int8
+    else:
+        shape = (n, cout) if layer.kind == "dense" else (n, cout, ho, wo)
+        dtype = torch.int32 if mode == _RAW else torch.float32
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    length = _check_epilogue((n, cout) + (() if layer.kind == "dense" else (ho, wo)), alpha, flat_alpha, next_scale)
+    ptrs = []
+    for t in (alpha, flat_alpha, next_scale):
+        if t is None:
+            ptrs.append(None)
+            continue
+        if t.device != dev:
+            raise ValueError("the epilogue's tensors must lie on the activations' device")
+        t = t.detach().to(torch.float32).contiguous()
+        ptrs.append(t)
+    # split K's partial sums and tile counters, zeroed by the launcher
+    ws = torch.empty(plan.ws_ints, dtype=torch.int32, device=dev) if plan.ws_ints else None
+    fn = _build.launcher("int8_conv", "dvt_conv_fused", 10, 16)
     status = _build.call(
-        fn, q.device, q.data_ptr(), layer.packed.data_ptr(), layer.dqw.data_ptr(), layer.bias.data_ptr(),
-        out.data_ptr(), n, h, w, cin, ho, wo, layer.cout, layer.ksize, layer.stride, top, left,
-        int(layer.kind == "convT"), kp, int(raw),
+        fn, dev, q.data_ptr(), plan.operand.data_ptr(), layer.dqw.data_ptr(), layer.bias.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in ptrs), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        plan.table.ctypes.data,
+        n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, nclass, np_pad, mode, length, plan.splits,
     )
     _build.check(status, "int8_conv")
-    conv_s8.launches += 1
     return out
 
 
-def conv_s8(q: torch.Tensor, layer: Int8Layer, raw: bool = False) -> torch.Tensor:
-    """The layer on int8 channels-last activations (quant_act's output):
-    float32 NCHW or (N, Cout), or with ``raw=True`` the int32 accumulators.
-    Plain version for CPU tensors; the ``dvt_conv_s8`` kernel for CUDA
-    tensors."""
+def _check_operands(q: torch.Tensor, layer: Int8Layer) -> None:
     if q.dtype != torch.int8:
         raise ValueError(f"activations must be int8, got {q.dtype}")
-    if any(t.device != q.device for t in (layer.qk, layer.packed, layer.dqw, layer.bias)):
+    if any(t.device != q.device for t in (layer.qk, layer.rows, layer.dqw, layer.bias)):
         raise ValueError("the layer must lie on the activations' device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def conv_fused(q: torch.Tensor, layer: Int8Layer, alpha: torch.Tensor | None = None,
+               flat_alpha: torch.Tensor | None = None, next_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The layer on int8 channels-last activations with its epilogue fused
+    (module docstring): the next layer's int8 input with ``next_scale``,
+    float32 NCHW or (N, Cout) without.  Plain version for CPU tensors; one
+    ``dvt_conv_fused`` launch for CUDA tensors."""
+    _check_operands(q, layer)
+    if q.device.type == "cpu":
+        return conv_fused_plain(q, layer, alpha, flat_alpha, next_scale)
+    out = _launch(q.contiguous(), layer, _FLOAT if next_scale is None else _INT8, alpha, flat_alpha, next_scale)
+    _conv_fused.launches += 1
+    return out
+
+
+_conv_fused = conv_fused
+conv_fused.launches = 0
+
+
+def conv_s8(q: torch.Tensor, layer: Int8Layer, raw: bool = False) -> torch.Tensor:
+    """The layer on int8 channels-last activations: float32 NCHW or (N,
+    Cout), or with ``raw=True`` the int32 accumulators.  Plain version for
+    CPU tensors; ``dvt_conv_fused`` with no PReLU and no quantizer for CUDA
+    tensors."""
+    _check_operands(q, layer)
     if q.device.type == "cpu":
         return conv_s8_plain(q, layer, raw)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return _launch(q.contiguous(), layer, raw)
+    out = _launch(q.contiguous(), layer, _RAW if raw else _FLOAT, None, None, None)
+    _conv_s8.launches += 1
+    return out
 
 
+_conv_s8 = conv_s8
 conv_s8.launches = 0

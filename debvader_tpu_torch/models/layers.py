@@ -34,6 +34,7 @@ __all__ = [
     "conv_transpose2d_tf",
     "Conv2dSame",
     "ConvTranspose2dTF",
+    "prelu",
     "PReLU",
     "BatchNorm",
     "Dense",
@@ -118,6 +119,13 @@ class ConvTranspose2dTF(nn.Module):
         return y + self.bias.view(1, -1, 1, 1)
 
 
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) + alpha * min(x, 0), as ``PReLU`` computes it: a NaN
+    propagates, and a zero keeps ``torch.maximum``'s sign."""
+    zero = x.new_zeros(())
+    return torch.maximum(x, zero) + alpha * torch.minimum(x, zero)
+
+
 class PReLU(nn.Module):
     """max(x, 0) + alpha * min(x, 0) with a per-element alpha.
 
@@ -132,8 +140,7 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.zeros(tuple(shape)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        zero = x.new_zeros(())
-        return torch.maximum(x, zero) + self.alpha * torch.minimum(x, zero)
+        return prelu(x, self.alpha)
 
 
 class BatchNorm(nn.Module):

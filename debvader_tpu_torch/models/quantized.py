@@ -12,7 +12,10 @@ and two large dense layers:
   point, ``s`` calibrated as the abs-max (or a quantile) over a batch;
 - **accumulation** s8 x s8 -> s32 on the int8 tensor cores
   (kernels/int8_conv.py, ``csrc/int8_conv.cu``), dequantized as
-  ``float32(acc) * (dq * wscale) + bias``.
+  ``float32(acc) * (dq * wscale) + bias``; where the next quantization
+  point is int8 too, the same launch applies the PReLU(s) between them and
+  the next quantizer, and writes the next layer's int8 input
+  (``_int8_forward``).
 
 BatchNorm, PReLU, the latent head, the decoder's small dense layer and, by
 default, the final band conv stay float32.  The layer names are the JAX
@@ -332,15 +335,14 @@ def params_fingerprint(model: DeblenderVAE) -> str:
 
 
 def _quant_point(h, name, module, qw, ascales, collect, fake):
-    """One conv, transposed conv or dense layer: float (its module), int8
-    (``qw[name]`` an Int8Layer) or, with ``fake``, the differentiable QAT
-    form on the same grid (float accumulation, STE gradients)."""
+    """One conv, transposed conv or dense layer of the float, calibration
+    or QAT forward: float (its module) or, with ``fake`` and ``name`` in
+    ``qw``, the differentiable QAT form on the int8 grid (float
+    accumulation, STE gradients)."""
     if collect is not None:
         collect[name] = _calib_stat(h, collect.q, collect.per_channel)
     if qw is None or name not in qw:
         return module(h)
-    if not fake:
-        return int8_conv.conv_s8(_quant_act(h, ascales[name]), qw[name])
     s = ascales[name]
     out_axis, in_axis = _axes(name)
     w = _fake_quant_weight(_weight(module), out_axis, in_axis, s)
@@ -351,14 +353,43 @@ def _quant_point(h, name, module, qw, ascales, collect, fake):
 # ------------------------------------------------------------------ forward
 
 
+def _latent(h: torch.Tensor, cfg: ModelConfig, z_mode: str, generator, eps):
+    """The posterior of the encoder's output and its latent: its mean, or
+    'sample' with ``eps`` or a draw through ``_latent_noise``."""
+    loc, tril = softplus_tril(h, cfg.latent_dim, cfg.diag_shift)
+    posterior = MultivariateNormalTriL(loc, tril)
+    if z_mode == "sample":
+        if eps is None:
+            eps = _latent_noise(generator, tuple(loc.shape), loc)
+        return posterior, posterior.sample(eps=eps)
+    if z_mode == "mean":
+        return posterior, posterior.mean()
+    raise ValueError(f"unknown z_mode {z_mode!r}")
+
+
+def _head(h: torch.Tensor, cfg: ModelConfig) -> PixelNormal:
+    """The band head's ReLU output, cropped to the stamp, as a PixelNormal."""
+    h = F.relu(h)
+    crop = h.shape[-1] - cfg.stamp_size
+    if crop > 0:
+        lo = crop // 2
+        hi = h.shape[-1] - (crop - lo)
+        h = h[:, :, lo:hi, lo:hi]
+    h = h.permute(0, 2, 3, 1)
+    return PixelNormal(h[..., : cfg.nb_of_bands], cfg.scale_floor + h[..., cfg.nb_of_bands :])
+
+
 def _forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw=None, ascales=None, collect=None,
              fake: bool = False, generator: torch.Generator | None = None, eps: torch.Tensor | None = None):
     """The VAE forward with each conv, transposed conv and large dense
     layer a quantization point; x (N, S, S, B).  ``qw=None`` is
     bit-identical to ``DeblenderVAE.forward`` (the same module calls);
-    ``qw`` maps the quantized layers' names to Int8Layers (int8) or, with
-    ``fake=True``, names the layers that run the QAT form.  'sample' takes
-    ``eps`` or draws it through ``_latent_noise``."""
+    ``qw`` maps the quantized layers' names to Int8Layers (int8, through
+    ``_int8_forward``) or, with ``fake=True``, names the layers that run
+    the QAT form.  'sample' takes ``eps`` or draws it through
+    ``_latent_noise``."""
+    if qw is not None and not fake:
+        return _int8_forward(model, x, z_mode, qw, ascales, generator, eps)
     cfg = model.cfg
     enc, dec = model.encoder, model.decoder
     h = enc.bn(x.permute(0, 3, 1, 2))
@@ -366,16 +397,7 @@ def _forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw=None, ascales
         h = act(_quant_point(h, f"enc/Conv_{i}", enc.convs[i], qw, ascales, collect, fake))
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
     h = _quant_point(enc.flat_prelu(h), "enc/Dense_0", enc.dense, qw, ascales, collect, fake)
-    loc, tril = softplus_tril(h, cfg.latent_dim, cfg.diag_shift)
-    posterior = MultivariateNormalTriL(loc, tril)
-    if z_mode == "sample":
-        if eps is None:
-            eps = _latent_noise(generator, tuple(loc.shape), loc)
-        z = posterior.sample(eps=eps)
-    elif z_mode == "mean":
-        z = posterior.mean()
-    else:
-        raise ValueError(f"unknown z_mode {z_mode!r}")
+    posterior, z = _latent(h, cfg, z_mode, generator, eps)
 
     # the small dense layer (latent -> 560) always runs in float
     h = dec.prelu0(_quant_point(dec.prelu_in(z), "dec/Dense_0", dec.dense0, None, None, collect, fake))
@@ -383,14 +405,59 @@ def _forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw=None, ascales
     h = h.reshape(h.shape[0], dec.width, dec.width, cfg.filters[-1]).permute(0, 3, 1, 2)
     for j, act in enumerate(dec.prelus):
         h = act(_quant_point(h, f"dec/ConvTranspose2DTF_{j}", dec.convts[j], qw, ascales, collect, fake))
-    h = F.relu(_quant_point(h, "dec/Conv_0", dec.head, qw, ascales, collect, fake))
-    crop = h.shape[-1] - cfg.stamp_size
-    if crop > 0:
-        lo = crop // 2
-        hi = h.shape[-1] - (crop - lo)
-        h = h[:, :, lo:hi, lo:hi]
-    h = h.permute(0, 2, 3, 1)
-    return PixelNormal(h[..., : cfg.nb_of_bands], cfg.scale_floor + h[..., cfg.nb_of_bands :]), posterior
+    return _head(_quant_point(h, "dec/Conv_0", dec.head, qw, ascales, collect, fake), cfg), posterior
+
+
+def _int8_step(h, name, module, qw, ascales, act=None, flat_act=None, nxt=None):
+    """One conv, transposed conv or dense layer of the int8 forward and
+    the PReLU ``act`` after it (then, for the encoder's last conv, the
+    flatten to (h, w, c) order and the PReLU ``flat_act``).  ``h`` is
+    float32 (NCHW, or (N, F)) or the int8 channels-last input that the
+    layer before wrote.  Where this layer and the next quantization point
+    ``nxt`` are both int8, one ``conv_fused`` launch applies the PReLUs
+    and nxt's quantizer and returns nxt's int8 input ((N, H, W, C), or (N,
+    F) after the flatten): the float32 activation never reaches memory.
+    Otherwise the result is float32, as the float forward's."""
+    if name in qw:
+        if h.dtype != torch.int8:
+            h = _quant_act(h, ascales[name])
+        alpha = None if act is None else act.alpha
+        if nxt in qw:
+            q = int8_conv.conv_fused(h, qw[name], alpha, None if flat_act is None else flat_act.alpha, ascales[nxt])
+            return q if flat_act is None else q.reshape(q.shape[0], -1)
+        h = int8_conv.conv_fused(h, qw[name], alpha)
+    else:
+        h = module(h)
+        if act is not None:
+            h = act(h)
+    if flat_act is not None:
+        h = flat_act(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1))
+    return h
+
+
+def _int8_forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw: dict, ascales: dict, generator, eps):
+    """``_forward`` with the Int8Layers ``qw``: each int8 layer writes the
+    next layer's int8 input where that layer is int8 too, so the
+    stand-alone quantizer runs only after a float layer (the BatchNorm
+    before enc/Conv_0, the float dec/Dense_0 before dec/Dense_1)."""
+    cfg = model.cfg
+    enc, dec = model.encoder, model.decoder
+    h = enc.bn(x.permute(0, 3, 1, 2))
+    last = len(enc.convs) - 1
+    for i, act in enumerate(enc.prelus):
+        h = _int8_step(h, f"enc/Conv_{i}", enc.convs[i], qw, ascales, act, enc.flat_prelu if i == last else None,
+                       "enc/Dense_0" if i == last else f"enc/Conv_{i + 1}")
+    posterior, z = _latent(_int8_step(h, "enc/Dense_0", enc.dense, qw, ascales), cfg, z_mode, generator, eps)
+
+    h = dec.prelu0(dec.dense0(dec.prelu_in(z)))
+    h = _int8_step(h, "dec/Dense_1", dec.dense1, qw, ascales, dec.prelu1, None, "dec/ConvTranspose2DTF_0")
+    shape = (h.shape[0], dec.width, dec.width, cfg.filters[-1])
+    h = h.view(shape) if h.dtype == torch.int8 else h.reshape(shape).permute(0, 3, 1, 2)
+    last = len(dec.convts) - 1
+    for j, act in enumerate(dec.prelus):
+        h = _int8_step(h, f"dec/ConvTranspose2DTF_{j}", dec.convts[j], qw, ascales, act, None,
+                       "dec/Conv_0" if j == last else f"dec/ConvTranspose2DTF_{j + 1}")
+    return _head(_int8_step(h, "dec/Conv_0", dec.head, qw, ascales), cfg), posterior
 
 
 # ----------------------------------------------------------------- user API

@@ -305,6 +305,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         registration.register_full,
         int8_conv.quant_act,
         int8_conv.conv_s8,
+        int8_conv.conv_fused,
     )
     bf16_counters = (render.render_field_kernel, render.place_patches)
     before = [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters]
@@ -330,5 +331,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     layer = int8_conv.make_layer(
         "conv", torch.ones(4, 3, 3, 3, dtype=torch.int8), torch.ones(4), torch.tensor(0.5), torch.zeros(4), 2
     )
-    int8_conv.conv_s8(int8_conv.quant_act(torch.ones(1, 3, 7, 7), torch.tensor(0.5)), layer)
+    q = int8_conv.quant_act(torch.ones(1, 3, 7, 7), torch.tensor(0.5))
+    int8_conv.conv_s8(q, layer)
+    int8_conv.conv_fused(q, layer, torch.ones(4, 4, 4), None, torch.tensor(0.25))
     assert [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters] == before

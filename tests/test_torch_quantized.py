@@ -29,6 +29,7 @@ What is exact and what is held to a tolerance:
   for a counted share of at most ``FLIP_SHARE``.
 """
 
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -155,24 +156,40 @@ def test_int8_layer_matches_jax(kind, stride, dims, granularity):
 
 
 def test_int8_layer_extremes_and_packing():
-    """All-(+-127) operands give the largest |acc| exactly; the packed
-    kernel the card reads is the (Cout, (ky, kx, ci)) rows of the port's
-    layout padded with zeros to (64, 32) multiples."""
+    """All-(+-127) operands give the largest |acc| exactly; the kernel
+    rows are the (Cout, (ky, kx, ci)) rows of the port's layout, and a tap
+    class's operand, which the card reads, holds B[co, t * cin + ci] =
+    rows[co, tap t's (ky, kx), ci] at wgmma's K-major offset without
+    swizzle (k-step of 32 bytes, 8-row group of 256, 16-byte half of 128,
+    row of 16), zeros up to the channel tile and a multiple of 32."""
     q = torch.full((2, 5, 5, 256), -127, dtype=torch.int8)
     qk = torch.full((256, 256, 3, 3), -127, dtype=torch.int8)
     layer = int8_conv.make_layer("conv", qk, torch.ones(256), torch.tensor(1.0), torch.zeros(256), 1)
     acc = int8_conv.conv_s8(q, layer, raw=True)
     assert int(acc.max()) == 9 * 256 * 127 * 127
     rng = np.random.default_rng(3)
-    for kind, shape in (("conv", (5, 6, 3, 3)), ("convT", (6, 5, 3, 3)), ("dense", (54, 5))):
+    for kind, shape, cin in (("conv", (5, 6, 3, 3), 6), ("convT", (6, 5, 3, 3), 6), ("dense", (54, 5), 54),
+                             ("convT", (16, 40, 3, 3), 16)):
         qk = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
-        packed = int8_conv.pack_kernel(qk, kind)
+        rows = int8_conv.pack_kernel(qk, kind)
+        cout = rows.shape[0]
         if kind == "dense":
-            rows = qk.t()
+            want = qk.t()
         else:
-            rows = (qk.permute(0, 2, 3, 1) if kind == "conv" else qk.permute(1, 2, 3, 0)).reshape(5, -1)
-        assert packed.shape == (64, 64)
-        assert torch.equal(packed[:5, :54], rows) and not packed[5:].any() and not packed[:, 54:].any()
+            want = (qk.permute(0, 2, 3, 1) if kind == "conv" else qk.permute(1, 2, 3, 0)).reshape(cout, -1)
+        assert torch.equal(rows, want)
+        ksize = 1 if kind == "dense" else 3
+        for cls in int8_conv.tap_classes(kind, ksize, 2 if kind == "convT" else 1, 4, 4)[-1]:
+            op = int8_conv.pack_operand(rows, cin, ksize, cls.taps).numpy()
+            np_pad = 32 if cout <= 32 else 64
+            kp = -(-len(cls.taps) * cin // 32) * 32
+            assert op.size == np_pad * kp
+            b = np.zeros((np_pad, kp), np.int8)
+            for t, (ky, kx, _, _) in enumerate(cls.taps):
+                b[:cout, t * cin:(t + 1) * cin] = rows.numpy()[:, (ky * ksize + kx) * cin:(ky * ksize + kx + 1) * cin]
+            co, k = np.meshgrid(np.arange(np_pad), np.arange(kp), indexing="ij")
+            at = (k // 32) * np_pad * 32 + (co // 8) * 256 + ((k % 32) // 16) * 128 + (co % 8) * 16 + k % 16
+            np.testing.assert_array_equal(op[at], b)
 
 
 # ----------------------------------------------------- weights and scales
@@ -252,6 +269,19 @@ def _record_quant_act(monkeypatch, module, sink):
     monkeypatch.setattr(module, "_quant_act", rec)
 
 
+def _record_int8_inputs(monkeypatch, sink):
+    """The port's int8 activations at every quantization point: the input
+    of each int8 layer, in forward order (only two come from ``_quant_act``:
+    every other one is written by the int8 layer before it)."""
+    orig = int8_conv.conv_fused
+
+    def rec(q, *args):
+        sink.append(np.asarray(q))
+        return orig(q, *args)
+
+    monkeypatch.setattr(int8_conv, "conv_fused", rec)
+
+
 @pytest.mark.parametrize("z_mode", ["mean", "sample"])
 @pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
 def test_int8_forward_matches_jax_eager(monkeypatch, granularity, z_mode):
@@ -265,7 +295,7 @@ def test_int8_forward_matches_jax_eager(monkeypatch, granularity, z_mode):
     eps = torch.from_numpy(np.asarray(jax.random.normal(rng, (6, 8)))) if z_mode == "sample" else None
     jacts, tacts = [], []
     _record_quant_act(monkeypatch, jq, jacts)
-    _record_quant_act(monkeypatch, tq, tacts)
+    _record_int8_inputs(monkeypatch, tacts)
     jd, jpost = jq.quantized_forward(jqv, jnp.asarray(x), rng, z_mode=z_mode)
     td, tpost = tq.quantized_forward(tqv, x, z_mode=z_mode, eps=eps)
     names = ["enc/Conv_0", "enc/Conv_1", "enc/Conv_2", "enc/Conv_3", "enc/Dense_0", "dec/Dense_1",
@@ -352,6 +382,46 @@ def test_quantize_vae_layers_and_quantile(monkeypatch):
     tqv = tq.quantize_vae(model, x, calib_quantile=0.999)
     for name, js in jqv.act_scales.items():
         np.testing.assert_allclose(tqv.act_scales[name].numpy(), np.asarray(js), rtol=SCALE_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("layers", [
+    ["enc/Conv_0", "enc/Conv_1", "enc/Dense_0", "dec/ConvTranspose2DTF_1"],
+    ["enc/Conv_2", "enc/Conv_3", "dec/Dense_1", "dec/ConvTranspose2DTF_3", "dec/Conv_0"],
+], ids=["fused_then_float", "flat_and_head"])
+def test_int8_forward_with_a_layer_subset_matches_jax(layers):
+    """A bundle that quantizes some layers only: each int8 layer fuses its
+    PReLU and the next quantizer where the next point is int8 too, writes
+    float32 where it is not, and quantizes its input alone after a float
+    layer (here: int8 into int8, int8 into float, float into int8 through
+    the flatten, the band head int8).  The int8 activations at every point
+    and loc equal JAX's eager quantized_forward (loc within LOC_TOL)."""
+    jmodel, variables, _, x = _tiny()
+    jqv = jq.quantize_vae(jmodel, variables, jnp.asarray(x), rng=jax.random.PRNGKey(1), layers=layers)
+    tqv = tq._from_arrays(*quantized_from_jax(jqv))
+    assert sorted(tqv.qweights) == sorted(layers)
+    stamps = _stamps()
+    jacts, tacts = [], []
+    saved_j, saved_t = jq._quant_act, int8_conv.conv_fused
+    try:
+        def jrec(h, scale):
+            out = saved_j(h, scale)
+            jacts.append(np.asarray(out))
+            return out
+
+        def trec(q, *args):
+            tacts.append(np.asarray(q))
+            return saved_t(q, *args)
+
+        jq._quant_act, int8_conv.conv_fused = jrec, trec
+        jd, _ = jq.quantized_forward(jqv, jnp.asarray(stamps), jax.random.PRNGKey(0), z_mode="mean")
+        td, _ = tq.quantized_forward(tqv, stamps, z_mode="mean")
+    finally:
+        jq._quant_act, int8_conv.conv_fused = saved_j, saved_t
+    assert len(jacts) == len(tacts) == len(layers)
+    for a, b in zip(jacts, tacts):
+        np.testing.assert_array_equal(b.reshape(a.shape), a)
+    want = np.asarray(jd.loc)
+    assert float(np.abs(td.loc.numpy() - want).max()) <= LOC_TOL * float(np.abs(want).max())
 
 
 # --------------------------------------------------------------------- QAT
@@ -495,3 +565,213 @@ def test_qat_elbo_with_recalibration():
         assert torch.equal(out.qweights[name][0], qk)
     assert any(not torch.equal(out.act_scales[n], tqv.act_scales[n]) for n in tqv.act_scales)
 
+
+
+# ------------------------------------------- the fused layer and its classes
+
+
+@functools.lru_cache(maxsize=None)
+def _packaged_layers():
+    """JAX's eager int8 forward of the packaged sim_demo_int8 bundle on 4
+    simulated stamps with every int8 layer's float input and output
+    recorded ({name: (h, y)}, JAX's layouts), and the port's bundle."""
+    from debvader_tpu.data.simulate import simulate_batch
+
+    jqv = jq.load_quantized(REPO / "debvader_tpu" / "data" / "weights" / "sim_demo_int8")
+    tqv = tq.load_quantized("sim_demo_int8", device="cpu")
+    seen = {}
+
+    def recording(fn):
+        def apply(h, name, *args, **kwargs):
+            y = fn(h, name, *args, **kwargs)
+            if name in jqv.qweights:
+                seen[name] = (np.asarray(h), np.asarray(y))
+            return y
+        return apply
+
+    saved = jq._apply_conv, jq._apply_convT, jq._apply_dense
+    jq._apply_conv, jq._apply_convT, jq._apply_dense = (recording(f) for f in saved)
+    try:
+        x = np.asarray(simulate_batch(jax.random.PRNGKey(123), 4)[0])
+        jq.quantized_forward(jqv, x, jax.random.PRNGKey(0), z_mode="mean")
+    finally:
+        jq._apply_conv, jq._apply_convT, jq._apply_dense = saved
+    return jqv, tqv, seen
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1) if a.ndim == 4 else a))
+
+
+# (layer, its PReLU(s) in the port's model, the next quantization point)
+_FUSED = {
+    "conv": ("enc/Conv_2", lambda m: (m.encoder.prelus[2].alpha, None), "enc/Conv_3"),
+    "convT_stride2": ("dec/ConvTranspose2DTF_2", lambda m: (m.decoder.prelus[2].alpha, None),
+                      "dec/ConvTranspose2DTF_3"),
+    "dense_to_convT": ("dec/Dense_1", lambda m: (m.decoder.prelu1.alpha, None), "dec/ConvTranspose2DTF_0"),
+    "conv7_to_dense": ("enc/Conv_7", lambda m: (m.encoder.prelus[7].alpha, m.encoder.flat_prelu.alpha),
+                       "enc/Dense_0"),
+}
+
+
+@pytest.mark.parametrize("case", list(_FUSED))
+def test_fused_layer_matches_jax(case):
+    """conv_fused's plain version, on the packaged bundle's real
+    activations, bit for bit JAX's _quant_act(_prelu(<layer>, alpha),
+    next_scale) as its eager forward computes it (the next int8 layer's
+    quantized input): a conv, a stride-2 transposed conv, dec/Dense_1 into
+    the (h, w, c) reshape before dec/ConvTranspose2DTF_0, and enc/Conv_7
+    through its PReLU, the flatten and the flat PReLU into enc/Dense_0.
+    The wrapper on CPU tensors is the plain version."""
+    jqv, tqv, seen = _packaged_layers()
+    name, alphas, nxt = _FUSED[case]
+    h, _ = seen[name]
+    h_next, _ = seen[nxt]
+    layer = tqv.int8_layers()[name]
+    q = int8_conv.quant_act(_nchw(h), tqv.act_scales[name])
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq._quant_act(jnp.asarray(h), jqv.act_scales[name])))
+    alpha, flat_alpha = alphas(tqv.model)
+    with torch.no_grad():
+        got = int8_conv.conv_fused(q, layer, alpha, flat_alpha, tqv.act_scales[nxt])
+    want = np.asarray(jq._quant_act(jnp.asarray(h_next), jqv.act_scales[nxt]))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy().reshape(want.shape), want)
+    # the same layer's float32 output with its PReLU, before the quantizer
+    _, y = seen[name]
+    with torch.no_grad():
+        f32 = int8_conv.conv_fused(q, layer, alpha)
+    want_f = np.asarray(jq._prelu(jnp.asarray(y), jnp.asarray(
+        np.moveaxis(alpha.detach().numpy(), 0, -1) if alpha.ndim == 3 else alpha.detach().numpy())))
+    np.testing.assert_array_equal(_bits(f32.numpy()), _bits(_nchw(want_f).numpy()))
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+def test_fused_layer_scales_and_nan(granularity):
+    """The fused epilogue with per-tensor and per-channel scales on JAX's
+    TINY bundles: bit for bit JAX's _quant_act(_prelu(dequantized layer,
+    alpha), next_scale); a NaN (dqw NaN on one channel) gives 0 in the
+    quantized output and stays NaN in the float32 one, as in JAX."""
+    jqv, tqv = _bundles(granularity)
+    x = _stamps(4, seed=3)
+    layer = tqv.int8_layers()["enc/Conv_0"]
+    with torch.no_grad():
+        hin = tqv.model.encoder.bn(torch.from_numpy(x).permute(0, 3, 1, 2))
+    q = int8_conv.quant_act(hin, tqv.act_scales["enc/Conv_0"])
+    dqw = layer.dqw.clone()
+    dqw[1] = float("nan")
+    nan_layer = dataclasses.replace(layer, dqw=dqw)
+    alpha = tqv.model.encoder.prelus[0].alpha.detach()
+    s_next = tqv.act_scales["enc/Conv_1"]
+    for lay in (layer, nan_layer):
+        acc = int8_conv.conv_s8(q, lay, raw=True).numpy()
+        y = jnp.asarray(np.moveaxis(acc, 1, -1)).astype(jnp.float32) * jnp.asarray(lay.dqw.numpy())
+        y = y + jnp.asarray(lay.bias.numpy())
+        y = jq._prelu(y, jnp.asarray(np.moveaxis(alpha.numpy(), 0, -1)))
+        want = np.asarray(jq._quant_act(y, jnp.asarray(s_next.numpy())))
+        got = int8_conv.conv_fused(q, lay, alpha, None, s_next)
+        np.testing.assert_array_equal(got.numpy(), want)
+        f32 = int8_conv.conv_fused(q, lay, alpha).numpy()
+        np.testing.assert_array_equal(np.isnan(f32), np.isnan(np.moveaxis(np.asarray(y), -1, 1)))
+        if lay is nan_layer:
+            assert np.isnan(f32[:, 1]).all() and not np.isnan(f32[:, 0]).any()
+            assert (got.numpy()[..., 1] == 0).all()
+
+
+@pytest.mark.parametrize("size", [4, 8, 16, 32], ids=lambda s: f"{s}to{2 * s}")
+def test_parity_classes_cover_the_gather_taps(size):
+    """The four parity sub-convolutions of a stride-2 3x3 transposed conv
+    (sim_demo's dec/ConvTranspose2DTF_0, 2, 4, 6 geometry): at every
+    output pixel their taps, with the input pixels they read, are exactly
+    the gather form's taps whose input index (o + lo - k) / 2 is integral
+    and in range, where lo is ConvTranspose2dTF's crop; 9 taps over the
+    four classes (4, 2, 2, 1), not 36."""
+    k, s = 3, 2
+    ho, wo, hq, wq, istride, ostep, classes = int8_conv.tap_classes("convT", k, s, size, size)
+    assert (ho, wo, hq, wq, istride, ostep) == (2 * size, 2 * size, size, size, 1, 2)
+    assert sorted(len(c.taps) for c in classes) == [1, 2, 2, 4]
+    lo = int8_conv.tf_same_pads(ho, k, s)[0]
+    got = {}
+    for cls in classes:
+        for qy in range(hq):
+            for qx in range(wq):
+                oy, ox = cls.oy0 + ostep * qy, cls.ox0 + ostep * qx
+                assert (oy, ox) not in got
+                got[oy, ox] = {(ky, kx, istride * qy + dy, istride * qx + dx) for ky, kx, dy, dx in cls.taps
+                               if 0 <= istride * qy + dy < size and 0 <= istride * qx + dx < size}
+    for oy in range(ho):
+        for ox in range(wo):
+            want = {(ky, kx, (oy + lo - ky) // s, (ox + lo - kx) // s)
+                    for ky in range(k) for kx in range(k)
+                    if (oy + lo - ky) % s == 0 and (ox + lo - kx) % s == 0
+                    and 0 <= (oy + lo - ky) // s < size and 0 <= (ox + lo - kx) // s < size}
+            assert got[oy, ox] == want, (oy, ox)
+
+
+def _emulate_kernel(q, layer, sms=132):
+    """What dvt_conv_fused sums, from the plan the wrapper hands it: for
+    each tap class and K slice, the A rows gathered through the class's
+    (dy, dx) table with zeros off the input, times B read back from the
+    packed operand at wgmma's K-major offsets; the raw int32 sums (NCHW, or
+    (N, Cout))."""
+    plan = int8_conv._plan(q, layer, sms)
+    n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, nclass, np_pad = plan.dims
+    # float64 products and sums of int8 values are exact (below 2^53)
+    qa = q.numpy().reshape(n, h, w, cin).astype(np.float64)
+    op = plan.operand.numpy().astype(np.float64)
+    out = np.zeros((n, cout, ho, wo), np.float64)
+    for c in range(nclass):
+        oy0, ox0, ntaps, kp, off = (int(v) for v in plan.table[c, :5])
+        dy, dx = plan.table[c, 5:14], plan.table[c, 14:23]
+        co, k = np.meshgrid(np.arange(np_pad), np.arange(kp), indexing="ij")
+        b = op[off + (k // 32) * np_pad * 32 + (co // 8) * 256 + ((k % 32) // 16) * 128 + (co % 8) * 16 + k % 16]
+        a = np.zeros((n, hq, wq, kp), np.float64)
+        qy, qx = np.arange(hq), np.arange(wq)
+        for t in range(ntaps):
+            iy, ix = istride * qy + dy[t], istride * qx + dx[t]
+            oky, okx = (iy >= 0) & (iy < h), (ix >= 0) & (ix < w)
+            a[:, oky[:, None] & okx[None, :], t * cin:(t + 1) * cin] = \
+                qa[:, iy[oky]][:, :, ix[okx]].reshape(n, -1, cin)
+        steps = kp // 32
+        acc = 0
+        for split in range(plan.splits):  # the K slices add in any order
+            lo, hi = steps * split // plan.splits * 32, steps * (split + 1) // plan.splits * 32
+            acc = acc + a[..., lo:hi] @ b[:, lo:hi].T
+        out[:, :, oy0::ostep, ox0::ostep] = np.moveaxis(acc[..., :cout], -1, 1)
+    return out.reshape((n, cout) if layer.kind == "dense" else (n, cout, ho, wo)).astype(np.int64)
+
+
+@pytest.mark.parametrize("sms, batch", [(132, 3), (1, 2)], ids=["split_k", "whole_k"])
+def test_kernel_plan_sums_as_the_plain_version(sms, batch):
+    """The kernel's launch plan for each of the packaged bundle's 18 int8
+    layers on a few stamps (the tap classes' (dy, dx) tables, the packed
+    operands, the K slices), summed as the kernel sums it, gives
+    conv_s8_plain's int32 accumulators: on a 132-SM card, where the plans
+    split K (2 to 32 slices), and on a card of one SM, where none does
+    (as at a 128-stamp chunk's larger layers).  Random int8 inputs (the
+    plan does not depend on the values; a layer caches its plan by input
+    shape, so each card takes its own batch)."""
+    _, tqv, seen = _packaged_layers()
+    rng = np.random.default_rng(sms)
+    splits = []
+    for name, layer in tqv.int8_layers().items():
+        h, _ = seen[name]
+        q = torch.from_numpy(rng.integers(-127, 128, (batch,) + h.shape[1:]).astype(np.int8))
+        want = int8_conv.conv_s8_plain(q, layer, raw=True).numpy()
+        np.testing.assert_array_equal(_emulate_kernel(q, layer, sms), want, err_msg=name)
+        splits.append(layer.plans[(tuple(q.shape), q.device)].splits)
+    assert (max(splits) > 1) == (sms > 1), splits
+
+
+def test_kernel_plan_rejects_what_it_cannot_launch():
+    """The kernel takes at most four tap classes of at most nine taps: a
+    stride-3 transposed conv (nine parity classes) or a 5 x 5 kernel raise
+    before any launch; the plain version serves both on the CPU."""
+    rng = np.random.default_rng(4)
+    for kind, stride, k in (("convT", 3, 3), ("conv", 1, 5)):
+        shape = (8, 8, k, k)
+        layer = int8_conv.make_layer(kind, torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)),
+                                     torch.ones(8), torch.tensor(0.5), torch.zeros(8), stride)
+        q = torch.from_numpy(rng.integers(-127, 128, (1, 5, 5, 8)).astype(np.int8))
+        assert int8_conv.conv_s8(q, layer).shape[1] == 8
+        with pytest.raises(ValueError, match="tap classes"):
+            int8_conv._plan(q, layer, 132)

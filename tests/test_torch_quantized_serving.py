@@ -23,7 +23,8 @@ from debvader_tpu_torch.config import ModelConfig
 from debvader_tpu_torch.models import quantized as tq
 from debvader_tpu_torch.models.vae import DeblenderVAE
 from debvader_tpu_torch.weights import default_weights_dir, quantized_from_jax
-from test_torch_quantized import LOC_TOL, REPO, TINY_KW, _bits, _bundles, _record_quant_act, _stamps, _tiny
+from test_torch_quantized import (LOC_TOL, REPO, TINY_KW, _bits, _bundles, _record_int8_inputs, _record_quant_act,
+                                  _stamps, _tiny)
 
 torch.set_num_threads(1)
 
@@ -160,7 +161,7 @@ def test_packaged_int8_bundle_serves_as_jax(monkeypatch):
     x = np.asarray(simulate_batch(jax.random.PRNGKey(123), 16)[0])
     jacts, tacts = [], []
     _record_quant_act(monkeypatch, jq, jacts)
-    _record_quant_act(monkeypatch, tq, tacts)
+    _record_int8_inputs(monkeypatch, tacts)
     jd, _ = jq.quantized_forward(jqv, x, jax.random.PRNGKey(0), z_mode="mean")
     td, _ = tq.quantized_forward(tqv, x, z_mode="mean")
     assert len(jacts) == len(tacts) == 18
