@@ -133,18 +133,27 @@ without printing its last line):
    the float32 layer, and against the unfused chain of conv_s8, the eager
    PReLU and quant_act), timed with its bound, the plain version,
    torch._int_mm over an im2col, the float32 cuDNN layer and the unfused
-   chain, and the stand-alone quantizer at its two points (the
-   int8_layer_groups line, one line a layer after it); a batch of 1, the
-   ragged 295-source batch, all-(+-127) operands, per-tensor scales and
-   NaN, infinite and signed-zero epilogue values; then
-   DeblendField(quantized=load_quantized('sim_demo_int8'), z_mode='mean')
-   on the 1024^2 field, both routes in 128-source chunks with the launches
-   of each route counted from 0 and held to exactly 18 fused layers and 2
-   quantizers a chunk, two runs bit-identical, the routes against each
-   other, the total-flux error against the float forward on 64 simulated
-   stamps, warm deblend_and_render int8 and float32 in turns, a chunk's
-   peak memory, the 256^2 crop card against CPU, and one qat_finetune step
-   at batch 32 card against CPU (the quantized line);
+   chain (the int8_layer_groups line, one line a layer after it); the two
+   fused float -> int8 points (dvt_quant_point: the BatchNorm and the
+   quantizer before enc/Conv_0, dec/Dense_0's bias, its PReLU and the
+   quantizer before dec/Dense_1) bit for bit against their plain versions
+   on the chunk's real inputs, per-channel scales, NaN, infinite,
+   signed-zero and extreme values, quotients on .5 and past +-127, a batch
+   of 1 and a ragged 39-stamp chunk, each timed with its bound (the
+   int8_points part of that line), and the stand-alone quantizer, which
+   the forward no longer launches, on the same points' float inputs; a
+   batch of 1, the ragged 295-source batch, all-(+-127) operands,
+   per-tensor scales and NaN, infinite and signed-zero epilogue values;
+   then DeblendField(quantized=load_quantized('sim_demo_int8'),
+   z_mode='mean') on the 1024^2 field, both routes in 128-source chunks
+   with the launches of each route counted from 0 and held to exactly 18
+   fused layers and one of each fused point a chunk (no stand-alone
+   quantizer), two runs bit-identical, the routes against each other, the
+   total-flux error against the float forward on 64 simulated stamps, warm
+   deblend_and_render int8 and float32 in turns with one profiled call of
+   each (its CUDA kernels and the device's idle share), a chunk's peak
+   memory, the 256^2 crop card against CPU, and one qat_finetune step at
+   batch 32 card against CPU (the quantized line);
 20. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
@@ -2560,33 +2569,43 @@ QAT_MOVED_MAX_SHARE = 1e-2
 QAT_LR = 2e-5
 
 
-def int8_calls(torch, qv, stamps) -> tuple[list, list]:
+def int8_calls(torch, qv, stamps) -> tuple[list, list, list]:
     """One int8 forward of ``stamps`` (N, 59, 59, 6) on the bundle's
     device, its kernel calls caught in forward order: ([(layer name, int8
     input, Int8Layer, (alpha, flat_alpha, next_scale))] of conv_fused,
-    [(layer name, float32 input, scale)] of the stand-alone quant_act)."""
+    [(layer name, float32 input, scale)] of the stand-alone quant_act,
+    [(point name, wrapper name, its arguments)] of the fused points
+    bn_quant and bias_prelu_quant)."""
     from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.models import quantized as tq
 
     names = {id(layer): name for name, layer in qv.int8_layers().items()}
     by_scale = {id(s): name for name, s in qv.act_scales.items()}
-    convs, quants = [], []
-    fused, quant = ic.conv_fused, ic.quant_act
+    convs, quants, points = [], [], []
+    saved = {k: getattr(ic, k) for k in ("conv_fused", "quant_act", "bn_quant", "bias_prelu_quant")}
 
     def catch_conv(q, layer, *args):
         convs.append((names[id(layer)], q.detach().clone(), layer, (tuple(args) + (None,) * 3)[:3]))
-        return fused(q, layer, *args)
+        return saved["conv_fused"](q, layer, *args)
 
     def catch_quant(h, scale):
         quants.append((by_scale[id(scale)], h.detach().clone(), scale))
-        return quant(h, scale)
+        return saved["quant_act"](h, scale)
+
+    def catcher(wrapper):
+        def catch(x, *args):
+            points.append((by_scale[id(args[-1])], wrapper, (x.detach().clone(),) + args))
+            return saved[wrapper](x, *args)
+        return catch
 
     ic.conv_fused, ic.quant_act = catch_conv, catch_quant
+    ic.bn_quant, ic.bias_prelu_quant = catcher("bn_quant"), catcher("bias_prelu_quant")
     try:
         tq.quantized_forward(qv, stamps, z_mode="mean")
     finally:
-        ic.conv_fused, ic.quant_act = fused, quant
-    return convs, quants
+        for k, fn in saved.items():
+            setattr(ic, k, fn)
+    return convs, quants, points
 
 
 def int8_needed_macs(ic, q, layer) -> int:
@@ -2681,17 +2700,20 @@ def unfused_chain(torch, ic, q, layer, alpha, flat_alpha, next_scale):
 
 
 def check_int8_stamps(torch, ic, qv, stamps, what: str) -> int:
-    """Every kernel call of one int8 forward of ``stamps``: conv_fused's
-    output and the stand-alone quantizer's bit for bit their plain
-    versions'."""
-    convs, quants = int8_calls(torch, qv, stamps)
+    """Every kernel call of one int8 forward of ``stamps``: conv_fused's,
+    the fused points' and any stand-alone quantizer's output bit for bit
+    their plain versions'."""
+    convs, quants, points = int8_calls(torch, qv, stamps)
     for name, q, layer, args in convs:
         if not bits_equal(torch, ic.conv_fused(q, layer, *args), ic.conv_fused_plain(q, layer, *args)):
             raise AssertionError(f"int8 layer {name} ({what}): the kernel differs from its plain version")
     for name, h, s in quants:
         if not torch.equal(ic.quant_act(h, s), ic.quant_act_plain(h, s)):
             raise AssertionError(f"quantizer before {name} ({what}): the kernel differs from its plain version")
-    return len(convs)
+    for name, wrapper, args in points:
+        if not torch.equal(getattr(ic, wrapper)(*args), getattr(ic, f"{wrapper}_plain")(*args)):
+            raise AssertionError(f"{wrapper} before {name} ({what}): the kernel differs from its plain version")
+    return len(convs) + len(points)
 
 
 def int8_specials(torch, ic, q, layer, args) -> dict:
@@ -2755,7 +2777,7 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
     from debvader_tpu_torch.models import quantized as tq
 
     dev = torch.device("cuda")
-    convs, quants = int8_calls(torch, qv, cutouts[:QUANT_CHUNK])
+    convs, _, points = int8_calls(torch, qv, cutouts[:QUANT_CHUNK])
     rows = []
     for name, q, layer, args in convs:
         alpha, flat_alpha, next_scale = args
@@ -2801,8 +2823,19 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
             "chain_ms": cuda_ms(torch, lambda: unfused_chain(torch, ic, q, layer, *args)),
             "chain_device_ms": profiled_all_ms(torch, lambda: unfused_chain(torch, ic, q, layer, *args)),
         })
+    point_rows, point_cases = int8_points(torch, ic, points)
+    # the stand-alone quantizer, which the sim_demo forward no longer
+    # launches, on the same two points' float inputs as the forward
+    # computed them before the fused points
     quant_rows = []
-    for name, h, s in quants:
+    for name, wrapper, args in points:
+        x = args[0]
+        if wrapper == "bn_quant":
+            bn, s = args[1:]
+            h = bn(x.permute(0, 3, 1, 2))
+        else:
+            bias, alpha, s = args[1:]
+            h = ic.prelu(x + bias, alpha)
         if not torch.equal(ic.quant_act(h, s), ic.quant_act_plain(h, s)):
             raise AssertionError(f"quantizer before {name}: the kernel differs from its plain version")
         t_quant, by_quant = bound(5 * h.numel() + 4 * s.numel(), h.numel())
@@ -2866,8 +2899,86 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
          "max_abs_err": 0.0, "ms": total("ms", quant_rows), "device_ms": total("device_ms", quant_rows),
          "plain_ms": total("plain_ms", quant_rows), "bound_ms": total("bound_ms", quant_rows), "bound_by": "bytes",
          "library_ms": None, "shape": [QUANT_CHUNK, 59, 59, 6], "points": len(quant_rows)},
-    ]
-    return records, {"layers": rows, "quantizer": quant_rows, "groups": summary, "cases": cases}
+    ] + point_rows
+    return records, {"layers": rows, "quantizer": quant_rows, "points": point_cases, "groups": summary,
+                     "cases": cases}
+
+
+# what each fused point replaces in the JAX package
+POINT_REPLACES = {
+    "bn_quant": "debvader_tpu/models/quantized.py:120 (_batchnorm_inference) and :172 (_quant_act) before "
+                "enc/Conv_0 (XLA; no Pallas kernel)",
+    "bias_prelu_quant": "debvader_tpu/models/quantized.py:115 (_prelu after dec/Dense_0's bias) and :172 "
+                        "(_quant_act) before dec/Dense_1 (XLA; no Pallas kernel)",
+}
+
+
+def point_specials(torch, x: "torch.Tensor") -> "torch.Tensor":
+    """x with NaN (both signs), the infinities, signed zeros, the largest
+    floats and a subnormal in its first elements."""
+    specials = torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 3.4e38,
+                             -3.4e38, 1e-40, -1e-45], device=x.device)
+    y = x.clone()
+    y.view(-1)[: len(specials)] = specials
+    return y
+
+
+def int8_points(torch, ic, points) -> tuple[list, dict]:
+    """Phase 19, the fused float -> int8 points (dvt_quant_point) on the
+    chunk's real inputs as the forward called them: bit for bit their plain
+    versions there, with per-channel scales, with NaN, infinite, signed-zero
+    and extreme values, on quotients exactly on .5 (round half to even) and
+    past +-127, on a batch of 1 and the ragged 39-stamp chunk; each timed
+    beside its bound (4 bytes in and 1 out an element) and its plain
+    version.  Returns the kernels' records and the cases."""
+    from debvader_tpu_torch.models.layers import BatchNorm
+
+    records, cases = [], {}
+    for name, wrapper, args in points:
+        kernel, plain = getattr(ic, wrapper), getattr(ic, f"{wrapper}_plain")
+        x, params, scale = args[0], args[1:-1], args[-1]
+        c = x.shape[-1]
+        per_channel = torch.linspace(0.5, 2.0, c, device=x.device) * scale.max()
+        if wrapper == "bn_quant":
+            halves = BatchNorm(c).to(x.device)
+            with torch.no_grad():
+                halves.scale.zero_()
+                halves.bias.copy_(torch.tensor([5.0, -2.5, 1.75, 126.5, 127.5, -1e4], device=x.device)[:c])
+            halves_args = (x, halves)
+            halves_scales = (torch.ones((), device=x.device), torch.tensor([2.0, 1.0, 0.5, 1.0, 1.0, 1.0],
+                                                                            device=x.device)[:c])
+        else:
+            pattern = torch.tensor([2.5, -2.5, 3.5, -3.5, 126.5, 127.5, -127.5, 1e4, -1e4, 0.5], device=x.device)
+            hx = pattern.repeat(x.numel() // len(pattern) + 1)[: x.numel()].view(x.shape).contiguous()
+            alternate = torch.where(torch.arange(c, device=x.device) % 2 == 0, 1.0, 0.5)
+            halves_args = (hx, torch.zeros(c, device=x.device), alternate)
+            halves_scales = (torch.ones((), device=x.device),)
+        runs = {
+            "real": (x, *params, scale), "per_channel": (x, *params, per_channel),
+            "specials": (point_specials(torch, x), *params, scale),
+            "batch_1": (x[:1].contiguous(), *params, scale), "ragged_39": (x[:39].contiguous(), *params, scale),
+        }
+        for i, s in enumerate(halves_scales):
+            runs[f"halves_{i}"] = (*halves_args, s)
+        checked = {}
+        for case, a in runs.items():
+            got, want = kernel(*a), plain(*a)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{wrapper} ({case}): {int((got != want).sum())} elements differ from its plain "
+                                     "version")
+            checked[case] = {"elements": got.numel(), "saturated": int((got.abs() == 127).sum())}
+        cases[wrapper] = checked
+        t_bound, by = bound(5 * x.numel() + 4 * (len(params) + 2) * c, 5 * x.numel())
+        records.append({
+            "name": f"int8_{wrapper}", "route": "cuda", "source": "debvader_tpu_torch/csrc/int8_conv.cu",
+            "replaces": POINT_REPLACES[wrapper], "max_abs_err": 0.0,
+            "ms": cuda_ms(torch, lambda: kernel(*args)),
+            "device_ms": profiled_device_ms(torch, lambda: kernel(*args), "quant_point"),
+            "plain_ms": cuda_ms(torch, lambda: plain(*args), reps=PLAIN_REPS, warmup=1),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None, "shape": list(x.shape), "before": name,
+        })
+    return records, cases
 
 
 def exact_counts(counts: dict, want: dict, path: str) -> dict:
@@ -2898,10 +3009,12 @@ def run_quantized(torch, net, field: np.ndarray, centers: np.ndarray, reset_coun
     qv = tq.load_quantized("sim_demo_int8", device="cuda")
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t
-    # each int8 forward of a chunk: 18 fused layers and the quantizer at its
-    # two points, on either route; conv_s8 (no epilogue) never
+    # each int8 forward of a chunk: 18 fused layers and the two fused
+    # float -> int8 points, on either route; the stand-alone quantizer and
+    # conv_s8 (no epilogue) never
     chunks = -(-len(centers) // QUANT_CHUNK)
-    want = {"int8_conv": 18 * chunks, "int8_quant_act": 2 * chunks, "int8_conv_s8": 0}
+    want = {"int8_conv": 18 * chunks, "int8_bn_quant": chunks, "int8_bias_prelu_quant": chunks,
+            "int8_quant_act": 0, "int8_conv_s8": 0}
     reset_counts()
     qdf = dt.DeblendField(net, field, z_mode="mean", quantized=qv, cfg=serving_cfg(QUANT_CHUNK), device="cuda")
     res = qdf.deblend_field(centers)
@@ -2956,7 +3069,8 @@ def run_quantized(torch, net, field: np.ndarray, centers: np.ndarray, reset_coun
     # one profiled warm call of each: device busy time and idle share
     for key, d in (("float32", fdf), ("int8", qdf)):
         prof = profile_run(torch, lambda: d.deblend_and_render(centers))
-        out[f"profiled_{key}"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")} | {
+        out[f"profiled_{key}"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_kernels",
+                                                       "device_idle_share")} | {
             "top_device_events": prof["top_device_events"][:8]}
 
     # the peak memory of one 128-stamp forward, int8 and float32
@@ -3182,8 +3296,8 @@ def run_main_path(torch, net, field: np.ndarray, device: str):
 def profile_run(torch, fn) -> dict:
     """One call of ``fn`` (warm, ending in a synchronise) under
     torch.profiler: host wall time, device-busy time (the device-side
-    events: kernels, copies, memsets), the device's idle share and the top
-    device events."""
+    events: kernels, copies, memsets), the CUDA kernels launched, the
+    device's idle share and the top device events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3203,7 +3317,8 @@ def profile_run(torch, fn) -> dict:
         key=lambda r: -r["device_ms"],
     )
     busy_ms = sum(r["device_ms"] for r in events)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    kernels = sum(r["calls"] for r in events if not r["name"].startswith(("Memcpy", "Memset")))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_kernels": kernels,
             "device_idle_share": 1.0 - busy_ms / wall_ms, "top_device_events": events[:25]}
 
 
@@ -3303,6 +3418,8 @@ def main() -> int:
         "place_bf16": (rd.place_patches, "launches_bf16"),
         "int8_conv": (ic.conv_fused, "launches"),
         "int8_quant_act": (ic.quant_act, "launches"),
+        "int8_bn_quant": (ic.bn_quant, "launches"),
+        "int8_bias_prelu_quant": (ic.bias_prelu_quant, "launches"),
         "int8_conv_s8": (ic.conv_s8, "launches"),
     }
 
@@ -3619,7 +3736,8 @@ def main() -> int:
     int8_recs, int8_layers = check_int8_layers(torch, qv, main_cutouts)
     records += int8_recs
     report["int8_layers"] = int8_layers
-    print(json.dumps({"int8_layer_groups": int8_layers["groups"], "int8_cases": int8_layers["cases"]}))
+    print(json.dumps({"int8_layer_groups": int8_layers["groups"], "int8_cases": int8_layers["cases"],
+                      "int8_points": int8_layers["points"]}))
     for r in int8_layers["layers"]:
         print(f"  {r['layer']:26s} M {r['M']:7d} N {r['N']:5d} K {r['K']:5d} classes {r['classes']} splits "
               f"{r['splits']}: {r['ms']:.4f} ms (device {r['device_ms']}), bound {r['bound_ms']:.4f} ms "
@@ -3628,6 +3746,10 @@ def main() -> int:
     for r in int8_layers["quantizer"]:
         print(f"  quantizer before {r['before']:26s}: {r['ms']:.4f} ms (device {r['device_ms']}), bound "
               f"{r['bound_ms']:.4f} ms")
+    for r in int8_recs:
+        if r["name"] in ("int8_bn_quant", "int8_bias_prelu_quant"):
+            print(f"  {r['name']} before {r['before']}: {r['ms']:.4f} ms (device {r['device_ms']}), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
     quantized = run_quantized(torch, net, field, centers, reset_counts, read_counts)
     int8_launches = quantized["launches"]
     quantized["qat"] = run_qat(torch)
@@ -3644,7 +3766,8 @@ def main() -> int:
     counted_on.update(dict.fromkeys(("matched_filter", "parent_race", "render"), serving_launches))
     counted_on["registration"] = reg_launches
     counted_on.update(dict.fromkeys(("render_bf16", "place_bf16"), low_launches))
-    counted_on.update(dict.fromkeys(("int8_conv", "int8_quant_act"), int8_launches))
+    counted_on.update(dict.fromkeys(("int8_conv", "int8_quant_act", "int8_bn_quant", "int8_bias_prelu_quant"),
+                                    int8_launches))
     for rec in records:
         if rec["name"] in counted_on:
             rec["launches"] = counted_on[rec["name"]][rec["name"]]

@@ -7,15 +7,19 @@
 // bias, with the _prelu (:115) and the next layer's _quant_act (:172) that
 // _forward (:461-530) chains after it.
 //
-// Two kernels, each behind a plain C launcher:
+// Three kernels, each behind a plain C launcher:
 //
 // - dvt_quant_act: float32 activations, NCHW (a dense input (N, F) is NCHW
 //   with H = W = 1), to int8 clip(round_half_even(h / s), -127, 127) with s
 //   per tensor or per input channel, written channels innermost (NHWC), the
 //   layout the conv reads.  A true division (__fdiv_rn) and rintf, as
 //   jnp.round(h / scale) computes it; a NaN gives 0, as XLA's saturating
-//   float -> int8 conversion does.  The forward runs it only where no int8
-//   layer comes before a quantization point (enc/Conv_0, dec/Dense_1).
+//   float -> int8 conversion does.  The forward runs it only where another
+//   float layer comes before an int8 one.
+// - dvt_quant_point: the same quantizer fused with the float tail before
+//   it at the two points the sim_demo forward has: the BatchNorm before
+//   enc/Conv_0 (kBnQuant) and dec/Dense_0's bias and PReLU before
+//   dec/Dense_1 (kBiasPreluQuant), channels last in and out.
 // - dvt_conv_fused: one int8 layer and its epilogue in one launch, as an
 //   implicit GEMM: M output pixels, N = Cout, K = taps x Cin ordered (tap,
 //   ci) and padded with zeros to a multiple of 32.
@@ -177,6 +181,61 @@ __global__ void quant_act_flat(const float* __restrict__ x, const float* __restr
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
     q[i] = quantize(x[i], per_channel ? scale[i % c] : scale[0]);
   }
+}
+
+// The float -> int8 points where a float layer comes before an int8 one,
+// fused with that layer's elementwise tail (one launch each, in place of
+// the eager ops, a copy and dvt_quant_act):
+// - kBnQuant, enc/Conv_0's input: the inference BatchNorm in flax's
+//   order, y = (x - mean[c]) * mul[c] + bias[c], then the quantizer;
+// - kBiasPreluQuant, dec/Dense_1's input: dec/Dense_0's bias and the
+//   PReLU after it, y = prelu(x + bias[c], alpha[c]), then the quantizer.
+// x and q are channels last with C channels innermost ((N, H, W, C) or
+// (N, C)), so there is no transpose: each thread takes 4 consecutive
+// elements by one 16-byte load and one 4-byte store.  The channel
+// parameters and RN(1 / s) go into shared memory once a block.  Bound by
+// its bytes (4 in, 1 out an element).
+enum PointKind { kBnQuant = 0, kBiasPreluQuant = 1 };
+
+template <int KIND>
+__global__ void __launch_bounds__(256)
+quant_point(const float* __restrict__ x, const float* __restrict__ p0, const float* __restrict__ p1,
+            const float* __restrict__ p2, const float* __restrict__ scale, int8_t* __restrict__ q,
+            long long total, int c, int per_channel) {
+  extern __shared__ double point_shared[];
+  double* rs = point_shared;                     // c
+  float* a = reinterpret_cast<float*>(rs + c);   // mean / bias
+  float* m = a + c;                              // mul / alpha
+  float* d = m + c;                              // bias (kBnQuant)
+  for (int k = threadIdx.x; k < c; k += blockDim.x) {
+    rs[k] = 1.0 / static_cast<double>(per_channel ? scale[k] : scale[0]);
+    a[k] = p0[k];
+    m[k] = p1[k];
+    if (KIND == kBnQuant) d[k] = p2[k];
+  }
+  __syncthreads();
+  auto one = [&](float v, int ch) -> int8_t {
+    const float y = KIND == kBnQuant ? __fadd_rn(__fmul_rn(__fsub_rn(v, a[ch]), m[ch]), d[ch])
+                                     : prelu(__fadd_rn(v, a[ch]), m[ch]);
+    return saturate(div_by_reciprocal(y, rs[ch]));
+  };
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long groups = total / 4;
+  for (long long g = first; g < groups; g += stride) {
+    const float4 v = reinterpret_cast<const float4*>(x)[g];
+    int ch = static_cast<int>((g * 4) % c);
+    char4 o;
+    o.x = one(v.x, ch);
+    ch = ch + 1 == c ? 0 : ch + 1;
+    o.y = one(v.y, ch);
+    ch = ch + 1 == c ? 0 : ch + 1;
+    o.z = one(v.z, ch);
+    ch = ch + 1 == c ? 0 : ch + 1;
+    o.w = one(v.w, ch);
+    reinterpret_cast<char4*>(q)[g] = o;
+  }
+  for (long long i = groups * 4 + first; i < total; i += stride) q[i] = one(x[i], static_cast<int>(i % c));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -634,6 +693,33 @@ extern "C" int dvt_quant_act(const void* x, const void* scale, void* q, int n, i
                                                        static_cast<const float*>(scale),
                                                        static_cast<int8_t*>(q), c, hw, per_channel);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (total) float32 and q (total) int8, channels last with c channels
+// innermost, x 16-byte aligned; p0, p1, p2 (c) float32: mean, mul, bias
+// (kind 0) or bias, alpha, unused (kind 1); scale (c) or (1).
+extern "C" int dvt_quant_point(const void* x, const void* p0, const void* p1, const void* p2, const void* scale,
+                               void* q, int kind, int n, int c, int inner, int per_channel, cudaStream_t stream) {
+  if (kind != kBnQuant && kind != kBiasPreluQuant) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 4 != 0 || c < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = static_cast<long long>(n) * inner * c;
+  if (total == 0) return 0;
+  const long long groups = (total + 3) / 4;
+  const int blocks = static_cast<int>((groups + 255) / 256 < 8192 ? (groups + 255) / 256 : 8192);
+  const size_t bytes = static_cast<size_t>(c) * (sizeof(double) + 3 * sizeof(float));
+  if (bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const float* args[4] = {static_cast<const float*>(p0), static_cast<const float*>(p1),
+                          static_cast<const float*>(p2), static_cast<const float*>(scale)};
+  if (kind == kBnQuant)
+    quant_point<kBnQuant><<<blocks, 256, bytes, stream>>>(static_cast<const float*>(x), args[0], args[1], args[2],
+                                                          args[3], static_cast<int8_t*>(q), total, c, per_channel);
+  else
+    quant_point<kBiasPreluQuant><<<blocks, 256, bytes, stream>>>(static_cast<const float*>(x), args[0], args[1],
+                                                                 args[2], args[3], static_cast<int8_t*>(q), total,
+                                                                 c, per_channel);
   return static_cast<int>(cudaGetLastError());
 }
 

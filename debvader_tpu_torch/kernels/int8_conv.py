@@ -11,8 +11,14 @@ its own, ``csrc/int8_conv.cu``:
 - ``quant_act(h, scale)``: float32 activations (N, C, H, W) or (N, F) to
   int8 ``clip(round_half_even(h / scale), -127, 127)``, channels last
   ((N, H, W, C) or (N, F)); ``scale`` is a 0-d tensor (per tensor) or a
-  (C,) vector (per input channel).  The forward needs it only where no
-  int8 layer comes before a quantization point;
+  (C,) vector (per input channel).  The forward needs it only where
+  another float layer comes before an int8 one;
+- ``bn_quant(x, bn, scale)`` and ``bias_prelu_quant(mm, bias, alpha,
+  scale)``: the quantizer fused with the float tail before it, channels
+  last in and out, at the two points of the sim_demo forward: the
+  inference BatchNorm ``bn`` on the stamps (N, H, W, C) before
+  enc/Conv_0, and dec/Dense_0's bias and the PReLU after it on the
+  product ``mm`` (N, F) before dec/Dense_1 (``dvt_quant_point``);
 - ``conv_fused(q, layer, alpha, flat_alpha, next_scale)``: one launch of
   the layer on int8 channels-last activations, dequantized as JAX does,
   ``float32(acc) * dqw[c] + bias[c]`` (``dqw = dq * wscale`` formed once,
@@ -39,7 +45,8 @@ kernel, the plain version and XLA agree bit for bit.  The plain versions
 convolve the int8 values in float64 (exact: every partial sum is below
 2^53) and apply the same epilogue in float32 ops.  A wrapper takes them
 only for CPU tensors; a CUDA tensor launches the kernel, and a failed build
-or launch raises.  ``quant_act.launches``, ``conv_fused.launches`` and
+or launch raises.  ``quant_act.launches``, ``bn_quant.launches``,
+``bias_prelu_quant.launches``, ``conv_fused.launches`` and
 ``conv_s8.launches`` count the launches.
 """
 
@@ -56,7 +63,8 @@ from debvader_tpu_torch.models.layers import conv2d_same, conv_transpose2d_tf, p
 
 __all__ = [
     "Int8Layer", "TapClass", "make_layer", "pack_kernel", "pack_operand", "tap_classes", "quant_act",
-    "quant_act_plain", "conv_fused", "conv_fused_plain", "conv_s8", "conv_s8_plain",
+    "quant_act_plain", "bn_quant", "bn_quant_plain", "bias_prelu_quant", "bias_prelu_quant_plain", "conv_fused",
+    "conv_fused_plain", "conv_s8", "conv_s8_plain",
 ]
 
 KINDS = ("conv", "convT", "dense")
@@ -232,6 +240,99 @@ def quant_act(h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # the counters live on the functions themselves, which a caller may wrap
 _quant_act = quant_act
 quant_act.launches = 0
+
+
+# the kinds of dvt_quant_point
+_BN_QUANT, _BIAS_PRELU_QUANT = 0, 1
+
+
+def _check_point(x: torch.Tensor, ndim: int, params: tuple, scale: torch.Tensor) -> int:
+    """Validate a fused quantization point's operands; returns C, the
+    channels (the last dimension of x)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"activations must be float32, got {x.dtype}")
+    if x.ndim != ndim or not x.is_contiguous():
+        raise ValueError(f"activations must be a contiguous {ndim}-d tensor, channels last, got {tuple(x.shape)} "
+                         f"with strides {x.stride()}")
+    c = x.shape[-1]
+    for t in params:
+        if tuple(t.shape) != (c,):
+            raise ValueError(f"channel parameters must be ({c},), got {tuple(t.shape)}")
+    if scale.ndim not in (0, 1) or (scale.ndim == 1 and scale.shape[0] != c):
+        raise ValueError(f"scale must be 0-d or ({c},), got {tuple(scale.shape)}")
+    if any(t.device != x.device for t in params + (scale,)):
+        raise ValueError("the parameters and scale must lie on the activations' device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return c
+
+
+def _launch_point(kind: int, x: torch.Tensor, p0, p1, p2, scale: torch.Tensor) -> torch.Tensor:
+    if x.data_ptr() % 16:  # a view into another tensor: the kernel reads 16-byte vectors
+        x = x.clone()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    p0, p1, scale = (t.detach().to(torch.float32).contiguous() for t in (p0, p1, scale))
+    p2 = None if p2 is None else p2.detach().to(torch.float32).contiguous()
+    n, c = x.shape[0], x.shape[-1]
+    fn = _build.launcher("int8_conv", "dvt_quant_point", 6, 5)
+    status = _build.call(fn, x.device, x.data_ptr(), p0.data_ptr(), p1.data_ptr(), 0 if p2 is None else p2.data_ptr(),
+                         scale.data_ptr(), q.data_ptr(), kind, n, c, x.numel() // (n * c) if n else 0,
+                         int(scale.ndim == 1))
+    _build.check(status, "int8_quant_point")
+    return q
+
+
+def bn_quant_plain(x: torch.Tensor, bn, scale: torch.Tensor) -> torch.Tensor:
+    """quant_act_plain(bn(x.permute(0, 3, 1, 2)), scale): the forward's
+    inference BatchNorm on the stamps (N, H, W, C), then the quantizer;
+    (N, H, W, C) int8."""
+    return quant_act_plain(bn(x.permute(0, 3, 1, 2)), scale)
+
+
+def bn_quant(x: torch.Tensor, bn, scale: torch.Tensor) -> torch.Tensor:
+    """enc/Conv_0's int8 input from the stamps x (N, H, W, C) float32,
+    contiguous: the inference BatchNorm ``bn`` (a ``models.layers.BatchNorm``)
+    and the quantizer by ``scale``, (N, H, W, C) int8.  Plain version for
+    CPU tensors; one ``dvt_quant_point`` launch for CUDA tensors, whose mul
+    is formed by the same torch ops as ``BatchNorm.forward``."""
+    _check_point(x, 4, (bn.mean, bn.var, bn.scale, bn.bias), scale)
+    if x.device.type == "cpu":
+        return bn_quant_plain(x, bn, scale)
+    with torch.no_grad():
+        mul = torch.rsqrt(bn.var + bn.eps) * bn.scale
+    q = _launch_point(_BN_QUANT, x, bn.mean, mul, bn.bias, scale)
+    _bn_quant.launches += 1
+    return q
+
+
+_bn_quant = bn_quant
+bn_quant.launches = 0
+
+
+def bias_prelu_quant_plain(mm: torch.Tensor, bias: torch.Tensor, alpha: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """quant_act_plain(prelu(mm + bias, alpha), scale): a dense layer's bias
+    and the PReLU after it on the product mm (N, F), then the quantizer;
+    (N, F) int8."""
+    return quant_act_plain(prelu(mm + bias, alpha), scale)
+
+
+def bias_prelu_quant(mm: torch.Tensor, bias: torch.Tensor, alpha: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """dec/Dense_1's int8 input from dec/Dense_0's product mm (N, F)
+    float32, contiguous: its ``bias``, the PReLU ``alpha`` (F,) and the
+    quantizer by ``scale``, (N, F) int8.  Plain version for CPU tensors;
+    one ``dvt_quant_point`` launch for CUDA tensors."""
+    _check_point(mm, 2, (bias, alpha), scale)
+    if mm.device.type == "cpu":
+        return bias_prelu_quant_plain(mm, bias, alpha, scale)
+    q = _launch_point(_BIAS_PRELU_QUANT, mm, bias, alpha, None, scale)
+    _bias_prelu_quant.launches += 1
+    return q
+
+
+_bias_prelu_quant = bias_prelu_quant
+bias_prelu_quant.launches = 0
 
 
 def _geometry(q: torch.Tensor, layer: Int8Layer) -> tuple:

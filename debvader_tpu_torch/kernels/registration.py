@@ -32,11 +32,13 @@ window) shifts the whole field with the generic bilinear shift of
 ops/shift.py (the floor convention) and its Jacobian.
 
 The plain versions run every source at once in batched PyTorch, one loop of
-``iterations`` steps.  The CUDA kernel (csrc/registration.cu) runs one
-block a source with the field window and the padded base in shared memory,
-every step a block reduction of the five sums and a solve by one thread;
-it is bound by its operations.  Its sums add in another order than
-``torch.sum``, so the two agree to a tolerance, not bit for bit.
+``iterations`` steps.  The CUDA kernel (csrc/registration.cu) stages each
+source's stamp and padded base in shared memory once; every thread keeps
+its pixels' field values in registers for all the steps, and each step
+ends in one barrier after which every thread reads the warps' five sums
+and solves the 2x2 system itself; it is bound by its operations.  Its
+sums add in another order than ``torch.sum``, so the two agree to a
+tolerance, not bit for bit.
 """
 
 from __future__ import annotations

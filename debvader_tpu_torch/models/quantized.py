@@ -437,19 +437,30 @@ def _int8_step(h, name, module, qw, ascales, act=None, flat_act=None, nxt=None):
 
 def _int8_forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw: dict, ascales: dict, generator, eps):
     """``_forward`` with the Int8Layers ``qw``: each int8 layer writes the
-    next layer's int8 input where that layer is int8 too, so the
-    stand-alone quantizer runs only after a float layer (the BatchNorm
-    before enc/Conv_0, the float dec/Dense_0 before dec/Dense_1)."""
+    next layer's int8 input where that layer is int8 too.  Where a float
+    layer comes before an int8 one, its elementwise tail and the quantizer
+    are one kernel: the BatchNorm before enc/Conv_0 (``bn_quant``) and the
+    float dec/Dense_0's bias and PReLU before dec/Dense_1
+    (``bias_prelu_quant``, after dec/Dense_0's product); the stand-alone
+    quantizer runs only after another float layer."""
     cfg = model.cfg
     enc, dec = model.encoder, model.decoder
-    h = enc.bn(x.permute(0, 3, 1, 2))
+    if "enc/Conv_0" in qw:
+        h = int8_conv.bn_quant(x.contiguous(), enc.bn, ascales["enc/Conv_0"])
+    else:
+        h = enc.bn(x.permute(0, 3, 1, 2))
     last = len(enc.convs) - 1
     for i, act in enumerate(enc.prelus):
         h = _int8_step(h, f"enc/Conv_{i}", enc.convs[i], qw, ascales, act, enc.flat_prelu if i == last else None,
                        "enc/Dense_0" if i == last else f"enc/Conv_{i + 1}")
     posterior, z = _latent(_int8_step(h, "enc/Dense_0", enc.dense, qw, ascales), cfg, z_mode, generator, eps)
 
-    h = dec.prelu0(dec.dense0(dec.prelu_in(z)))
+    h = dec.prelu_in(z)
+    if "dec/Dense_1" in qw and dec.dense0.scheme is None:
+        h = int8_conv.bias_prelu_quant((h @ dec.dense0.kernel).contiguous(), dec.dense0.bias, dec.prelu0.alpha,
+                                       ascales["dec/Dense_1"])
+    else:
+        h = dec.prelu0(dec.dense0(h))
     h = _int8_step(h, "dec/Dense_1", dec.dense1, qw, ascales, dec.prelu1, None, "dec/ConvTranspose2DTF_0")
     shape = (h.shape[0], dec.width, dec.width, cfg.filters[-1])
     h = h.view(shape) if h.dtype == torch.int8 else h.reshape(shape).permute(0, 3, 1, 2)

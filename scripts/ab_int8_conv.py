@@ -20,9 +20,16 @@ tree's ``csrc/int8_conv.cu`` and computes each layer's unit of work:
   them.
 
 Per layer it prints the device time (torch.profiler, every kernel of the
-unit, mean of 30) and the per-call time (CUDA events, median of 30).  The
-two trees' outputs must be equal: int8 products are exact in any order,
-and both epilogues round the same ops.  Needs a card; the last line is one
+unit, mean of 30) and the per-call time (CUDA events, median of 30).
+
+Each turn then serves chip_smoke.py's seeded 1024^2 field through its
+tree's int8 route, ``DeblendField(quantized=...).deblend_and_render`` in
+128-source chunks at the sources this tree detected (both trees read this
+tree's weights): the CUDA kernels one warm call launches, its wall and
+device-busy time and the device's idle share (torch.profiler), and the
+catalogue, residual and model field.  The two trees' outputs must be
+equal, the layers' and the call's: int8 products are exact in any order,
+and both trees round the same ops.  Needs a card; the last line is one
 JSON object.
 """
 
@@ -34,6 +41,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -54,11 +62,12 @@ def make_inputs(path: Path) -> None:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    import debvader_tpu_torch as dt
     from debvader_tpu_torch.data.simulate import simulate_batch
     from debvader_tpu_torch.models import quantized as tq
 
     qv = tq.load_quantized("sim_demo_int8", device="cuda")
-    convs, _ = _smoke().int8_calls(torch, qv, simulate_batch(SEED, STAMPS)[0])
+    convs = _smoke().int8_calls(torch, qv, simulate_batch(SEED, STAMPS)[0])[0]
     layers = []
     for name, q, layer, (alpha, flat_alpha, next_scale) in convs:
         qk, wscale = qv.qweights[name]
@@ -67,8 +76,11 @@ def make_inputs(path: Path) -> None:
             "s_in": qv.act_scales[name], "bias": layer.bias, "q": q, "alpha": alpha, "flat_alpha": flat_alpha,
             "next_scale": next_scale,
         })
-    torch.save([{k: (v.detach().cpu() if isinstance(v, torch.Tensor) else v) for k, v in r.items()}
-                for r in layers], path)
+    smoke = _smoke()
+    field = smoke.make_field()
+    centers = dt.detect_objects(field, dt.DetectionConfig(**smoke.DETECTION), device="cuda")
+    torch.save({"layers": [{k: (v.detach().cpu() if isinstance(v, torch.Tensor) else v) for k, v in r.items()}
+                           for r in layers], "field": field, "centers": centers}, path)
 
 
 def worker(tree: Path, inputs: Path, out: Path) -> dict:
@@ -90,8 +102,9 @@ def worker(tree: Path, inputs: Path, out: Path) -> dict:
         zero = y.new_zeros(())
         return torch.maximum(y, zero) + alpha * torch.minimum(y, zero)
 
+    saved = torch.load(inputs, weights_only=False)
     result, outputs = {}, {}
-    for r in torch.load(inputs):
+    for r in saved["layers"]:
         r = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in r.items()}
         layer = ic.make_layer(r["kind"], r["qk"], r["wscale"], r["s_in"], r["bias"], r["stride"])
         q, alpha, flat_alpha, next_scale = r["q"], r["alpha"], r["flat_alpha"], r["next_scale"]
@@ -117,11 +130,41 @@ def worker(tree: Path, inputs: Path, out: Path) -> dict:
         torch.cuda.synchronize()
         outputs[r["name"]] = y.cpu()
         result[r["name"]] = {"device_ms": smoke.profiled_all_ms(torch, unit), "ms": smoke.cuda_ms(torch, unit)}
+    result["call"], outputs["call"] = int8_call(torch, smoke, saved["field"], saved["centers"])
     torch.save(outputs, out)
     result["ptxas"] = [line.strip() for log in logs.values() for line in log.splitlines()
                        if "registers" in line or "spill" in line]
     result["fused"] = fused
     return result
+
+
+def int8_call(torch, smoke, field, centers) -> tuple[dict, dict]:
+    """This tree's int8 deblend_and_render of the field, warm: one call
+    profiled (kernels, wall, busy, idle share), four timed; and its
+    outputs."""
+    import numpy as np
+
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.models import quantized as tq
+
+    weights = ROOT / "debvader_tpu_torch" / "data" / "weights"
+    net = dt.load_deblender("sim_demo", device="cuda", weights_dir=weights)
+    qv = tq.load_quantized(weights / "sim_demo_int8", device="cuda")
+    qdf = dt.DeblendField(net, field, z_mode="mean", quantized=qv, cfg=smoke.serving_cfg(smoke.QUANT_CHUNK),
+                          device="cuda")
+    catalog, residual, model = qdf.deblend_and_render(centers, return_model=True)
+    prof = smoke.profile_run(torch, lambda: qdf.deblend_and_render(centers))
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        qdf.deblend_and_render(centers)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    outs = {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in (("list_idx", catalog["list_idx"]), ("residual", residual), ("model", model))}
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_kernels", "device_idle_share")} | {
+        "warm_s": walls, "sources": int(len(centers))}, outs
 
 
 def main() -> int:
@@ -166,17 +209,22 @@ def compare_turns(args, work: Path) -> int:
 
     import torch
 
+    def same(y, z):
+        return y.dtype == z.dtype and y.shape == z.shape and (
+            torch.equal(y, z) if y.dtype != torch.float32 else torch.equal(y.view(torch.int32), z.view(torch.int32)))
+
     ref = torch.load(outputs["change"][0])
     equal = {}
     for path in outputs["parent"] + outputs["change"][1:]:
         other = torch.load(path)
         for name, y in ref.items():
-            z = other[name]
-            same = y.dtype == z.dtype and y.shape == z.shape and (
-                torch.equal(y, z) if y.dtype != torch.float32 else torch.equal(y.view(torch.int32), z.view(torch.int32)))
-            equal[name] = equal.get(name, True) and same
+            if name == "call":
+                for key, v in y.items():
+                    equal[f"call_{key}"] = equal.get(f"call_{key}", True) and same(v, other[name][key])
+            else:
+                equal[name] = equal.get(name, True) and same(y, other[name])
     groups = {}
-    for name in ref:
+    for name in (n for n in ref if n != "call"):
         g = "enc_conv" if name.startswith("enc/Conv") else "dense" if "Dense" in name else "dec_convT"
         for turn in turns:
             for key in ("device_ms", "ms"):
@@ -184,8 +232,9 @@ def compare_turns(args, work: Path) -> int:
                 slot[turns.index(turn) in (2, 3)] += turn[name][key]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    calls = [{"tree": t["tree"], **t["call"]} for t in turns]
     summary = {"card": card, "stamps": STAMPS, "outputs_equal": all(equal.values()), "equal_by_layer": equal,
-               "groups_in_turn_order": groups, "turns": turns}
+               "groups_in_turn_order": groups, "int8_call_in_turn_order": calls, "turns": turns}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(summary, indent=1))

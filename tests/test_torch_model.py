@@ -304,6 +304,8 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         registration.register_windowed,
         registration.register_full,
         int8_conv.quant_act,
+        int8_conv.bn_quant,
+        int8_conv.bias_prelu_quant,
         int8_conv.conv_s8,
         int8_conv.conv_fused,
     )
@@ -334,4 +336,6 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     q = int8_conv.quant_act(torch.ones(1, 3, 7, 7), torch.tensor(0.5))
     int8_conv.conv_s8(q, layer)
     int8_conv.conv_fused(q, layer, torch.ones(4, 4, 4), None, torch.tensor(0.25))
+    int8_conv.bn_quant(torch.ones(1, 7, 7, 3), dtt.models.layers.BatchNorm(3), torch.tensor(0.5))
+    int8_conv.bias_prelu_quant(torch.ones(2, 5), torch.zeros(5), torch.ones(5), torch.tensor(0.5))
     assert [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters] == before

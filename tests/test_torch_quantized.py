@@ -775,3 +775,151 @@ def test_kernel_plan_rejects_what_it_cannot_launch():
         assert int8_conv.conv_s8(q, layer).shape[1] == 8
         with pytest.raises(ValueError, match="tap classes"):
             int8_conv._plan(q, layer, 132)
+
+
+# ------------------------------- the fused float -> int8 points of the forward
+
+
+def _point_edges() -> np.ndarray:
+    """The edge values of chip_smoke.py's phase 19: NaN (both signs), the
+    infinities, signed zeros, the largest floats and a subnormal."""
+    return np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0, 3.4e38, -3.4e38, 1e-40, -1e-45], np.float32)
+
+
+def _with_edges(a: np.ndarray, seed: int) -> np.ndarray:
+    a = a.copy()
+    flat = a.reshape(-1)
+    idx = np.random.default_rng(seed).choice(flat.size, 4 * len(_point_edges()), replace=False)
+    flat[idx] = np.tile(_point_edges(), 4)
+    return a
+
+
+def _jax_bn(x, bn):
+    """JAX's eager _batchnorm_inference with the port's BatchNorm's
+    parameters."""
+    p = {"scale": jnp.asarray(bn.scale.detach().numpy()), "bias": jnp.asarray(bn.bias.detach().numpy())}
+    stats = {"mean": jnp.asarray(bn.mean.numpy()), "var": jnp.asarray(bn.var.numpy())}
+    return jq._batchnorm_inference(jnp.asarray(x), p, stats, jnp.float32)
+
+
+def _halves_bn(channels: int):
+    """A BatchNorm whose output is its bias exactly (scale 0): quotients on
+    .5 (round half to even), saturation at +-127 and a -0 that stays 0."""
+    from debvader_tpu_torch.models.layers import BatchNorm
+
+    bn = BatchNorm(channels)
+    with torch.no_grad():
+        bn.scale.zero_()
+        bn.bias.copy_(torch.tensor([5.0, -2.5, 1.75, 126.5, 127.5, -1e4][:channels]))
+        bn.mean.copy_(torch.linspace(-1.0, 1.0, channels))
+    return bn
+
+
+@pytest.mark.parametrize("case", ["packaged", "tiny_per_tensor", "tiny_per_channel", "halves"])
+def test_bn_quant_matches_jax(case):
+    """bn_quant on CPU tensors (its plain version, bn_quant_plain: the
+    forward's BatchNorm, then quant_act_plain) bit for bit JAX's eager
+    _quant_act(_batchnorm_inference(x), scale): on the packaged bundle's
+    real stamps against the BatchNorm output its eager forward computed,
+    on TINY's bundles (per tensor, per channel) with phase 19's edge values
+    in the stamps, and on a BatchNorm that outputs quotients on .5 and past
+    +-127 (scales 1, then per channel 2 / 1 / 0.5)."""
+    if case == "packaged":
+        from debvader_tpu.data.simulate import simulate_batch
+
+        jqv, tqv, seen = _packaged_layers()
+        x = np.asarray(simulate_batch(jax.random.PRNGKey(123), 4)[0])
+        bn, scale = tqv.model.encoder.bn, tqv.act_scales["enc/Conv_0"]
+        wants = [np.asarray(jq._quant_act(jnp.asarray(seen["enc/Conv_0"][0]), jqv.act_scales["enc/Conv_0"]))]
+        scales = [scale]
+    elif case.startswith("tiny"):
+        jqv, tqv = _bundles(case.split("_", 1)[1])
+        x = _with_edges(_stamps(5, seed=11) * 4.0, seed=1)
+        bn = tqv.model.encoder.bn
+        scales = [tqv.act_scales["enc/Conv_0"]]
+        wants = [np.asarray(jq._quant_act(_jax_bn(x, bn), jqv.act_scales["enc/Conv_0"]))]
+    else:
+        x = _with_edges(_stamps(3, seed=12)[..., :3], seed=2)
+        x = np.concatenate([x, x], -1)
+        bn = _halves_bn(6)
+        scales = [torch.tensor(1.0), torch.tensor([2.0, 1.0, 0.5, 1.0, 1.0, 1.0])]
+        wants = [np.asarray(jq._quant_act(_jax_bn(x, bn), jnp.asarray(s.numpy()))) for s in scales]
+    for scale, want in zip(scales, wants):
+        with torch.no_grad():
+            got = int8_conv.bn_quant(torch.from_numpy(np.ascontiguousarray(x)), bn, scale)
+        assert got.dtype == torch.int8 and tuple(got.shape) == x.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    if case == "halves":
+        row = got.numpy()[0, 0, 0]
+        np.testing.assert_array_equal(row, [2, -2, 4, 126, 127, -127])  # 2.5, -2.5, 3.5, 126.5, 127.5, -1e4
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "halves"])
+def test_bias_prelu_quant_matches_jax(granularity):
+    """bias_prelu_quant on CPU tensors (its plain version,
+    bias_prelu_quant_plain: the bias, the PReLU as the forward computes
+    it, then quant_act_plain) bit for bit JAX's eager _quant_act(_prelu(mm
+    + bias, alpha), scale), on the packaged bundle's dec/Dense_0 product of
+    seeded latents with its bias, PReLU_1 and dec/Dense_1's scale (per
+    tensor, and per channel from the scale's own spread), with phase 19's
+    edge values in the product; and quotients on .5 and past +-127
+    (bias 0, alphas 1 and 0.5, scale 1)."""
+    _, tqv, _ = _packaged_layers()
+    dec = tqv.model.decoder
+    bias, alpha = dec.dense0.bias.detach(), dec.prelu0.alpha.detach()
+    if granularity == "halves":
+        f = bias.shape[0]
+        mm = np.tile(np.array([2.5, -2.5, 3.5, -3.5, 126.5, 127.5, -127.5, 1e4, -1e4, 0.5], np.float32), (2, f // 10))
+        bias, alpha = torch.zeros(f), torch.where(torch.arange(f) % 2 == 0, torch.tensor(1.0), torch.tensor(0.5))
+        scale = torch.tensor(1.0)
+    else:
+        z = torch.from_numpy(np.random.default_rng(3).normal(size=(6, tqv.model.cfg.latent_dim)).astype(np.float32))
+        with torch.no_grad():
+            mm = _with_edges((dec.prelu_in(z) @ dec.dense0.kernel).numpy(), seed=3)
+        scale = tqv.act_scales["dec/Dense_1"]
+        if granularity == "per_channel":
+            scale = scale * torch.linspace(0.5, 2.0, mm.shape[1])
+    want = np.asarray(jq._quant_act(jq._prelu(jnp.asarray(mm) + jnp.asarray(bias.numpy()), jnp.asarray(alpha.numpy())),
+                                    jnp.asarray(scale.numpy())))
+    got = int8_conv.bias_prelu_quant(torch.from_numpy(np.ascontiguousarray(mm)), bias, alpha, scale)
+    assert got.dtype == torch.int8 and tuple(got.shape) == mm.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    if granularity == "halves":
+        np.testing.assert_array_equal(got.numpy()[0, :10], [2, -1, 4, -2, 126, 127, -127, 127, -127, 0])
+
+
+def test_quant_points_reject_what_they_cannot_take():
+    """Both fused points raise on a device that is neither the CPU nor a
+    card, on activations that are not float32, not of their rank or not
+    contiguous channels last, and on parameters or scales of the wrong
+    length."""
+    from debvader_tpu_torch.models.layers import BatchNorm
+
+    bn = BatchNorm(6)
+    x = torch.zeros(2, 5, 5, 6)
+    mm, vec = torch.zeros(2, 8), torch.zeros(8)
+    s = torch.tensor(0.5)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_conv.bn_quant(x.to(meta), BatchNorm(6).to(meta), s.to(meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_conv.bias_prelu_quant(mm.to(meta), vec.to(meta), vec.to(meta), s.to(meta))
+    with pytest.raises(ValueError, match="same device|activations' device"):
+        int8_conv.bias_prelu_quant(mm, vec.to(meta), vec, s)
+    bad = [
+        lambda: int8_conv.bn_quant(x.double(), bn, s),
+        lambda: int8_conv.bn_quant(x.to(torch.int8), bn, s),
+        lambda: int8_conv.bn_quant(torch.zeros(2, 6, 5, 5).permute(0, 2, 3, 1), bn, s),  # NCHW underneath
+        lambda: int8_conv.bn_quant(torch.zeros(2, 6, 5, 5), bn, s),  # channels first
+        lambda: int8_conv.bn_quant(x[:, :, :, :3], BatchNorm(3), s),  # a strided view
+        lambda: int8_conv.bn_quant(x, bn, torch.ones(5)),
+        lambda: int8_conv.bias_prelu_quant(mm.half(), vec, vec, s),
+        lambda: int8_conv.bias_prelu_quant(mm.t(), torch.zeros(2), torch.zeros(2), s),
+        lambda: int8_conv.bias_prelu_quant(mm[None], vec, vec, s),
+        lambda: int8_conv.bias_prelu_quant(mm, torch.zeros(7), vec, s),
+        lambda: int8_conv.bias_prelu_quant(mm, vec, vec, torch.ones(2, 8)),
+    ]
+    for i, call in enumerate(bad):
+        with pytest.raises(ValueError):
+            call()
+            pytest.fail(f"case {i} did not raise")
