@@ -1688,14 +1688,56 @@ def check_registration(torch, field: np.ndarray, res) -> dict:
     }
 
 
+# Phase 12: special values for the bfloat16 canvases (as bfloat16): NaN,
+# infinities, signed zeros, subnormals, the largest finite values, and
+# values 20 or more binades from the rest.
+BF16_SPECIALS = (float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40, -9e-39, 3e38, -3e38, 1e6, -1e6,
+                 1e-7)
+
+
+def with_specials(torch, t, gen, count: int):
+    """A copy of bfloat16 ``t`` with ``count`` seeded elements set to
+    BF16_SPECIALS in turn."""
+    out = t.clone()
+    flat = out.view(-1)
+    idx = torch.randint(0, flat.numel(), (count,), generator=gen, device=t.device)
+    vals = torch.tensor(BF16_SPECIALS, device=t.device).to(torch.bfloat16)
+    flat[idx] = vals[torch.arange(count, device=t.device) % len(BF16_SPECIALS)]
+    return out
+
+
+def bf16_bits(torch, t):
+    """The bits of a bfloat16 tensor on the CPU, every NaN as 0x7FFF (the
+    card's and the CPU's roundings give NaNs other payloads)."""
+    t = t.cpu()
+    bits = t.view(torch.int16).clone()
+    bits[torch.isnan(t)] = 0x7FFF
+    return bits
+
+
+def bf16_held(torch, name: str, got, again, plain, cpu) -> None:
+    """The kernel's canvas bit for bit (NaN as NaN) against a second launch,
+    the plain version on the card and the plain version on the CPU."""
+    g = bf16_bits(torch, got)
+    for what, z in (("two launches", again), ("plain on the card", plain), ("plain on the CPU", cpu)):
+        diff = int((g != bf16_bits(torch, z)).sum())
+        if diff:
+            raise AssertionError(f"{name}: {diff} elements differ ({what})")
+
+
 def check_bf16_canvases(torch, f: int, n: int = 128, s: int = 59, b: int = 6) -> list[dict]:
-    """Phase 12: the bfloat16 instances of csrc/render.cu at the bfloat16
+    """Phase 12: the bfloat16 kernels of csrc/render.cu at the bfloat16
     stream's shapes (one 128-source chunk): dvt_render_bf16 into the window
     of a padded bf16 canvas filled with seeded random values, dvt_place_bf16
-    of the order-3 patches into a filled bf16 canvas, each bit for bit
-    against its plain version (on the card and on the CPU), two launches
-    bit-identical, and timed with its bound; also on two bands (the
-    generic kernels)."""
+    of the order-3 patches into a filled bf16 canvas.  Each case bit for
+    bit (NaN as NaN) against a second launch and against the plain version
+    on the card and on the CPU: the chunk; stamps, patches and canvases
+    with special values (some patches not visible); sources on tile
+    borders, off the field, NaN and huge offsets (render_path_cases); two
+    bands (the generic kernels); and, for the render, a chunk into the
+    4096^2 window of a 4218^2 canvas (the tiled route's shape).  Device
+    time is the sum of every kernel one call launches; each is timed with
+    its bound and its plain version."""
     from debvader_tpu_torch.kernels import render as rd
 
     dev = torch.device("cuda")
@@ -1703,63 +1745,100 @@ def check_bf16_canvases(torch, f: int, n: int = 128, s: int = 59, b: int = 6) ->
     gen = torch.Generator(device=dev).manual_seed(14)
     stamps = torch.rand((n, s, s, b), generator=gen, device=dev).to(bf)
     offsets = (torch.rand((n, 2), generator=gen, device=dev) - 0.5) * (f - 80)
+
+    def render_case(name, st, off, field, canvas0, pad, mask=None):
+        def window(c):
+            return c[pad : pad + field, pad : pad + field]
+
+        got, again, plain = canvas0.clone(), canvas0.clone(), canvas0.clone()
+        rd.render_field_kernel(st, off, field, mask, out=window(got))
+        rd.render_field_kernel(st, off, field, mask, out=window(again))
+        rd.render_field_plain(st, off, field, mask, out=window(plain))
+        cpu = canvas0.cpu()
+        rd.render_field_plain(st.cpu(), off.cpu(), field, None if mask is None else mask.cpu(), out=window(cpu))
+        torch.cuda.synchronize()
+        bf16_held(torch, f"render_bf16 ({name})", got, again, plain, cpu)
+        changed = int((bf16_bits(torch, got) != bf16_bits(torch, canvas0)).sum())
+        return {"sources": int(st.shape[0]), "changed_elements": changed}
+
     pad = s + 2
-
-    def window(c):
-        return c[pad : pad + f, pad : pad + f]
-
-    def bits(t):
-        return t.view(torch.int16)
-
     canvas0 = torch.randn((f + 2 * pad, f + 2 * pad, b), generator=gen, device=dev).to(bf)
-    got, again, plain = canvas0.clone(), canvas0.clone(), canvas0.clone()
-    rd.render_field_kernel(stamps, offsets, f, out=window(got))
-    rd.render_field_kernel(stamps, offsets, f, out=window(again))
-    rd.render_field_plain(stamps, offsets, f, out=window(plain))
-    cpu = canvas0.cpu()
-    rd.render_field_plain(stamps.cpu(), offsets.cpu(), f, out=window(cpu))
+    render_cases = {"chunk": render_case("chunk", stamps, offsets, f, canvas0, pad)}
+    special_mask = torch.rand(n, generator=gen, device=dev) > 0.1
+    render_cases["special"] = render_case(
+        "special", with_specials(torch, stamps, gen, 20000), offsets, f, with_specials(torch, canvas0, gen, 200000),
+        pad, special_mask)
+    for name, (st, off) in render_path_cases(torch, f).items():
+        if name != "chunk":
+            render_cases[name] = render_case(name, st.to(bf), off, f, canvas0, pad)
     st2 = torch.rand((20, 15, 15, 2), generator=gen, device=dev).to(bf)
     of2 = (torch.rand((20, 2), generator=gen, device=dev) - 0.5) * 260
-    c2 = torch.randn((256, 256, 2), generator=gen, device=dev).to(bf)
-    p2 = c2.cpu()
-    rd.render_field_kernel(st2, of2, 256, out=c2)
-    rd.render_field_plain(st2.cpu(), of2.cpu(), 256, out=p2)
-    torch.cuda.synchronize()
-    for what, a, z in (("plain on the card", got, plain), ("two launches", got, again), ("plain on the CPU", got.cpu(), cpu),
-                       ("two bands", c2.cpu(), p2)):
-        if not torch.equal(bits(a), bits(z)):
-            raise AssertionError(f"render_bf16: {int((bits(a) != bits(z)).sum())} elements differ ({what})")
-    cov = covered_mask(offsets.cpu().numpy(), None, s, f)
-    work = canvas0.clone()
-    t_bound, by = bound(n * s * s * b * 2 + n * 8 + 2 * int(cov.sum()) * b * 2, n * (s + 2) * (s + 2) * b * 11)
+    render_cases["two_bands"] = render_case("two_bands", st2, of2, 256, torch.randn(
+        (256, 256, 2), generator=gen, device=dev).to(bf), 0)
+    fs, pad4 = 4096, s + 2
+    stamps4 = torch.rand((n, s, s, b), generator=gen, device=dev).to(bf)
+    offsets4 = (torch.rand((n, 2), generator=gen, device=dev) - 0.5) * (fs + 40)
+    canvas4 = torch.randn((fs + 2 * pad4, fs + 2 * pad4, b), generator=gen, device=dev).to(bf)
+    render_cases["window_4096"] = render_case("window_4096", stamps4, offsets4, fs, canvas4, pad4)
+    if render_cases["off_field"]["changed_elements"] != 0 or render_cases["chunk"]["changed_elements"] == 0:
+        raise AssertionError(f"render_bf16: unexpected coverage {render_cases}")
+
+    def render_timing(st, off, field, canvas, pad_):
+        n_, s_ = st.shape[0], st.shape[1]
+        cov = covered_mask(off.cpu().numpy(), None, s_, field)
+        work = canvas.clone()
+        window = work[pad_ : pad_ + field, pad_ : pad_ + field]
+        t_bound, by = bound(n_ * s_ * s_ * b * 2 + n_ * 8 + 2 * int(cov.sum()) * b * 2,
+                            n_ * (s_ + 2) * (s_ + 2) * b * 11)
+        return {
+            "ms": cuda_ms(torch, lambda: rd.render_field_kernel(st, off, field, out=window)),
+            "device_ms": profiled_all_ms(torch, lambda: rd.render_field_kernel(st, off, field, out=window)),
+            "plain_ms": cuda_ms(torch, lambda: rd.render_field_plain(st, off, field, out=window)),
+            "bound_ms": t_bound, "bound_by": by, "shape": [n_, s_, s_, b, field], "covered_pixels": int(cov.sum()),
+        }
+
     render_rec = {
         "name": "render_bf16", "route": "cuda",
         "source": "debvader_tpu_torch/csrc/render.cu",
         "replaces": "debvader_tpu/kernels/render.py:149 (render_field_pallas) on a bfloat16 canvas "
                     "(debvader_tpu/ops/shift.py:209, the scan's bf16 adds)",
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, f, out=window(work))),
-        "device_ms": profiled_device_ms(
-            torch, lambda: rd.render_field_kernel(stamps, offsets, f, out=window(work)), "render_tile_kernel"),
-        "plain_ms": cuda_ms(torch, lambda: rd.render_field_plain(stamps, offsets, f, out=window(work))),
-        "library_ms": None,
-        "bound_ms": t_bound, "bound_by": by,
-        "shape": [n, s, s, b, f], "covered_pixels": int(cov.sum()),
+        "max_abs_err": 0.0, "library_ms": None,
+        **render_timing(stamps, offsets, f, canvas0, pad),
+        "window_4096": render_timing(stamps4, offsets4, fs, canvas4, pad4),
+        "cases": render_cases,
     }
+    del canvas4
+
+    def place_case(name, pt, y, x, vis, canvas0):
+        got, again, plain = canvas0.clone(), canvas0.clone(), canvas0.clone()
+        rd.place_patches(got, pt, y, x, vis)
+        rd.place_patches(again, pt, y, x, vis)
+        rd.place_patches_plain(plain, pt, y, x, vis)
+        cpu = canvas0.cpu()
+        rd.place_patches_plain(cpu, pt.cpu(), y.cpu(), x.cpu(), vis.cpu())
+        torch.cuda.synchronize()
+        bf16_held(torch, f"place_bf16 ({name})", got, again, plain, cpu)
+        return {"sources": int(len(y)), "visible": int(vis.sum()),
+                "changed_elements": int((bf16_bits(torch, got) != bf16_bits(torch, canvas0)).sum())}
 
     patches, y, x, visible, c = place_inputs(torch, stamps.float(), offsets, f)
     patches = patches.to(bf).contiguous()
     canvas0 = torch.randn((c, c, b), generator=gen, device=dev).to(bf)
-    got, again = canvas0.clone(), canvas0.clone()
-    rd.place_patches(got, patches, y, x, visible)
-    rd.place_patches(again, patches, y, x, visible)
-    plain, cpu = canvas0.clone(), canvas0.cpu()
-    rd.place_patches_plain(plain, patches, y, x, visible)
-    rd.place_patches_plain(cpu, patches.cpu(), y.cpu(), x.cpu(), visible.cpu())
-    torch.cuda.synchronize()
-    for what, a, z in (("plain on the card", got, plain), ("two launches", got, again), ("plain on the CPU", got.cpu(), cpu)):
-        if not torch.equal(bits(a), bits(z)):
-            raise AssertionError(f"place_bf16: {int((bits(a) != bits(z)).sum())} elements differ ({what})")
+    place_cases = {"chunk": place_case("chunk", patches, y, x, visible, canvas0)}
+    hidden = visible.clone()
+    hidden[::5] = False
+    place_cases["special"] = place_case("special", with_specials(torch, patches, gen, 40000), y, x, hidden,
+                                        with_specials(torch, canvas0, gen, 200000))
+    for name, (st, off) in render_path_cases(torch, f).items():
+        if name != "chunk":
+            pt, yy, xx, vv, cc = place_inputs(torch, st, off, f)
+            place_cases[name] = place_case(name, pt.to(bf).contiguous(), yy, xx, vv, torch.randn(
+                (cc, cc, b), generator=gen, device=dev).to(bf))
+    pt2, y2, x2, v2, c2 = place_inputs(torch, st2.float(), of2, 256)
+    place_cases["two_bands"] = place_case("two_bands", pt2.to(bf).contiguous(), y2, x2, v2, torch.randn(
+        (c2, c2, 2), generator=gen, device=dev).to(bf))
+    if place_cases["off_field"]["visible"] != 0 or place_cases["chunk"]["changed_elements"] == 0:
+        raise AssertionError(f"place_bf16: unexpected visibility or coverage {place_cases}")
     p = patches.shape[1]
     covered = footprint_elements(y.cpu(), x.cpu(), p, c, b)
     t_bound, by = bound(patches.numel() * 2 + n * 9 + covered * 4, patches.numel())
@@ -1774,13 +1853,12 @@ def check_bf16_canvases(torch, f: int, n: int = 128, s: int = 59, b: int = 6) ->
                     "no Pallas kernel)",
         "max_abs_err": 0.0,
         "ms": cuda_ms(torch, lambda: rd.place_patches(work, patches, y, x, visible)),
-        "device_ms": profiled_device_ms(
-            torch, lambda: rd.place_patches(work, patches, y, x, visible), "place_tile_kernel"),
+        "device_ms": profiled_all_ms(torch, lambda: rd.place_patches(work, patches, y, x, visible)),
         "plain_ms": cuda_ms(torch, lambda: rd.place_patches_plain(work, patches, y, x, visible)),
         "library_ms": cuda_ms(torch, lambda: work.view(-1, b).index_put_((flat,), masked, accumulate=True)),
         "library_call": "index_put_(accumulate=True) of the masked bf16 patches",
         "bound_ms": t_bound, "bound_by": by,
-        "shape": [n, p, p, b, c], "covered_elements": covered,
+        "shape": [n, p, p, b, c], "covered_elements": covered, "cases": place_cases,
     }
     return [render_rec, place_rec]
 
@@ -3663,8 +3741,8 @@ def main() -> int:
     bf16_recs = check_bf16_canvases(torch, field.shape[1])
     records += bf16_recs
     for rec in bf16_recs:
-        print(json.dumps({rec["name"]: {k: rec[k] for k in (
-            "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}))
+        print(json.dumps({rec["name"]: {k: rec.get(k) for k in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "window_4096", "cases")}}))
 
     mark("registration_bf16_kernels")
     # phase 13: registration on both routes, counts from 0

@@ -43,7 +43,11 @@ source index, each element starting from the canvas's own value, which is
 what the JAX package's scan computes on a bfloat16 canvas.  The plain
 versions do the same adds in bfloat16 tensors; on the order-1 route the
 plain version adds into a padded bfloat16 canvas and copies its window
-back.  Each bfloat16 launch counts in the wrapper's ``launches_bf16``.
+back.  On a card, for B = 6, one launch a chunk of up to 1,024 sources:
+a persistent grid walks the tiles, each warp scans the sources in
+ascending index and adds the ones that touch its part of the tile with
+packed bfloat16 arithmetic (csrc/render.cu).  Each bfloat16 launch counts
+in the wrapper's ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -186,20 +190,42 @@ def place_patches_plain(canvas, patches, y, x, visible) -> None:
         canvas[yi : yi + p, xi : xi + p] += patches[i]
 
 
+# The bfloat16 kernels for B = 6 take at most this many sources a launch
+# (csrc/render.cu kScanSources); a larger call takes several in turn.
+_SCAN_SOURCES = 1024
+
+
+def _aligned4(*tensors) -> bool:
+    return all(t.data_ptr() % 4 == 0 for t in tensors)
+
+
 def _launch_place(canvas, patches, y, x, visible):
     n, p, _, b = patches.shape
-    corners = torch.stack([y, x], -1).to(torch.int32)
+    c = canvas.shape[0]
     bf16 = canvas.dtype == torch.bfloat16
-    fn = _build.launcher("render", "dvt_place_bf16" if bf16 else "dvt_place", 4, 4)
-    status = _build.call(
-        fn, canvas.device, patches.data_ptr(), corners.data_ptr(), visible.to(torch.uint8).data_ptr(),
-        canvas.data_ptr(), n, p, b, canvas.shape[0],
-    )
-    _build.check(status, "place_bf16" if bf16 else "place")
-    if bf16:
+    if not (bf16 and b == 6 and _aligned4(patches, canvas)):
+        corners = torch.stack([y, x], -1).to(torch.int32)
+        symbol = "dvt_place_bf16_generic" if bf16 else "dvt_place"
+        fn = _build.launcher("render", symbol, 4, 4)
+        status = _build.call(fn, canvas.device, patches.data_ptr(), corners.data_ptr(),
+                             visible.to(torch.uint8).data_ptr(), canvas.data_ptr(), n, p, b, c)
+        _build.check(status, symbol)
+        if bf16:
+            place_patches.launches_bf16 += 1
+        else:
+            place_patches.launches += 1
+        return
+    # the corners and flags go as they come: no kernel a call to stack or
+    # cast them
+    ys, xs = y.to(torch.int64).contiguous(), x.to(torch.int64).contiguous()
+    vis = visible.to(torch.bool).contiguous()
+    fn = _build.launcher("render", "dvt_place_bf16", 5, 3)
+    for i in range(0, n, _SCAN_SOURCES):
+        m = min(n - i, _SCAN_SOURCES)
+        status = _build.call(fn, canvas.device, patches[i:].data_ptr(), ys[i:].data_ptr(), xs[i:].data_ptr(),
+                             vis[i:].data_ptr(), canvas.data_ptr(), m, p, c)
+        _build.check(status, "place_bf16")
         place_patches.launches_bf16 += 1
-    else:
-        place_patches.launches += 1
 
 
 def place_patches(canvas, patches, y, x, visible) -> None:
@@ -284,12 +310,14 @@ def _launch(stamps, offsets, field_size, mask, out):
     mask_ptr = None if mask is None else mask.data_ptr()
     if out.dtype == torch.bfloat16:
         fn = _build.launcher("render", "dvt_render_bf16", 4, 5)
-        status = _build.call(
-            fn, stamps.device, stamps.data_ptr(), offsets.data_ptr(), mask_ptr, out.data_ptr(),
-            n, s, b, field_size, out.stride(0),
-        )
-        _build.check(status, "render_bf16")
-        render_field_kernel.launches_bf16 += 1
+        for i in range(0, n, _SCAN_SOURCES):
+            m = min(n - i, _SCAN_SOURCES)
+            status = _build.call(
+                fn, stamps.device, stamps[i:].data_ptr(), offsets[i:].data_ptr(),
+                None if mask is None else mask[i:].data_ptr(), out.data_ptr(), m, s, b, field_size, out.stride(0),
+            )
+            _build.check(status, "render_bf16")
+            render_field_kernel.launches_bf16 += 1
         return out
     fn = _build.launcher("render", "dvt_render", 4, 6)
     status = _build.call(

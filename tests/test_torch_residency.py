@@ -89,6 +89,10 @@ ORDER3_MAX_ULPS = 2.0**-5
 # model field against JAX's fed its un-jitted forward, and each layer's
 # share of output elements off JAX's jitted forward, teacher-forced.
 PORT_AGAINST_UNJITTED = 0.0839
+# The readings that closed it: JAX's jitted stream (J) and the port's (P)
+# against the same stream fed a float64 forward rounded once to float32.
+JAX_AGAINST_FLOAT64 = 0.1644
+PORT_AGAINST_FLOAT64 = 0.1757
 LAYER_SHARES_READ = {
     "enc/BatchNorm_0": 0.78, "enc/Conv_0": 0.0, "enc/Conv_1": 0.0, "enc/Conv_2": 0.0, "enc/Conv_3": 0.8883,
     "enc/Conv_4": 0.8447, "enc/Conv_5": 0.9179, "enc/Conv_6": 0.8993, "enc/Conv_7": 0.9317,
@@ -541,11 +545,12 @@ def test_order3_bf16_share_of_jax_against_itself(order3_streams):
     and limits of test_device_dtype_serving_matches_jax[3]: JAX's
     device_dtype='bfloat16' stream fed its un-jitted forward against the
     same stream fed its jitted one.  The model field differs on 3.4% of
-    its elements (read), the port's on 8.9%: JAX's own sensitivity to its
-    forward's summation order is less than half the port's share, so the
-    share is not the JAX package's alone and the fault stays open (ROADMAP
-    Queue 3).  Should JAX's own share reach half the port's, this test
-    fails and the share becomes the model's own tolerance."""
+    its elements (read), the port's on 8.9%.  JAX's two forwards sum their
+    convolutions in the same order, so this control cannot see the
+    summation order that carries the port's share; the float64 control
+    (test_order3_bf16_share_against_a_float64_forward) can, and decides
+    the fault.  This reading stays pinned: should JAX's own share reach
+    half the port's, this test fails."""
     jax_share = _ulp_agreement(order3_streams["unjitted"], order3_streams["jitted"], **_ORDER3_LIMITS)
     port_share = _ulp_agreement(order3_streams["port"], order3_streams["jitted"], **_ORDER3_LIMITS)
     print(f"order 3, model field: JAX un-jitted against JAX jitted {jax_share}, the port against JAX jitted "
@@ -565,6 +570,102 @@ def test_order3_bf16_share_of_the_port_against_jax_unjitted(order3_streams):
     share = _ulp_agreement(order3_streams["port"], order3_streams["unjitted"], **_ORDER3_LIMITS)
     print(f"order 3, model field: the port against JAX un-jitted {share}")
     assert PORT_AGAINST_UNJITTED - 5e-4 < share < PORT_AGAINST_UNJITTED + 5e-4
+
+
+def _float64_forward(tnet, perturb: bool = False):
+    """A ``DeblendField._batched_forward`` for the JAX package: the port's
+    sim_demo modules cast to float64 on the CPU, with the stream's finite
+    guard and flux calibration, the means and stddevs rounded once to
+    float32.  ``perturb`` adds one float32 ulp of the means' scale (their
+    largest magnitude) to band 0 of every mean (the control)."""
+    import copy
+
+    from debvader_tpu_torch.utils.flux_cal import apply_flux_calibration
+
+    net64 = copy.deepcopy(tnet).double()
+
+    def forward(self, cut):
+        x = torch.from_numpy(np.array(cut, np.float64))
+        x = torch.where(torch.isfinite(x), x, torch.zeros((), dtype=x.dtype))
+        with torch.no_grad():
+            dist, _ = net64(x, z_mode="mean")
+        dist = apply_flux_calibration(dist, net64)
+        mean, std = dist.mean().float().numpy(), dist.stddev().float().numpy()
+        if perturb:
+            mean = mean.copy()
+            mean[..., 0] += np.spacing(np.abs(mean).max())
+        return _Forward(jnp.asarray(mean), jnp.asarray(std))
+
+    return forward
+
+
+@pytest.fixture(scope="module")
+def order3_float64(nets):
+    """The model field of JAX's order-3 device_dtype='bfloat16' stream on
+    the field of test_device_dtype_serving_matches_jax[3] fed a float64
+    forward (``exact``) and the same forward perturbed (``perturbed``); and
+    the served cutouts' means from the float64 forward, JAX's jitted
+    float32 forward and the port's float32 forward."""
+    jnet, tnet = nets
+    field, centers = _blob_field(seed=6)
+    streams, cuts = {}, []
+    jitted = dt.DeblendField._batched_forward
+    exact = _float64_forward(tnet)
+    for name, forward in (("exact", exact), ("perturbed", _float64_forward(tnet, perturb=True))):
+        def fed(self, cut, forward=forward):
+            cuts.append(np.array(cut, np.float32))
+            return forward(self, cut)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(dt.DeblendField, "_batched_forward", fed)
+            jdf = _pair(nets, field, 3, device_dtype="bfloat16")[0]
+            streams[name] = _stream_outputs(jdf, centers)["model"]
+    cut = np.concatenate(cuts)
+    streams["means"] = {
+        "float64": np.asarray(exact(jdf, cut).mean()),
+        "jax": np.asarray(jitted(jdf, cut).mean()),
+        "port": dtt.api.deblend_tensor(tnet, torch.from_numpy(cut), False, None, "mean").mean().numpy(),
+    }
+    return streams
+
+
+def test_float64_forward_within_parity_of_both_float32_forwards(order3_float64):
+    """The yardstick is right: on the served cutouts, the float64 forward's
+    means lie within the model's 2e-5 parity tolerance of JAX's jitted
+    float32 forward and of the port's (read: 6.5e-7 and 1.3e-6 of the
+    scale), and both float32 forwards differ from it."""
+    means = order3_float64["means"]
+    exact = means["float64"]
+    scale = float(np.abs(exact).max())
+    for name in ("jax", "port"):
+        err = float(np.abs(means[name] - exact).max()) / scale
+        print(f"float64 forward against {name}'s float32 forward: {err} of the scale")
+        assert 0.0 < err <= 2e-5, name
+
+
+def test_order3_bf16_share_against_a_float64_forward(order3_streams, order3_float64):
+    """Queue 3 item 1 decided against a forward that sums more exactly than
+    either package: JAX's order-3 bf16 stream fed a float64 forward (the
+    port's modules cast to float64, rounded once to float32).  Read under
+    the order-3 limits: JAX's jitted stream differs from it on J = 16.44%
+    of the model field's elements, the port's on P = 17.57%, where the port
+    differs from JAX jitted on 8.88%.  So J >= 8.88% / 2 and P <= 1.25 J:
+    JAX's float32 forward lies as far from the float64 one as the port lies
+    from JAX, and the port's is no further from it than JAX's.  The share
+    is float32 summation order on both sides, and the fault moved to the
+    standing traps (ROADMAP).  J and P are pinned at their readings; the
+    control, the float64 forward moved by one float32 ulp on band 0 of its
+    means, must move P off its pin."""
+    jax_share = _ulp_agreement(order3_streams["jitted"], order3_float64["exact"], **_ORDER3_LIMITS)
+    port_share = _ulp_agreement(order3_streams["port"], order3_float64["exact"], **_ORDER3_LIMITS)
+    port_jax = _ulp_agreement(order3_streams["port"], order3_streams["jitted"], **_ORDER3_LIMITS)
+    moved = _ulp_agreement(order3_streams["port"], order3_float64["perturbed"], **_ORDER3_LIMITS)
+    print(f"order 3, model field against the float64 forward's stream: JAX jitted {jax_share}, the port "
+          f"{port_share} (the port against JAX jitted {port_jax}; against the perturbed forward {moved})")
+    assert abs(jax_share - JAX_AGAINST_FLOAT64) < 5e-4
+    assert abs(port_share - PORT_AGAINST_FLOAT64) < 5e-4
+    assert jax_share >= port_jax / 2 and port_share <= 1.25 * jax_share
+    assert abs(moved - PORT_AGAINST_FLOAT64) >= 5e-4
 
 
 def _layer_probe():
