@@ -154,7 +154,31 @@ without printing its last line):
    each (its CUDA kernels and the device's idle share), a chunk's peak
    memory, the 256^2 crop card against CPU, and one qat_finetune step at
    batch 32 card against CPU (the quantized line);
-20. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+20. the model options: load_deblender("sim_demo", dtype="bfloat16"); the
+   stamp forward on the record-array route's 295 real stamps in float32
+   (TF32 off), bfloat16 and the sub-pixel float32 model, timed in turns
+   with CUDA events and once under torch.profiler, each beside its bound
+   (2 x forward_macs x N over 67 TFLOP/s float32, 989 bf16); the bf16 flux
+   error against float32 on 64 simulated stamps (under the JAX package's
+   3e-2 envelope, also with decoder_f32_stages=2); decoder_subpixel=True
+   within 2e-5 of the stock model and decoder_f32_stages=2 in float32 bit
+   for bit; detection and deblend_and_render of the 1024^2 field through
+   the bf16 model with the detection and render kernels counted from 0,
+   two runs bit-identical, the residual within BF16_RESIDUAL_TOL of the
+   float32 route's, warm times in turns; the 256^2 crop, the bf16 forward
+   card against CPU (BF16_CROP_SHARE beyond one bf16 ulp) (the
+   model_options line);
+21. export and the CLI: export_deblender on the card, load_exported and
+   artifact_forward against the live model at 1, 128 and 295 stamps
+   through one artifact (bit for bit expected, held to ARTIFACT_TOL, the
+   largest difference and the share that differs printed), timed beside
+   the live forward; DeblendField(artifact=) deblend_and_render against
+   the live route, its render launches counted from 0; then `python -m
+   debvader_tpu_torch` in processes of their own on the field written
+   under chiprun_out/cli: detect against the in-process detection, serve
+   --centers against the in-process route, export then serve --artifact
+   (the export_cli line);
+22. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 Phase 4's default-threshold detection also times the native segment merge
@@ -200,6 +224,19 @@ DETECTION = dict(thresh=5.0, threshold_scaling="matched")
 # sources that only one of the float32 and bfloat16 routes finds are held
 # to this share of the float32 route's rows (read 162 of 9,291, 1.7%).
 ONE_ROUTE_MAX_SHARE = 0.02
+# Phase 20: the bf16 model's serving residual is held to this share of the
+# field's scale from the float32 route's (the JAX package's bf16 envelope
+# is a 3e-2 flux error), and the bf16 crop's means, card against CPU (cuDNN
+# against oneDNN, each rounding its contraction once to bf16), to this
+# share of elements beyond one bf16 ulp of the means' scale.
+BF16_RESIDUAL_TOL = 3e-2
+BF16_CROP_SHARE = 0.01
+# Phase 21: an artifact runs the live model's ATen operations, bit for bit
+# expected; any difference is printed and held to this share of the scale.
+ARTIFACT_TOL = 1e-5
+# Phase 21: the CLI detects at this threshold (its --thresh, sep_conv
+# scaling)
+CLI_THRESH = 5.0
 
 
 def nvidia_smi_line() -> str:
@@ -3400,6 +3437,252 @@ def profile_run(torch, fn) -> dict:
             "device_idle_share": 1.0 - busy_ms / wall_ms, "top_device_events": events[:25]}
 
 
+def stamp_forward_times(torch, nets: dict, x, reps: int = 20) -> dict:
+    """Phase 20: the batched stamp forward of each model in ``nets`` on
+    the same (N, S, S, B) stamps, timed in turns with CUDA events (median
+    of ``reps``), then one profiled call each (its device-busy time),
+    each beside its bound: 2 x forward_macs x N operations over the peak
+    rate of its compute dtype (float32 with TF32 off, or bf16 tensor
+    cores)."""
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.utils.flops import forward_macs
+
+    def fwd(net):
+        def run():
+            with torch.no_grad(), fp32_math():
+                net(x, z_mode="mean")
+        return run
+
+    times = {name: [] for name in nets}
+    for _ in range(2):
+        for name, net in list(nets.items()) + list(nets.items())[::-1]:
+            times[name].append(cuda_ms(torch, fwd(net), reps=reps // 4, warmup=2))
+    out = {}
+    for name, net in nets.items():
+        ops = 2.0 * forward_macs(net.cfg) * x.shape[0]
+        peak = PEAK_BF16_OPS_PER_S if net.cfg.dtype == "bfloat16" else PEAK_OPS_PER_S
+        bound_ms = ops / peak * 1e3
+        prof = profile_run(torch, fwd(net))
+        ms = float(np.median(times[name]))
+        out[name] = {"stamps": int(x.shape[0]), "ms": ms, "ms_runs": times[name],
+                     "device_busy_ms": prof["device_busy_ms"], "device_idle_share": prof["device_idle_share"],
+                     "device_kernels": prof["device_kernels"], "bound_ms": bound_ms, "bound_by": "operations",
+                     "ms_over_bound": ms / bound_ms, "device_ms_over_bound": prof["device_busy_ms"] / bound_ms,
+                     "top_device_events": prof["top_device_events"][:6]}
+    return out
+
+
+def run_model_options(torch, net, field: np.ndarray, centers: np.ndarray, cutouts: np.ndarray, reset_counts,
+                      read_counts) -> dict:
+    """Phase 20: the model options on the card.  load_deblender("sim_demo",
+    dtype="bfloat16"); the stamp forward in float32 and in bfloat16 on the
+    record-array route's real stamps, timed with their bounds; the bf16
+    flux error against the float32 forward on 64 simulated stamps (held
+    under the JAX package's 3e-2 envelope); deblend_and_render of the
+    1024^2 field through the bf16 model with the detection and render
+    kernels counted from 0, twice bit-identical, beside the float32
+    route; the 256^2 crop card against the CPU's bf16 forward; and
+    decoder_subpixel=True, decoder_f32_stages=2 against the stock model."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import simulate_batch
+    from debvader_tpu_torch.device import fp32_math
+
+    t = time.perf_counter()
+    bf = dt.load_deblender("sim_demo", device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    if bf.cfg.dtype != "bfloat16" or bf.decoder.convts[0].weight.dtype != torch.float32:
+        raise AssertionError("model options: load_deblender(dtype='bfloat16') built the wrong model")
+    x = torch.as_tensor(cutouts, device="cuda")
+    sub = dt.load_deblender("sim_demo", device="cuda", cfg=dt.ModelConfig(decoder_subpixel=True))
+    stages = dt.load_deblender("sim_demo", device="cuda", decoder_f32_stages=2)
+    bf_stages = dt.load_deblender("sim_demo", device="cuda", dtype="bfloat16", decoder_f32_stages=2)
+    forward = stamp_forward_times(torch, {"float32": net, "bfloat16": bf, "float32_subpixel": sub}, x)
+
+    def loc(model, inp):
+        with torch.no_grad(), fp32_math():
+            return model(inp, z_mode="mean")[0].loc.cpu().numpy()
+
+    held_out = torch.as_tensor(simulate_batch(7, 64)[0], device="cuda")
+    ref = loc(net, held_out)
+    flux = {"bfloat16": flux_rel_err(loc(bf, held_out), ref),
+            "bfloat16_f32_stages_2": flux_rel_err(loc(bf_stages, held_out), ref)}
+    if not max(flux.values()) < 3e-2:
+        raise AssertionError(f"model options: bf16 flux error {flux} beyond the 3e-2 envelope")
+
+    # the float32 options against the stock model on the real stamps
+    m32 = loc(net, x)
+    scale = float(np.abs(m32).max())
+    sub_err = float(np.abs(loc(sub, x) - m32).max())
+    stages_equal = bool(np.array_equal(loc(stages, x).view(np.int32), m32.view(np.int32)))
+    if sub_err > 2e-5 * scale or not stages_equal:
+        raise AssertionError(f"model options: sub-pixel {sub_err} of {scale}, f32 stages equal {stages_equal}")
+    m16 = loc(bf, x)
+    bf_err = float(np.abs(m16 - m32).max())
+
+    # the bf16 model on the serving route, detection and render counted
+    reset_counts()
+    found = dt.detect_objects(field, dt.DetectionConfig(**DETECTION), device="cuda")
+    dfb = dt.DeblendField(bf, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    cat_b, resid_b, model_b = dfb.deblend_and_render(found, return_model=True)
+    launches = read_counts("bfloat16 model", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1,
+                                             "render": 1})
+    again = dt.DeblendField(bf, field, z_mode="mean", cfg=serving_cfg(), device="cuda").deblend_and_render(found)[1]
+    if not np.array_equal(again.view(np.int32), resid_b.view(np.int32)):
+        raise AssertionError("model options: two bf16 serving runs differ")
+    cat_f, resid_f = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda").deblend_and_render(
+        found)
+    catalogs_agree(cat_b, cat_f)
+    field_scale = float(np.abs(field).max())
+    resid_err = float(np.abs(resid_b - resid_f).max())
+    if not (np.isfinite(resid_b).all() and resid_err <= BF16_RESIDUAL_TOL * field_scale):
+        raise AssertionError(f"model options: bf16 residual {resid_err} off the float32 route's ({field_scale})")
+    warm = {"float32": [], "bfloat16": []}
+    dff = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    for name, obj in (("float32", dff), ("bfloat16", dfb), ("bfloat16", dfb), ("float32", dff)):
+        timings = {}
+        t = time.perf_counter()
+        obj.deblend_and_render(found, timings=timings)
+        torch.cuda.synchronize()
+        warm[name].append({"total_s": time.perf_counter() - t, **timings})
+
+    # the crop: the bf16 forward on the card against the port's CPU one
+    crop = np.ascontiguousarray(field[:, 384:640, 384:640, :])
+    bf_cpu = dt.load_deblender("sim_demo", device="cpu", dtype="bfloat16")
+    c_gpu, r_gpu, res_gpu, _ = run_main_path(torch, bf, crop, "cuda")
+    c_cpu, r_cpu, res_cpu, _ = run_main_path(torch, bf_cpu, crop, "cpu")
+    if not np.array_equal(c_gpu, c_cpu):
+        raise AssertionError("model options: detection differs between card and CPU on the crop")
+    g, c = np.stack(list(r_gpu.output_images_mean)), np.stack(list(r_cpu.output_images_mean))
+    crop_scale = float(np.abs(c).max())
+    diff = np.abs(g - c)
+    crop_share = float(np.mean(diff > bf16_ulp(crop_scale)))
+    crop_err = float(diff.max())
+    if crop_share > BF16_CROP_SHARE or crop_err > 5e-2 * crop_scale:
+        raise AssertionError(f"model options: bf16 crop, card against CPU: {crop_err} of {crop_scale}, "
+                             f"{crop_share} beyond one bf16 ulp of the scale")
+    return {
+        "load_s": load_s, "stamp_forward": forward, "flux_rel_err_vs_float32": flux,
+        "bf16_mean_max_abs_err_vs_float32": bf_err, "mean_max_abs": scale,
+        "subpixel_max_abs_err": sub_err, "f32_stages_2_float32_bit_equal": stages_equal,
+        "serving": {"sources": int(len(found)), "deblended": int(len(cat_b)), "launches": launches,
+                    "residual_max_abs_err_vs_float32": resid_err, "field_max_abs": field_scale,
+                    "warm_deblend_and_render": warm},
+        "crop_vs_cpu": {"sources": int(len(c_gpu)), "mean_max_abs_err": crop_err, "mean_max_abs": crop_scale,
+                        "share_beyond_one_bf16_ulp": crop_share, "differing_share": float(np.mean(diff > 0)),
+                        "residual_max_abs_err": float(np.abs(res_gpu - res_cpu).max())},
+    }
+
+
+def artifact_equal(got, want) -> dict:
+    """Largest difference and the share of elements that differ between an
+    artifact's output and the live model's."""
+    d = (got - want).abs()
+    return {"max_abs_err": float(d.max()), "differing_share": float((d > 0).float().mean()),
+            "scale": float(want.abs().max())}
+
+
+def run_cli(args: list, timeout: int = 300) -> dict:
+    """``python -m debvader_tpu_torch ARGS`` from the repo root in a
+    process of its own; raises unless it exits 0."""
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "debvader_tpu_torch", *args], cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"CLI {args[0]} exited {out.returncode}: {out.stderr[-3000:]}")
+    return {"s": time.perf_counter() - t, "stdout": out.stdout.strip().splitlines()[-1:]}
+
+
+def run_export_cli(torch, net, field: np.ndarray, centers: np.ndarray, cutouts: np.ndarray, reset_counts,
+                   read_counts) -> dict:
+    """Phase 21: export_deblender on the card, load_exported and
+    artifact_forward against the live model at batches of 1, 128 and the
+    ragged 295 through one artifact; DeblendField(artifact=) against the
+    live route; then the CLI in processes of its own: detect and serve
+    --centers against the in-process route, export then serve --artifact."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.api import deblend_tensor
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.utils import export as ex
+
+    t = time.perf_counter()
+    blob = ex.export_deblender(net)
+    export_s = time.perf_counter() - t
+    call = ex.load_exported(blob)
+    fwd = ex.artifact_forward(blob, device="cuda")
+    x_all = torch.as_tensor(cutouts, device="cuda")
+    batches = {}
+    for n in (1, 128, x_all.shape[0]):
+        x = x_all[:n]
+        got = fwd(x, torch.Generator(device="cuda").manual_seed(n))
+        want = deblend_tensor(net, x, generator=torch.Generator(device="cuda").manual_seed(n))
+        eps = torch.randn((n, net.cfg.latent_dim), generator=torch.Generator(device="cuda").manual_seed(n),
+                          device="cuda")
+        with torch.no_grad(), fp32_math():
+            raw = call(x, eps)
+        rec = {"loc": artifact_equal(got[0], want.loc), "scale": artifact_equal(got[1], want.scale),
+               "load_exported_loc": artifact_equal(raw[0], want.loc)}
+        for k, r in rec.items():
+            if r["max_abs_err"] > ARTIFACT_TOL * r["scale"]:
+                raise AssertionError(f"export: batch {n}, {k}: {r}")
+        batches[str(n)] = rec
+    ms = {"artifact": cuda_ms(torch, lambda: fwd(x_all, torch.Generator(device="cuda").manual_seed(0)), reps=10),
+          "live": cuda_ms(torch, lambda: deblend_tensor(net, x_all, generator=torch.Generator(device="cuda")
+                                                        .manual_seed(0)), reps=10)}
+
+    # the serving route through a mean-mode artifact, counted from 0
+    mean_blob = ex.export_deblender(net, z_mode="mean")
+    live = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
+    cat_l, resid_l = live.deblend_and_render(centers)
+    reset_counts()
+    art = dt.DeblendField(net, field, z_mode="mean", cfg=serving_cfg(), artifact=mean_blob, device="cuda")
+    cat_a, resid_a = art.deblend_and_render(centers)
+    launches = read_counts("artifact", {"render": 1})
+    catalogs_agree(cat_a, cat_l)
+    route_err = float(np.abs(resid_a - resid_l).max())
+    if route_err > ARTIFACT_TOL * float(np.abs(field).max()):
+        raise AssertionError(f"export: DeblendField(artifact=) residual {route_err} off the live route's")
+
+    # the CLI, each command a process of its own, on files under chiprun_out
+    out = Path("chiprun_out") / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    np.save(out / "field.npy", field)
+    cli = {"detect": run_cli(["detect", "--field", str(out / "field.npy"), "--out", str(out / "centers.npy"),
+                              "--thresh", str(CLI_THRESH)])}
+    det = dt.detect_objects_tiled(field, dt.DetectionConfig(thresh=CLI_THRESH), device="cuda")
+    cli_centers = np.load(out / "centers.npy")
+    if not np.array_equal(cli_centers, det):
+        raise AssertionError("CLI detect differs from the in-process detection")
+    cli["serve"] = run_cli(["serve", "--field", str(out / "field.npy"), "--centers", str(out / "centers.npy"),
+                            "--out-prefix", str(out / "serve")])
+    _, want = dt.DeblendField(net, field, device="cuda").deblend_and_render(det)
+    serve_resid = np.load(out / "serve_residual.npy")
+    serve_equal = bool(np.array_equal(serve_resid.view(np.int32), want.view(np.int32)))
+    serve_err = float(np.abs(serve_resid - want).max())
+    cli["export"] = run_cli(["export", "--out", str(out / "fwd.pt2")])
+    cli["serve_artifact"] = run_cli(["serve", "--field", str(out / "field.npy"), "--centers",
+                                     str(out / "centers.npy"), "--artifact", str(out / "fwd.pt2"),
+                                     "--out-prefix", str(out / "serve_artifact")])
+    art_resid = np.load(out / "serve_artifact_residual.npy")
+    art_err = float(np.abs(art_resid - serve_resid).max())
+    scale = float(np.abs(field).max())
+    if serve_err > ARTIFACT_TOL * scale or art_err > ARTIFACT_TOL * scale:
+        raise AssertionError(f"CLI serve {serve_err}, serve --artifact {art_err} off the in-process route")
+    # chiprun_out comes back only under 64 MiB: keep the centres and the
+    # catalogues, drop the field-sized arrays and the artifact
+    for name in ("field.npy", "serve_residual.npy", "serve_artifact_residual.npy", "fwd.pt2"):
+        (out / name).unlink()
+    return {
+        "export_s": export_s, "artifact_bytes": len(blob), "batches": batches, "forward_295_ms": ms,
+        "route": {"launches": launches, "residual_max_abs_err": route_err, "deblended": int(len(cat_a))},
+        "cli": {"runs": cli, "detections": int(len(det)), "serve_bit_equal": serve_equal,
+                "serve_max_abs_err": serve_err,
+                "serve_artifact_max_abs_err_vs_serve": art_err,
+                "serve_artifact_bit_equal": bool(np.array_equal(art_resid.view(np.int32),
+                                                                serve_resid.view(np.int32)))},
+    }
+
+
 def stamp_mask(field_size: int, centers: np.ndarray, size: int = 59) -> np.ndarray:
     """True inside the size x size window of each source, clipped to the field."""
     mask = np.zeros((field_size, field_size), bool)
@@ -3834,6 +4117,20 @@ def main() -> int:
     report["quantized"] = quantized
     print(json.dumps({"quantized": quantized}))
     mark("quantized")
+    # phase 20: the model options: the bf16 and sub-pixel forwards, the bf16
+    # model on the serving route with its kernels counted from 0
+    options = run_model_options(torch, net, field, centers, main_cutouts, reset_counts, read_counts)
+    report["model_options"] = options
+    print(json.dumps({"model_options": options}))
+    for name, r in options["stamp_forward"].items():
+        print(f"stamp forward {name}, {r['stamps']} stamps: {r['ms']:.3f} ms (device busy {r['device_busy_ms']:.3f} "
+              f"ms), bound {r['bound_ms']:.3f} ms, {r['ms_over_bound']:.2f}x the bound, on {smi}")
+    mark("model_options")
+    # phase 21: export and the CLI
+    exported = run_export_cli(torch, net, field, centers, main_cutouts, reset_counts, read_counts)
+    report["export_cli"] = exported
+    print(json.dumps({"export_cli": exported}))
+    mark("export_cli")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 

@@ -22,7 +22,12 @@ BatchNorm, optax's Adam, checkpoints, band-count transfer and the native
 data loader (``training/``, ``runtime/loader.py``); and int8 quantized
 serving (``models/quantized.py``: ``quantize_vae``, ``qat_finetune``,
 ``load_quantized('sim_demo_int8')``, ``DeblendField(quantized=)``) on the
-int8 tensor cores (``csrc/int8_conv.cu``).
+int8 tensor cores (``csrc/int8_conv.cu``); the model options of the JAX
+``ModelConfig`` (``dtype='bfloat16'``, ``strict_cast``,
+``decoder_subpixel``, ``decoder_f32_stages``), export through
+``torch.export`` (``utils/export.py``, ``DeblendField(artifact=)``), the
+reference-shaped ``compat`` namespace and the command line
+(``python -m debvader_tpu_torch``, cli.py).
 Public functions keep the JAX package's NHWC layout.  Entry points run on the GPU
 (``device="cuda"``) unless the caller passes ``device="cpu"``; the kernels
 are hand-written CUDA (``csrc/``) built with ``nvcc`` at first use, and
@@ -45,7 +50,7 @@ from debvader_tpu_torch.kernels.decoder_tail import decoder_tail_params, fused_d
 from debvader_tpu_torch.kernels.matched_filter import matched_filter_threshold
 from debvader_tpu_torch.kernels.render import render_field_kernel
 from debvader_tpu_torch.kernels.tail_fused import fused_tail_pair, tail_pair_params
-from debvader_tpu_torch.models.vae import DeblenderVAE, create_model_vae, init_vae
+from debvader_tpu_torch.models.vae import DeblenderVAE, create_decoder, create_encoder, create_model_vae, init_vae
 from debvader_tpu_torch.ops.detection import detect_objects, detect_sources
 from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.shift import render_field, render_pad
@@ -68,6 +73,8 @@ __all__ = [
     "IterativeDeblendField",
     "DeblenderVAE",
     "create_model_vae",
+    "create_encoder",
+    "create_decoder",
     "init_vae",
     "load_deblender",
     "train_network",

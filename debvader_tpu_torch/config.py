@@ -2,16 +2,17 @@
 ported paths read, under the same names and with the same defaults.
 
 The port keeps its own copy because the JAX package's config module
-imports ``jax.numpy``.  The model computes in float32; the precision knobs
-(``matmul_precision``, ``layer_precision``, ``limb_emulation``) select the
-explicit bf16-limb schemes of models/precision.py.  ``dtype``,
-``strict_cast``, ``decoder_subpixel``, ``decoder_f32_stages`` and the
-quantization knobs of the JAX ``ModelConfig`` belong to later slices.
+imports ``jax.numpy``.  ``ModelConfig`` carries every field of the JAX
+package's, so ``ModelConfig(**dataclasses.asdict(jax_cfg))`` builds the
+same model; ``compute_dtype`` is a ``torch.dtype`` where JAX's is a numpy
+dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 __all__ = [
     "ModelConfig",
@@ -33,7 +34,18 @@ def _not_ported(option: str, title: str):
 class ModelConfig:
     """Architecture of the convolutional VAE (59x59xB input, latent 32,
     filters 32/64/128/256, 3x3 kernels, pixel-Normal scale floor 1e-4,
-    TriL diagonal shift 1e-5).
+    TriL diagonal shift 1e-5, KL weight 0.01).
+
+    ``dtype`` is the compute dtype of the conv and dense stacks, 'float32'
+    or 'bfloat16'; the parameters stay float32 (models/vae.py follows the
+    flax graph's rounding points).  ``strict_cast`` runs the decoder's big
+    Dense (dec/Dense_1) in float32 under a bfloat16 ``dtype``, as the
+    reference casts before it.  ``decoder_subpixel`` runs the decoder's
+    stride-2 transposed convs and its band head in the sub-pixel
+    formulation (models/layers.py), numerically equivalent and with the
+    same parameters.  ``decoder_f32_stages`` = N runs the decoder's last N
+    stage pairs, and the band head when N > 0, in float32 whatever
+    ``dtype`` is.
 
     ``matmul_precision`` (None, 'default', 'high', 'highest') and the
     per-layer ``layer_precision`` overrides name the JAX package's rungs.
@@ -59,6 +71,11 @@ class ModelConfig:
     kernels: tuple = (3, 3, 3, 3)
     scale_floor: float = 1e-4
     diag_shift: float = 1e-5
+    kl_weight: float = 0.01
+    dtype: str = "float32"
+    strict_cast: bool = True
+    decoder_subpixel: bool = False
+    decoder_f32_stages: int = 0
     matmul_precision: str | None = None
     layer_precision: tuple | None = None
     limb_emulation: bool = False
@@ -71,6 +88,13 @@ class ModelConfig:
         object.__setattr__(self, "kernels", tuple(self.kernels))
         if len(self.filters) != len(self.kernels):
             raise ValueError("filters and kernels must have the same length")
+        if not 0 <= self.decoder_f32_stages <= len(self.filters):
+            raise ValueError(
+                f"decoder_f32_stages must be in [0, {len(self.filters)}], "
+                f"got {self.decoder_f32_stages}"
+            )
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {self.dtype!r}")
         if self.matmul_precision not in (None, "default", "high", "highest"):
             raise ValueError(
                 "matmul_precision must be None, 'default', 'high' or "
@@ -121,6 +145,10 @@ class ModelConfig:
     def input_shape(self) -> tuple[int, int, int]:
         return (self.stamp_size, self.stamp_size, self.nb_of_bands)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
 
 def fidelity_serving_config(**overrides) -> ModelConfig:
     """The fidelity serving configuration of the JAX package: float32 with
@@ -129,7 +157,7 @@ def fidelity_serving_config(**overrides) -> ModelConfig:
     ``load_deblender(..., cfg=fidelity_serving_config(), flux_calibration=True)``
     so that the bias is divided back out (utils/flux_cal.py).  Off a TPU the
     'high' rung is plain float32 unless ``limb_emulation=True``."""
-    kw = dict(matmul_precision="high")
+    kw = dict(dtype="float32", matmul_precision="high")
     kw.update(overrides)
     return ModelConfig(**kw)
 

@@ -18,6 +18,24 @@
 of its input and its weight without the bias and adds the bias after, in
 float32.  The parameters are the same with and without a scheme, so one
 state dict serves every precision configuration.
+
+Without a scheme they take a compute ``dtype``, as flax's ``nn.Conv`` /
+``nn.Dense`` do: the input is cast to it (``_compute_in``; "float32" means
+the parameters' own dtype, so a model cast with ``.double()`` computes in
+float64).  In float32 the bias joins the contraction.  In bfloat16 the input and the weight are cast to bfloat16,
+the contraction's bfloat16 result (rounded once from a float32
+accumulation) and the bias cast to bfloat16 are added in bfloat16: two
+roundings, where ``F.conv2d(bias=...)`` would round once.  ``PReLU``
+computes in its input's dtype, its alpha cast to it; ``BatchNorm``
+computes in float32 and casts its output to its ``dtype`` (flax promotes a
+bfloat16 input against the float32 statistics).
+
+``ConvTranspose2dTF(subpixel=True)`` and ``SubpixelConv2d`` run the
+sub-pixel formulation of the JAX package's ``models/layers.py``: a dense
+conv whose output channels are the phases of a 2x2 output patch, then a
+depth-to-space.  The packed kernels (``pack_subpixel_kernel*``, in the JAX
+package's HWIO / TF layouts) are built in the forward from the stored
+kernel, so the parameters do not change.
 """
 
 from __future__ import annotations
@@ -38,6 +56,10 @@ __all__ = [
     "PReLU",
     "BatchNorm",
     "Dense",
+    "SubpixelConv2d",
+    "pack_subpixel_kernel",
+    "pack_subpixel_kernel_s1",
+    "pack_subpixel_kernel_fwd",
 ]
 
 
@@ -45,6 +67,21 @@ def _check_scheme(scheme):
     if scheme is not None and scheme not in SCHEMES:
         raise ValueError(f"scheme must be None or one of {sorted(SCHEMES)}, got {scheme!r}")
     return scheme
+
+
+def _compute_in(x: torch.Tensor, dtype: torch.dtype, param: torch.Tensor) -> torch.Tensor:
+    """x cast to a layer's compute dtype: bfloat16, or for float32 the
+    dtype of the layer's parameters."""
+    return x.to(param.dtype if dtype == torch.float32 else dtype)
+
+
+def _contract(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype, fn):
+    """fn(x, weight, bias) in ``dtype``: float32 folds the bias into the
+    contraction; bfloat16 adds it to the bfloat16 result after."""
+    if dtype == torch.float32:
+        return fn(_compute_in(x, dtype, weight), weight, bias)
+    y = fn(x.to(dtype), weight.to(dtype), None)
+    return y + bias.to(dtype).view((-1,) + (1,) * (y.ndim - 2))
 
 
 def tf_same_pads(in_size: int, k: int, s: int) -> tuple[int, int]:
@@ -79,16 +116,19 @@ def conv_transpose2d_tf(x: torch.Tensor, weight: torch.Tensor, stride: int,
 class Conv2dSame(nn.Module):
     """Conv2d with TF 'SAME' padding; weight (out, in, kh, kw)."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, scheme: str | None = None):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, scheme: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
         self.scheme = _check_scheme(scheme)
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.scheme is None:
-            return conv2d_same(x, self.weight, self.stride, self.bias)
+            return _contract(x, self.weight, self.bias, self.dtype,
+                             lambda xx, w, b: conv2d_same(xx, w, self.stride, b))
         y = apply_scheme(
             x, self.weight, self.scheme, 0,
             lambda xl, wl: conv2d_same(xl, wl, self.stride), out_axis=1,
@@ -98,18 +138,50 @@ class Conv2dSame(nn.Module):
 
 class ConvTranspose2dTF(nn.Module):
     """TF-semantics transposed conv; weight (in, out, kh, kw), which is the
-    TF (kh, kw, out, in) kernel transposed (3, 2, 0, 1)."""
+    TF (kh, kw, out, in) kernel transposed (3, 2, 0, 1).
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, scheme: str | None = None):
+    ``subpixel=True`` with a 3x3 kernel runs stride 2 as a dense 2x2 conv
+    to the four output phases, and stride 1 on an even input as a stride-2
+    4x4 conv to them, each then a depth-to-space; stride 1 on an odd input
+    falls back to the transposed conv."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, scheme: str | None = None,
+                 dtype: torch.dtype = torch.float32, subpixel: bool = False):
         super().__init__()
         self.stride = stride
         self.scheme = _check_scheme(scheme)
+        self.dtype = dtype
+        self.subpixel = subpixel
         self.weight = nn.Parameter(torch.zeros(cin, cout, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
 
+    def _subpixel_fn(self, x: torch.Tensor):
+        """The sub-pixel contraction for this input, or None."""
+        if not self.subpixel or self.weight.shape[-2:] != (3, 3):
+            return None
+        if self.stride == 2:
+            def fn(xx, w, b):
+                packed = _torch_conv_weight(pack_subpixel_kernel(w.permute(2, 3, 1, 0)))
+                return _depth_to_space(F.conv2d(F.pad(xx, (1, 0, 1, 0)), packed, None))
+            return fn
+        if self.stride == 1 and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
+            def fn(xx, w, b):
+                packed = _torch_conv_weight(pack_subpixel_kernel_s1(w.permute(2, 3, 1, 0)))
+                return _depth_to_space(F.conv2d(F.pad(xx, (1, 1, 1, 1)), packed, None, stride=2))
+            return fn
+        return None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.scheme is None:
-            return conv_transpose2d_tf(x, self.weight, self.stride, self.bias)
+            sub = self._subpixel_fn(x)
+            if sub is not None:
+                # the packed contraction leaves the bias out in float32 too,
+                # as the JAX layer adds it after the depth-to-space
+                w = _compute_in(self.weight, self.dtype, self.weight)
+                y = sub(_compute_in(x, self.dtype, self.weight), w, None)
+                return y + self.bias.to(w.dtype).view(1, -1, 1, 1)
+            return _contract(x, self.weight, self.bias, self.dtype,
+                             lambda xx, w, b: conv_transpose2d_tf(xx, w, self.stride, b))
         # the bias joins after the limb terms are summed: inside the
         # contraction it would be added once a term
         y = apply_scheme(
@@ -120,10 +192,11 @@ class ConvTranspose2dTF(nn.Module):
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """max(x, 0) + alpha * min(x, 0), as ``PReLU`` computes it: a NaN
-    propagates, and a zero keeps ``torch.maximum``'s sign."""
+    """max(x, 0) + alpha * min(x, 0) in x's dtype, alpha cast to it, as
+    ``PReLU`` computes it: a NaN propagates, and a zero keeps
+    ``torch.maximum``'s sign."""
     zero = x.new_zeros(())
-    return torch.maximum(x, zero) + alpha * torch.minimum(x, zero)
+    return torch.maximum(x, zero) + alpha.to(x.dtype) * torch.minimum(x, zero)
 
 
 class PReLU(nn.Module):
@@ -155,10 +228,16 @@ class BatchNorm(nn.Module):
     ``torch.nn.BatchNorm2d`` keeps an unbiased running variance instead.
     The gradient flows through the batch statistics (autograd); the
     running update is outside the graph and happens whatever the optimizer
-    freezes, as flax's ``mutable=["batch_stats"]`` does."""
+    freezes, as flax's ``mutable=["batch_stats"]`` does.
 
-    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.99):
+    Statistics and normalisation are in the parameters' dtype (float32)
+    whatever the input's dtype (flax's ``force_float32_reductions``); a
+    bfloat16 ``dtype`` casts the output to it."""
+
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.99,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.eps = eps
         self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
@@ -168,6 +247,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
+        x = x.to(self.scale.dtype)
         if train:
             axes = (0,) + tuple(range(2, x.ndim))
             mean = x.mean(dim=axes)
@@ -178,19 +258,115 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y if self.dtype == torch.float32 else y.to(self.dtype)
 
 
 class Dense(nn.Module):
     """x @ kernel + bias with the checkpoint's (in, out) kernel."""
 
-    def __init__(self, fin: int, fout: int, scheme: str | None = None):
+    def __init__(self, fin: int, fout: int, scheme: str | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.scheme = _check_scheme(scheme)
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(fin, fout))
         self.bias = nn.Parameter(torch.zeros(fout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.scheme is None:
-            return x @ self.kernel + self.bias
+            if self.dtype == torch.float32:
+                return _compute_in(x, self.dtype, self.kernel) @ self.kernel + self.bias
+            return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
         return apply_scheme(x, self.kernel, self.scheme, 1, torch.matmul) + self.bias
+
+
+# ------------------------------------------------------------ sub-pixel
+
+
+def _torch_conv_weight(hwio: torch.Tensor) -> torch.Tensor:
+    """HWIO kernel -> F.conv2d's (out, in, kh, kw)."""
+    return hwio.permute(3, 2, 0, 1)
+
+
+def pack_subpixel_kernel(w: torch.Tensor) -> torch.Tensor:
+    """A (3, 3, out, in) TF-layout stride-2 transposed-conv kernel packed
+    for the sub-pixel formulation: (2, 2, in, 4 * out) HWIO, the JAX
+    package's ``pack_subpixel_kernel``.  Output pixel (2i + p) reads the
+    input through the taps k = p (mod 2): tap d in {0, 1} of a dense 2x2
+    conv padded ((1, 0), (1, 0)) reads x[i - 1 + d], so the slot of phase
+    p is w[p + 2 (1 - d)], empty when that is 3.  Phase channels are
+    (py, px) row-major, as :func:`_depth_to_space` reads them."""
+    kh, kw, cout, cin = w.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"subpixel pack requires a 3x3 kernel, got {kh}x{kw}")
+    empty = w.new_zeros((cin, cout))
+    taps = []
+    for dy in range(2):
+        for dx in range(2):
+            phases = []
+            for py in range(2):
+                for px in range(2):
+                    ky, kx = py + 2 * (1 - dy), px + 2 * (1 - dx)
+                    phases.append(w[ky, kx].T if ky < 3 and kx < 3 else empty)
+            taps.append(torch.stack(phases, dim=1))  # (in, 4, out)
+    return torch.stack(taps, dim=0).reshape(2, 2, cin, 4 * cout)
+
+
+def pack_subpixel_kernel_s1(w: torch.Tensor) -> torch.Tensor:
+    """A (3, 3, out, in) TF-layout stride-1 transposed-conv kernel packed
+    for the output-patch sub-pixel formulation on an even input: (4, 4, in,
+    4 * out) HWIO for a stride-2 conv padded ((1, 1), (1, 1)).  A stride-1
+    transposed conv is the correlation with the kernel turned 180 degrees
+    and its channels swapped, so this is :func:`pack_subpixel_kernel_fwd`
+    of that forward kernel."""
+    kh, kw = w.shape[:2]
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"subpixel pack requires a 3x3 kernel, got {kh}x{kw}")
+    return pack_subpixel_kernel_fwd(torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2))
+
+
+def pack_subpixel_kernel_fwd(w: torch.Tensor) -> torch.Tensor:
+    """A (3, 3, in, out) HWIO stride-1 SAME conv kernel packed for the
+    output-patch sub-pixel formulation: (4, 4, in, 4 * out), tap d of
+    phase p holding w[d - p] for 0 <= d - p <= 2."""
+    kh, kw, cin, cout = w.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"subpixel pack requires a 3x3 kernel, got {kh}x{kw}")
+    empty = w.new_zeros((cin, cout))
+    taps = []
+    for dy in range(4):
+        for dx in range(4):
+            phases = []
+            for py in range(2):
+                for px in range(2):
+                    my, mx = dy - py, dx - px
+                    phases.append(w[my, mx] if 0 <= my <= 2 and 0 <= mx <= 2 else empty)
+            taps.append(torch.stack(phases, dim=1))  # (in, 4, out)
+    return torch.stack(taps, dim=0).reshape(4, 4, cin, 4 * cout)
+
+
+def _depth_to_space(y: torch.Tensor) -> torch.Tensor:
+    """(N, 4 C, S, S) phase channels, (py, px) row-major -> (N, C, 2S, 2S)."""
+    n, c4, h, w = y.shape
+    c = c4 // 4
+    return y.reshape(n, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2).reshape(n, c, 2 * h, 2 * w)
+
+
+class SubpixelConv2d(Conv2dSame):
+    """Stride-1 3x3 SAME conv in the output-patch sub-pixel formulation
+    (a stride-2 4x4 conv to the four phases, then a depth-to-space) on an
+    even input, the stock conv on an odd one; the parameters of
+    :class:`Conv2dSame`.  The bias is added after the contraction in
+    either dtype, as the JAX ``SubpixelConv2D`` adds it."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 3, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xd, w = _compute_in(x, self.dtype, self.weight), _compute_in(self.weight, self.dtype, self.weight)
+        if x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
+            packed = _torch_conv_weight(pack_subpixel_kernel_fwd(w.permute(2, 3, 1, 0)))
+            y = _depth_to_space(F.conv2d(F.pad(xd, (1, 1, 1, 1)), packed, None, stride=2))
+        else:
+            y = conv2d_same(xd, w, 1)
+        return y + self.bias.to(w.dtype).view(1, -1, 1, 1)

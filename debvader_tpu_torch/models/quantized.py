@@ -85,11 +85,9 @@ __all__ = [
 
 # XLA's float32 reciprocal of the constant 127 (a jitted x / 127.0)
 _INV127 = float(np.float32(1.0) / np.float32(127.0))
-# the JAX ModelConfig's fields that the port's config does not carry, at
-# the only values the port serves (meta.json keeps JAX's schema)
-_JAX_ONLY_CFG = {"kl_weight": 0.01, "dtype": "float32", "strict_cast": True, "decoder_subpixel": False,
-                 "decoder_f32_stages": 0}
-_OPTIONS_LEFT = "export, CLI, compat and the model options left"
+# the JAX int8 forward rounds the dequantized output, the bias and the
+# PReLU in the compute dtype; the kernels' epilogues are float32 only
+_BF16_TITLE = "the int8 route in bfloat16"
 
 
 # --------------------------------------------------------------------- utils
@@ -388,6 +386,7 @@ def _forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw=None, ascales
     ``_int8_forward``) or, with ``fake=True``, names the layers that run
     the QAT form.  'sample' takes ``eps`` or draws it through
     ``_latent_noise``."""
+    model = _stock_layers(model)
     if qw is not None and not fake:
         return _int8_forward(model, x, z_mode, qw, ascales, generator, eps)
     cfg = model.cfg
@@ -406,6 +405,20 @@ def _forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw=None, ascales
     for j, act in enumerate(dec.prelus):
         h = act(_quant_point(h, f"dec/ConvTranspose2DTF_{j}", dec.convts[j], qw, ascales, collect, fake))
     return _head(_quant_point(h, "dec/Conv_0", dec.head, qw, ascales, collect, fake), cfg), posterior
+
+
+def _stock_layers(model: DeblenderVAE) -> DeblenderVAE:
+    """The model whose layers the int8 route calls.  JAX's int8 forward
+    reads no ``decoder_subpixel``: its float layers are the stock convs.
+    So a sub-pixel model runs through a twin built without it on the meta
+    device (no allocation) that holds the model's own parameters and
+    buffers: gradients reach them, and nothing is copied."""
+    if not model.cfg.decoder_subpixel:
+        return model
+    with torch.device("meta"):
+        twin = DeblenderVAE(dataclasses.replace(model.cfg, decoder_subpixel=False))
+    twin.load_state_dict(model.state_dict(keep_vars=True), assign=True)
+    return twin.train(model.training)
 
 
 def _int8_step(h, name, module, qw, ascales, act=None, flat_act=None, nxt=None):
@@ -516,7 +529,9 @@ def quantize_vae(
     JAX package's measured notes on each option apply
     (debvader_tpu/models/quantized.py)."""
     cfg = model.cfg
-    if getattr(cfg, "decoder_f32_stages", 0):
+    if cfg.dtype != "float32":
+        _not_ported(f"quantize_vae of a dtype={cfg.dtype!r} model", _BF16_TITLE)
+    if cfg.decoder_f32_stages:
         raise ValueError(
             "quantize_vae does not support ModelConfig.decoder_f32_stages: "
             "int8 PTQ and the fp32-tail fidelity mode are opposite "
@@ -720,23 +735,16 @@ def qat_finetune(
 # -------------------------------------------------------------- persistence
 
 
-def _jax_model_cfg(cfg: ModelConfig) -> dict:
-    """The JAX package's ModelConfig fields of ``cfg``, for meta.json."""
-    out = dataclasses.asdict(cfg)
-    out.update(_JAX_ONLY_CFG)
-    return out
-
-
 def _port_cfg(model_cfg: dict) -> ModelConfig:
-    """The port's ModelConfig from a meta.json ``model_cfg``; the JAX
-    options the port does not serve raise."""
+    """The port's ModelConfig from a meta.json ``model_cfg`` (the JAX
+    package's fields, all of which the port's config carries).
+    ``strict_cast``, ``kl_weight`` and ``decoder_subpixel`` change nothing
+    in the float32 int8 forward; a bfloat16 bundle raises."""
     kw = dict(model_cfg)
-    for key, default in _JAX_ONLY_CFG.items():
-        value = kw.pop(key, default)
-        if key == "decoder_f32_stages" and value:
-            raise ValueError("a quantized bundle cannot carry ModelConfig.decoder_f32_stages")
-        if key in ("dtype", "decoder_subpixel") and value != default:
-            _not_ported(f"ModelConfig {key}={value!r}", _OPTIONS_LEFT)
+    if kw.get("decoder_f32_stages", 0):
+        raise ValueError("a quantized bundle cannot carry ModelConfig.decoder_f32_stages")
+    if kw.get("dtype", "float32") != "float32":
+        _not_ported(f"a quantized bundle with ModelConfig dtype={kw['dtype']!r}", _BF16_TITLE)
     for key in ("filters", "kernels"):
         kw[key] = tuple(kw[key])
     if kw.get("layer_precision") is not None:
@@ -753,7 +761,7 @@ def _bundle_paths(path) -> tuple[Path, Path]:
 
 def _meta(qv: QuantizedVAE) -> dict:
     return {
-        "model_cfg": _jax_model_cfg(qv.cfg),
+        "model_cfg": dataclasses.asdict(qv.cfg),
         "quantize_dense": qv.quantize_dense,
         "quantize_final_conv": qv.quantize_final_conv,
         "calib_stats": qv.calib_stats,

@@ -28,7 +28,20 @@ Every conv, transposed conv and dense layer gets its precision scheme from
 ``models.precision.resolve(cfg, key)``, the keys in application order
 ('enc/Conv_i', 'enc/Dense_0', 'dec/Dense_0', 'dec/Dense_1', 'dec/ConvT_i',
 'dec/Conv_0'); without a scheme a layer is the plain float32 one.  The
-parameters do not depend on the configuration.  ``DeblenderVAE`` may carry
+parameters do not depend on the configuration.
+
+The compute dtype (``cfg.dtype``) follows the flax graph's rounding points:
+the input is cast to it before the encoder's BatchNorm (computed in
+float32, its output cast back); every conv, transposed conv and dense
+layer without a scheme casts its input to its own dtype; the encoder's
+output is float32; the decoder's dec/Dense_1 runs in float32 under
+``strict_cast``; a decoder stage with filter index i <
+``decoder_f32_stages`` runs in float32, and so does the band head when
+``decoder_f32_stages`` > 0; the output is cast to float32 after the crop.
+The scheme layers take no dtype: they contract float32 limbs and return
+float32, as the JAX package's MP layers do.  ``decoder_subpixel`` swaps
+the stride-2 transposed convs and the band head for their sub-pixel forms
+(models/layers.py).  ``DeblenderVAE`` may carry
 a per-band flux calibration (utils/flux_cal.py) as the buffer
 ``flux_cal_scale``, which follows ``state_dict()``.
 """
@@ -54,6 +67,7 @@ from debvader_tpu_torch.models.layers import (
     ConvTranspose2dTF,
     Dense,
     PReLU,
+    SubpixelConv2d,
 )
 from debvader_tpu_torch.models.precision import resolve
 
@@ -68,18 +82,30 @@ __all__ = [
 ]
 
 
+def _reduced(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x cast to a bfloat16 compute dtype; a float32 model takes x as it
+    is (its layers compute in their parameters' dtype)."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def _widened(h: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 output cast to float32, as the flax graph casts it."""
+    return h.to(torch.float32) if h.dtype == torch.bfloat16 else h
+
+
 class Encoder(nn.Module):
     """x (N, S, S, B) -> flat MVN params (N, latent + tril)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.bn = BatchNorm(cfg.nb_of_bands)
+        dtype = cfg.compute_dtype
+        self.bn = BatchNorm(cfg.nb_of_bands, dtype=dtype)
         convs, prelus = [], []
         cin, size = cfg.nb_of_bands, cfg.stamp_size
         for f, k in zip(cfg.filters, cfg.kernels):
             for stride in (1, 2):
                 scheme = resolve(cfg, f"enc/Conv_{len(convs)}")[1]
-                convs.append(Conv2dSame(cin, f, k, stride, scheme=scheme))
+                convs.append(Conv2dSame(cin, f, k, stride, scheme=scheme, dtype=dtype))
                 size = -(-size // stride)
                 prelus.append(PReLU((f, size, size)))
                 cin = f
@@ -88,16 +114,17 @@ class Encoder(nn.Module):
         flat = cin * size * size
         self.flat_prelu = PReLU((flat,))
         self.dense = Dense(
-            flat, mvn_params_size(cfg.latent_dim), scheme=resolve(cfg, "enc/Dense_0")[1]
+            flat, mvn_params_size(cfg.latent_dim), scheme=resolve(cfg, "enc/Dense_0")[1], dtype=dtype
         )
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        h = self.bn(x.permute(0, 3, 1, 2), train=train)
+        h = self.bn(_reduced(x, self.dtype).permute(0, 3, 1, 2), train=train)
         for conv, act in zip(self.convs, self.prelus):
             h = act(conv(h))
         # row-major (H, W, C) flatten == Keras Flatten on channels-last
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        return self.dense(self.flat_prelu(h))
+        return _widened(self.dense(self.flat_prelu(h)))
 
 
 class Decoder(nn.Module):
@@ -106,34 +133,46 @@ class Decoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        dtype = cfg.compute_dtype
+        self.dtype = dtype
         self.width = int(math.ceil(cfg.stamp_size / 2 ** len(cfg.filters)))
         hidden = mvn_params_size(cfg.latent_dim)
         top = self.width * self.width * cfg.filters[-1]
         self.prelu_in = PReLU((cfg.latent_dim,))
-        self.dense0 = Dense(cfg.latent_dim, hidden, scheme=resolve(cfg, "dec/Dense_0")[1])
+        self.dense0 = Dense(cfg.latent_dim, hidden, scheme=resolve(cfg, "dec/Dense_0")[1], dtype=dtype)
         self.prelu0 = PReLU((hidden,))
-        self.dense1 = Dense(hidden, top, scheme=resolve(cfg, "dec/Dense_1")[1])
+        # the reference casts to float32 before this Dense; strict_cast=False
+        # keeps it in the compute dtype
+        self.dense1 = Dense(hidden, top, scheme=resolve(cfg, "dec/Dense_1")[1],
+                            dtype=torch.float32 if cfg.strict_cast else dtype)
         self.prelu1 = PReLU((top,))
         convts, prelus = [], []
         cin, size = cfg.filters[-1], self.width
         for i in range(len(cfg.filters) - 1, -1, -1):
+            stage_dtype = torch.float32 if i < cfg.decoder_f32_stages else dtype
             for stride in (2, 1):
                 scheme = resolve(cfg, f"dec/ConvT_{len(convts)}")[1]
                 convts.append(
-                    ConvTranspose2dTF(cin, cfg.filters[i], cfg.kernels[i], stride, scheme=scheme)
+                    ConvTranspose2dTF(cin, cfg.filters[i], cfg.kernels[i], stride, scheme=scheme, dtype=stage_dtype,
+                                      subpixel=cfg.decoder_subpixel and stride == 2)
                 )
                 size *= stride
                 prelus.append(PReLU((cfg.filters[i], size, size)))
                 cin = cfg.filters[i]
         self.convts = nn.ModuleList(convts)
         self.prelus = nn.ModuleList(prelus)
-        self.head = Conv2dSame(
-            cin, 2 * cfg.nb_of_bands, 3, 1, scheme=resolve(cfg, "dec/Conv_0")[1]
-        )
+        head_dtype = torch.float32 if cfg.decoder_f32_stages > 0 else dtype
+        head_scheme = resolve(cfg, "dec/Conv_0")[1]
+        if head_scheme is None and cfg.decoder_subpixel:
+            self.head = SubpixelConv2d(cin, 2 * cfg.nb_of_bands, dtype=head_dtype)
+        else:
+            self.head = Conv2dSame(cin, 2 * cfg.nb_of_bands, 3, 1, scheme=head_scheme, dtype=head_dtype)
 
     def forward(self, z: torch.Tensor) -> PixelNormal:
         cfg = self.cfg
-        h = self.prelu0(self.dense0(self.prelu_in(z)))
+        h = self.prelu0(self.dense0(self.prelu_in(_reduced(z, self.dtype))))
+        # each layer casts its input to its own dtype: dec/Dense_1 to
+        # float32 under strict_cast, the first transposed conv back
         h = self.prelu1(self.dense1(h))
         h = h.reshape(h.shape[0], self.width, self.width, cfg.filters[-1])
         h = h.permute(0, 3, 1, 2)
@@ -146,7 +185,7 @@ class Decoder(nn.Module):
             lo = crop // 2
             hi = h.shape[-1] - (crop - lo)
             h = h[:, :, lo:hi, lo:hi]
-        h = h.permute(0, 2, 3, 1)
+        h = _widened(h.permute(0, 2, 3, 1))
         loc = h[..., : cfg.nb_of_bands]
         scale = cfg.scale_floor + h[..., cfg.nb_of_bands :]
         return PixelNormal(loc, scale)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["extract_cutouts", "extract_cutouts_np"]
+__all__ = ["extract_cutouts", "extract_cutouts_np", "extract_cutouts_host"]
 
 
 def extract_cutouts(field_image: torch.Tensor, centers, cutout_size: int = 59):
@@ -63,3 +63,18 @@ def extract_cutouts_np(field_image, centers, cutout_size: int = 59):
     out = np.ascontiguousarray(out)
     out[~valid] = 0.0
     return out, valid
+
+
+def extract_cutouts_host(
+    field_image,
+    field_size=None,
+    galaxy_distances_to_center=None,
+    cutout_size: int = 59,
+    nb_of_bands: int = 6,
+):
+    """The reference's signature (extract/extraction.py): (cutouts as
+    numpy (N, S, S, B), list_idx, the Python list of the indices of the
+    sources whose whole window lies in the field).  ``field_size`` and
+    ``nb_of_bands`` are read from the field, as in the JAX package."""
+    cutouts, valid = extract_cutouts_np(field_image, galaxy_distances_to_center, cutout_size)
+    return cutouts, list(np.flatnonzero(valid))

@@ -9,11 +9,14 @@ CUDA kernel on a card, its plain PyTorch version on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from debvader_tpu_torch.device import resolve_device
 from debvader_tpu_torch.kernels.registration import register_full, register_windowed, registration_window
 
 __all__ = [
+    "position_optimization",
     "position_optimization_batch",
     "position_optimization_batch_windowed",
     "registration_window",
@@ -62,3 +65,37 @@ def position_optimization_batch_windowed(
     lo, hi = (0, h) if row_bounds is None else row_bounds
     return register_windowed(field_band, pred_bands, detected_offsets, bound, iterations, lo, hi)
 
+
+
+def position_optimization(
+    field_image,
+    output_image_mean_padded,
+    galaxy_distance_to_center,
+    bound: float = 3.0,
+    iterations: int = 20,
+    detection_band: int = 2,
+    device="cuda",
+):
+    """The reference's single-source signature (optimization.py): the
+    (dy, dx) shift, as two floats, that best moves the field-sized padded
+    prediction ``output_image_mean_padded`` (F, F, B), shifted by
+    ``galaxy_distance_to_center``, onto ``field_image``'s (F, F, B) band
+    ``detection_band``.
+
+    The full-field fit of :func:`position_optimization_batch` with the
+    padded prediction as the stamp (S = F, so it is placed at the origin):
+    the bilinear shift splits the sample position by ``floor`` and its
+    Jacobian is written out, one-sided at the knots (kernels/registration.py).
+    Non-finite field pixels count as 0.  On a card the full-field kernel
+    stages three field-sized planes in shared memory, so F is at most 137
+    there; the CPU takes any F."""
+    dev = resolve_device(device)
+
+    def band(a):
+        a = np.asarray(a, np.float32)
+        return torch.as_tensor(np.ascontiguousarray(a[..., detection_band]), device=dev)
+
+    field, pred = band(field_image), band(output_image_mean_padded)
+    offsets = torch.as_tensor(np.asarray(galaxy_distance_to_center, np.float32).reshape(1, 2), device=dev)
+    out = register_full(field, pred[None], offsets, bound, iterations)[0].cpu().numpy()
+    return float(out[0]), float(out[1])

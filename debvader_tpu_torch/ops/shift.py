@@ -18,16 +18,47 @@ from __future__ import annotations
 
 import torch
 
-from debvader_tpu_torch.kernels.render import (
-    place_patches,
-    render_field_kernel,
-    render_into_canvas,
-    subpixel_shift,
-    subpixel_shift_const,
-)
+from debvader_tpu_torch.kernels import render as _render
+from debvader_tpu_torch.kernels.render import place_patches, render_field_kernel, render_into_canvas
 from debvader_tpu_torch.ops.spline import subpixel_shift_spline_const
 
-__all__ = ["render_pad", "subpixel_shift", "subpixel_shift_const", "render_field"]
+__all__ = ["render_pad", "subpixel_shift", "subpixel_shift_const", "shift_full", "render_field"]
+
+
+def _one_image(img, shift):
+    """(img as (H, W, C) float32, shift (2,) on its device, whether img
+    was (H, W))."""
+    img = torch.as_tensor(img, dtype=torch.float32)
+    squeeze = img.ndim == 2
+    shift = torch.as_tensor(shift, dtype=torch.float32, device=img.device).reshape(2)
+    return (img[..., None] if squeeze else img), shift, squeeze
+
+
+def subpixel_shift_const(img, shift) -> torch.Tensor:
+    """Bilinear shift of one (H, W) or (H, W, C) image by a (2,) shift
+    whose fractional parts lie in [0, 1): two shifted slices per axis with
+    weights (f, 1 - f), zero outside (the JAX package's function of the
+    same name; the renderer's batched form is kernels/render.py's)."""
+    x, shift, squeeze = _one_image(img, shift)
+    out = _render.subpixel_shift_const(x[None], shift[None])[0]
+    return out[..., 0] if squeeze else out
+
+
+def subpixel_shift(img, shift) -> torch.Tensor:
+    """scipy.ndimage.shift(img, shift, order=1, mode='constant') of one
+    (H, W) or (H, W, C) image: out[i, j] = img[i - dy, j - dx], taps at
+    floor(i - dy), zero outside the image and where the sample point
+    leaves it (the JAX package's function of the same name)."""
+    x, shift, squeeze = _one_image(img, shift)
+    c = x.shape[-1]
+    out = _render.subpixel_shift(x.permute(2, 0, 1), shift.expand(c, 2)).permute(1, 2, 0)
+    return out[..., 0] if squeeze else out
+
+
+def shift_full(img, shift) -> torch.Tensor:
+    """Full-image bilinear shift: the reference's per-band
+    scipy.ndimage.shift on a padded canvas."""
+    return subpixel_shift(img, shift)
 
 
 def render_pad(stamp_size: int, order: int = 1) -> int:
@@ -100,6 +131,6 @@ def render_field(
 
     if canvas is None:
         canvas = torch.zeros((canvas_size, canvas_size, b), dtype=dtype, device=dev)
-    interp = subpixel_shift_const if order == 1 else subpixel_shift_spline_const
+    interp = _render.subpixel_shift_const if order == 1 else subpixel_shift_spline_const
     render_into_canvas(canvas, stamps, offsets, mask, field_size, (pad - s) // 2, interp, place_patches)
     return window(canvas) if crop else canvas

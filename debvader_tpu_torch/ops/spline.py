@@ -30,6 +30,16 @@ the float32 product is exact there, so only the add rounds, as in an FMA
 (a double rounding can differ from it in the last bit; rare).  The same
 torch ops run on the CPU and on a card.
 
+The generic shift of one image, ``subpixel_shift_spline`` (the JAX
+package's reference-signature function, which compat.py exposes), is bit
+for bit the jitted JAX function on images of 50 px or more a side (below
+that, XLA's dot for this unbatched layout runs in another order, and the
+two agree to float32 rounding): its cubic weights are plain float32 ops except ``4 - 6 t^2``, one
+fused multiply-add, and a multiply by 1/6; each 4-tap combine starts from
+the second tap's product and adds the first tap's, then the others, by
+fused multiply-adds (found by trying each contraction in turn against
+jitted JAX; tests/test_torch_compat.py holds it on four image shapes).
+
 The order is XLA's choice, not the algorithm's: it is the one that
 jaxlib 0.9.0 compiles on an x86-64 host with AVX-512, where XLA's CPU
 backend vectorizes the dot 256 bits (8 float32 lanes) wide.  Another vector width or another
@@ -46,7 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["spline_prefilter", "subpixel_shift_spline_const"]
+__all__ = ["spline_prefilter", "subpixel_shift_spline_const", "subpixel_shift_spline"]
 
 _POLE = float(np.sqrt(3.0) - 2.0)
 # the float32 constants XLA computes with
@@ -162,3 +172,56 @@ def subpixel_shift_spline_const(img: torch.Tensor, shift: torch.Tensor) -> torch
     rows = torch.arange(h, dtype=torch.float32, device=img.device).reshape(1, h, 1, 1)
     cols = torch.arange(w, dtype=torch.float32, device=img.device).reshape(1, 1, w, 1)
     return torch.where((rows >= fy) & (cols >= fx), out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _bspline3_weights(t: torch.Tensor):
+    """Cubic B-spline weights of the taps at -1, 0, 1, 2 from floor(pos),
+    t = frac(pos) in [0, 1), in XLA's contraction of JAX's polynomial."""
+    t2 = t * t
+    t3 = t2 * t
+    one = torch.ones_like(t)
+    w0 = ((1.0 - 3.0 * t) + 3.0 * t2 - t3) * _SIXTH32
+    w1 = (_fma(t2, -6.0, 4.0 * one) + 3.0 * t3) * _SIXTH32
+    w2 = ((1.0 + 3.0 * t) + 3.0 * t2 - 3.0 * t3) * _SIXTH32
+    return w0, w1, w2, t3 * _SIXTH32
+
+
+def _combine(weights, values) -> torch.Tensor:
+    """sum_k weights[k] * values[k] in XLA's contraction order."""
+    acc = _fma(weights[0], values[0], weights[1] * values[1])
+    for wk, vk in zip(weights[2:], values[2:]):
+        acc = _fma(wk, vk, acc)
+    return acc
+
+
+def _mirror(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Reflect indices into [0, n - 1] (period 2 (n - 1), no edge repeat)."""
+    idx = idx.abs()
+    return torch.where(idx > n - 1, 2 * (n - 1) - idx, idx)
+
+
+def subpixel_shift_spline(img: torch.Tensor, shift) -> torch.Tensor:
+    """scipy.ndimage.shift(img, shift, order=3, mode='constant') of one
+    (H, W) or (H, W, C) float32 image by a (2,) shift: out[i, j] is the
+    spline of img at (i - dy, j - dx), 0 where that point leaves the
+    image."""
+    img = torch.as_tensor(img, dtype=torch.float32)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w, _ = img.shape
+    dev = img.device
+    shift = torch.as_tensor(shift, dtype=torch.float32, device=dev)
+    coef = spline_prefilter(img)
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w) - shift[0]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w) - shift[1]
+    y0, x0 = torch.floor(yy), torch.floor(xx)
+    wy = [q[..., None] for q in _bspline3_weights(yy - y0)]
+    wx = [q[..., None] for q in _bspline3_weights(xx - x0)]
+    yi, xi = y0.to(torch.int64), x0.to(torch.int64)
+    cols = [_mirror(xi + (b - 1), w) for b in range(4)]
+    rows = [_combine(wx, [coef[_mirror(yi + (a - 1), h), col] for col in cols]) for a in range(4)]
+    out = _combine(wy, rows)
+    inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+    out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype, device=dev))
+    return out[..., 0] if squeeze else out

@@ -37,10 +37,12 @@ bfloat16 too, and the render kernels round every add to bfloat16.
 both routes' batched forward through the int8 layers
 (kernels/int8_conv.py), with the bundle's own finite guard and
 normalisation bracket and no flux calibration; the epistemic replicas stay
-on the float model.
+on the float model.  ``artifact=`` (an exported forward, utils/export.py)
+runs both routes' batched forward through the exported program, with the
+live route's bracket; the epistemic replicas stay on ``net`` there too.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item by
-title): mesh fan-out and exported artifacts.
+Not ported yet (raises NotImplementedError naming its ROADMAP item by
+title): mesh fan-out.
 """
 
 from __future__ import annotations
@@ -241,11 +243,24 @@ class DeblendField:
         the batched stamp forward of both routes runs its int8 path in
         ``z_mode``; its ``normalise`` must equal the pipeline's (int8
         activation scales only fit the flux distribution they were
-        calibrated on).  Epistemic sampling stays on ``net``."""
+        calibrated on).  Epistemic sampling stays on ``net``.
+
+        ``artifact``: an exported forward (utils/export.py): the ``.pt2``
+        bytes or a path from ``export_deblender``, or a callable
+        ``(images, generator) -> (loc, scale)`` such as ``artifact_forward``
+        returns.  The batched stamp forward of both routes runs it instead
+        of ``net``; it carries its own weights, z_mode and flux
+        calibration, and bytes or a path are served with the pipeline's
+        ``normalise`` bracket on ``device``.  Exclusive with ``mesh`` and
+        ``quantized``; epistemic sampling stays on ``net``."""
+        if artifact is not None and (mesh is not None or quantized is not None):
+            raise ValueError(
+                "artifact serving is mutually exclusive with mesh and "
+                "quantized modes (export one artifact per serving "
+                "configuration instead)"
+            )
         if mesh is not None:
             _not_ported("mesh=", "multi-device")
-        if artifact is not None:
-            _not_ported("artifact=", "export, CLI, compat and the model options left")
         self.quantized = quantized
         if quantized is not None and bool(quantized.normalise) != bool(normalise):
             raise ValueError(
@@ -277,6 +292,14 @@ class DeblendField:
             if quantized.device.type != self.device.type:
                 raise ValueError(f"the quantized bundle lies on {quantized.device}, the pipeline runs on {self.device}")
             self._quant_fwd = make_quantized_forward(quantized, z_mode=z_mode)
+        self._artifact_fwd = None
+        if artifact is not None:
+            if callable(artifact):
+                self._artifact_fwd = artifact
+            else:
+                from debvader_tpu_torch.utils.export import artifact_forward
+
+                self._artifact_fwd = artifact_forward(artifact, normalise=normalise, device=self.device)
         self.field_image = np.array(field_image, dtype=np.float32)
         _check_field_image(self.field_image)
         self.field_size = self.field_image.shape[1]
@@ -288,8 +311,10 @@ class DeblendField:
         self.epistemic_uncertainty_estimation = bool(epistemic_uncertainty_estimation)
         self.generator = generator
         # the epistemic replicas draw even under z_mode='mean': decoding the
-        # posterior mean every time would collapse the uncertainty to zero
-        if (z_mode == "sample" or self.epistemic_uncertainty_estimation) and generator is None:
+        # posterior mean every time would collapse the uncertainty to zero;
+        # an artifact draws its eps whatever its own z_mode
+        sampling = z_mode == "sample" or self.epistemic_uncertainty_estimation or artifact is not None
+        if sampling and generator is None:
             self.generator = torch.Generator(device=self.device).manual_seed(0)
         self.nb_of_detected_objects: list[int] = []
         self.nb_of_deblended_galaxies: list[int] = []
@@ -372,9 +397,12 @@ class DeblendField:
     def _deblend(self, cutouts: torch.Tensor) -> PixelNormal:
         """The batched stamp forward of (N, S, S, B) cutouts on the device:
         the int8 forward of ``quantized`` (its own guard and normalisation
-        bracket, no flux calibration), else the float model's."""
+        bracket, no flux calibration), the exported program of
+        ``artifact``, else the float model's."""
         if self._quant_fwd is not None:
             return PixelNormal(*self._quant_fwd(cutouts, self.generator))
+        if self._artifact_fwd is not None:
+            return PixelNormal(*self._artifact_fwd(cutouts, self.generator))
         return deblend_tensor(self.net, cutouts, self.normalise, self.generator, self.z_mode)
 
     def _epistemic(self, cutouts: torch.Tensor, max_chunk: int) -> torch.Tensor:

@@ -33,11 +33,11 @@ __all__ = [
 
 
 def _reference_model(model):
-    """The same weights (shared, not copied) at the 'highest' rung with no
-    per-layer overrides."""
+    """The same weights (shared, not copied) in float32 at the 'highest'
+    rung with no per-layer overrides."""
     from debvader_tpu_torch.models.vae import DeblenderVAE
 
-    cfg = dataclasses.replace(model.cfg, matmul_precision="highest", layer_precision=None)
+    cfg = dataclasses.replace(model.cfg, dtype="float32", matmul_precision="highest", layer_precision=None)
     ref = DeblenderVAE(cfg)
     weights = {k: v for k, v in model.state_dict().items() if k != "flux_cal_scale"}
     ref.load_state_dict(weights, assign=True)

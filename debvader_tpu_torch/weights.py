@@ -195,12 +195,16 @@ def load_deblender(
     matmul_precision: str | None = None,
     flux_calibration: bool = False,
     return_encoder_decoder_z: bool = False,
+    dtype: str | None = None,
+    decoder_f32_stages: int | None = None,
 ):
     """The deblender for ``survey`` (its weights file, :func:`weights_file`),
     in eval mode on ``device``.
 
     ``cfg`` selects the precision configuration (the packaged weights have
-    the default architecture); ``matmul_precision`` overrides its rung.
+    the default architecture); ``matmul_precision``, ``dtype`` ('float32'
+    or 'bfloat16') and ``decoder_f32_stages`` override its fields, as the
+    JAX package's loader builds its config from them before loading.
     ``flux_calibration=True`` measures the built model's per-band flux gain
     against its own 'highest'-rung forward on ``device`` and attaches the
     correction (utils/flux_cal.py): the fidelity serving mode is
@@ -212,8 +216,10 @@ def load_deblender(
     dev = resolve_device(device)
     path = weights_file(survey, weights_dir)
     cfg = cfg or ModelConfig()
-    if matmul_precision is not None:
-        cfg = dataclasses.replace(cfg, matmul_precision=matmul_precision)
+    overrides = dict(matmul_precision=matmul_precision, dtype=dtype, decoder_f32_stages=decoder_f32_stages)
+    overrides = {k: v for k, v in overrides.items() if v is not None}
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     model = DeblenderVAE(cfg)
     model.load_state_dict(state_dict_from_flax(load_flax_npz(path), cfg))
     model = model.to(dev).eval()

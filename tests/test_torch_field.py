@@ -147,19 +147,20 @@ def test_no_valid_source_returns_empty_and_the_field(nets):
 
 _ROADMAP_TITLES = {
     "mesh": "multi-device",
-    "artifact": "export, CLI, compat and the model options left",
 }
 
 
 # (the upload_dtype case, kwargs0, went when upload_dtype was ported:
 # tests/test_torch_residency.py holds it against JAX; the quantized case,
 # kwargs2, went when quantized serving was ported:
-# tests/test_torch_quantized.py holds DeblendField(quantized=) against JAX)
+# tests/test_torch_quantized.py holds DeblendField(quantized=) against JAX;
+# the artifact case, kwargs3, went when export was ported:
+# tests/test_torch_export.py holds DeblendField(artifact=) against the live
+# route)
 @pytest.mark.parametrize(
     "kwargs",
     [
         pytest.param({"mesh": object()}, id="kwargs1"),
-        pytest.param({"artifact": b"x"}, id="kwargs3"),
     ],
 )
 def test_unported_constructor_options_raise(nets, kwargs):

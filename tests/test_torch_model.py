@@ -208,6 +208,14 @@ def test_import_pulls_in_no_jax_or_reference_package():
                                device="cpu")
         qdf.deblend_and_render(np.zeros((1, 2), np.float32))
         quantized.load_quantized("sim_demo_int8", device="cpu")
+        from debvader_tpu_torch import cli, compat
+        from debvader_tpu_torch.utils import export, flops
+        flops.forward_macs(tiny)
+        bf = dtt.DeblenderVAE(dtt.ModelConfig(stamp_size=23, nb_of_bands=3, latent_dim=4, filters=(4, 8),
+                                              kernels=(3, 3), dtype="bfloat16", decoder_subpixel=True))
+        export.artifact_forward(export.export_deblender(bf), device="cpu")(np.zeros((2, 23, 23, 3), np.float32))
+        compat.extract_cutouts(field, 64, np.zeros((1, 2), np.float32), 23, 3)
+        cli.build_parser().parse_args(["detect", "--field", "f.npy", "--out", "c.npy"])
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
                or m == "debvader_tpu" or m.startswith("debvader_tpu.")]
