@@ -178,7 +178,28 @@ without printing its last line):
    under chiprun_out/cli: detect against the in-process detection, serve
    --centers against the in-process route, export then serve --artifact
    (the export_cli line);
-22. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+22. multi-device on a single-controller mesh that repeats the card
+   (parallel/): make_mesh asked for more cards than there are raises;
+   ShardedFieldDeblender on phase 16's 4096^2 field and centres over
+   4 row bands and over 1, at orders 1 and 3 (the band canvases render
+   through dvt_render and place through dvt_place, counted from 0), each
+   held against the single-device streaming route (catalogue rows equal,
+   mse_center to 1e-4 relative, the residual within 1e-5 of the field's
+   scale), the 1-band catalogue against the 4-band one, wall times,
+   residency_report and the device's peak; a registered 4-band serve
+   (optimise_positions=True: the windowed registration kernel with the
+   bands' row bounds, never the full-field one) against the registered
+   single-device route (shifts within 2e-3 px, residual within 2e-4);
+   band-tiled detection against the tiled detection's rows; the
+   band-canvas render and place at the serve's band shape against their
+   plain versions, timed beside the square 4096^2 calls and their bounds
+   (the render's bound from what this chunk covers on the band window);
+   DeblendField(mesh=) and make_sharded_quantized_forward at 2 shards
+   against 1, the latter also fed host stamps and a CPU tensor of them,
+   bit for bit the card-fed result; one
+   data-parallel training step at 2 shards against the single-device step
+   from the same state and generator (the multi_device line);
+23. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 Phase 4's default-threshold detection also times the native segment merge
@@ -649,18 +670,30 @@ def check_clipped_edges(torch, cs, field_r: np.ndarray) -> dict:
     return out
 
 
-def covered_mask(offsets: np.ndarray, mask, s: int, f: int) -> np.ndarray:
-    """(f, f) bool: the field pixels that some listed source's padded patch
-    covers (padded row 0 at (f - s) // 2 + floor(offset) - 1, s + 2 rows
-    and columns); masked and non-finite sources cover nothing."""
-    cov = np.zeros((f, f), bool)
-    pos0 = (f - s) // 2
+def covered_mask(offsets: np.ndarray, mask, s: int, f) -> np.ndarray:
+    """(fy, fx) bool, f an int or (fy, fx): the field pixels that some
+    listed source's padded patch covers (padded row 0 at (fy - s) // 2 +
+    floor(offset) - 1, s + 2 rows and columns, the columns likewise);
+    masked and non-finite sources cover nothing."""
+    fy, fx = (f, f) if np.isscalar(f) else f
+    cov = np.zeros((fy, fx), bool)
     for i, (oy, ox) in enumerate(offsets):
         if (mask is not None and not mask[i]) or not (np.isfinite(oy) and np.isfinite(ox)):
             continue
-        y0, x0 = pos0 + int(np.floor(oy)) - 1, pos0 + int(np.floor(ox)) - 1
+        y0, x0 = (fy - s) // 2 + int(np.floor(oy)) - 1, (fx - s) // 2 + int(np.floor(ox)) - 1
         cov[max(y0, 0) : max(y0 + s + 2, 0), max(x0, 0) : max(x0 + s + 2, 0)] = True
     return cov
+
+
+def clipped_patches(offsets: np.ndarray, mask, s: int, fy: int, fx: int) -> tuple[int, int]:
+    """(padded-patch pixels, stamp pixels) that the unmasked sources need
+    on an fy x fx window: each padded patch clipped to the window, and the
+    stamp rows and columns that reach it (at most s each)."""
+    keep = np.asarray(mask, bool) & np.isfinite(offsets).all(-1)
+    pos = np.floor(offsets[keep]).astype(np.int64) + [(fy - s) // 2 - 1, (fx - s) // 2 - 1]
+    rows = np.clip(pos[:, 0] + s + 2, 0, fy) - np.clip(pos[:, 0], 0, fy)
+    cols = np.clip(pos[:, 1] + s + 2, 0, fx) - np.clip(pos[:, 1], 0, fx)
+    return int((rows * cols).sum()), int((np.minimum(rows, s) * np.minimum(cols, s)).sum())
 
 
 def render_path_cases(torch, f: int, n: int = 128, s: int = 59, b: int = 6) -> dict:
@@ -793,10 +826,11 @@ def place_agrees(torch, rd, canvas0, patches, y, x, visible, name: str) -> int:
     return int((got_cpu.view(torch.int32) != base.view(torch.int32)).sum())
 
 
-def footprint_elements(y, x, p: int, c: int, b: int) -> int:
+def footprint_elements(y, x, p: int, c: int, b: int, cols: int | None = None) -> int:
     """Canvas elements that some patch's P x P footprint covers (visible or
-    not: an invisible patch adds +0.0 there)."""
-    cov = np.zeros((c, c), bool)
+    not: an invisible patch adds +0.0 there) on a c x c canvas, or c x
+    ``cols``."""
+    cov = np.zeros((c, c if cols is None else cols), bool)
     for yy, xx in zip(y.tolist(), x.tolist()):
         cov[yy : yy + p, xx : xx + p] = True
     return int(cov.sum()) * b
@@ -3683,6 +3717,330 @@ def run_export_cli(torch, net, field: np.ndarray, centers: np.ndarray, cutouts: 
     }
 
 
+def band_kernels(torch, band_rows: int, f: int, counts: dict) -> list[dict]:
+    """The float32 render and place kernels on a rectangular band canvas
+    of the sharded serve's real shape (band_rows x f, one 128-source chunk
+    of seeded stamps over the band and past its edges, one masked): the
+    render into the strided window of a filled canvas against its plain
+    version (1e-5 of the stamps' scale), the place bit for bit against the
+    CPU's plain version and a second launch; each timed beside its plain
+    version, its bound and the same call on the square f x f field (the
+    square time shows what the rectangle costs), with the launches the
+    sharded serve made (``counts``)."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.kernels import render as rd
+
+    dev = torch.device("cuda")
+    n, s, b = 128, 59, 6
+    gen = torch.Generator(device=dev).manual_seed(22)
+    stamps = torch.rand((n, s, s, b), generator=gen, device=dev)
+    half = torch.tensor([band_rows / 2 + 20.0, f / 2 + 20.0], device=dev)
+    offsets = (torch.rand((n, 2), generator=gen, device=dev) * 2 - 1) * half
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[5] = False
+    records = []
+
+    # order 1: the strided window of a filled band canvas
+    pad = dt.render_pad(s, 1)
+    base = torch.randn((band_rows + 2 * pad, f + 2 * pad, b), generator=gen, device=dev)
+
+    def window(c, rows=band_rows):
+        return c[pad : pad + rows, pad : pad + f]
+
+    got, want = base.clone(), base.clone()
+    rd.render_field_kernel(stamps, offsets, (band_rows, f), mask, out=window(got))
+    rd.render_field_plain(stamps, offsets, (band_rows, f), mask, out=window(want))
+    again = base.clone()
+    rd.render_field_kernel(stamps, offsets, (band_rows, f), mask, out=window(again))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > 1e-5 * float(stamps.abs().max()):
+        raise AssertionError(f"render on the {band_rows}x{f} band canvas: off by {err} from the plain version")
+    if not torch.equal(got, again):
+        raise AssertionError("render on the band canvas: two launches differ")
+    if not float((got - base).abs().max()) > 0.5:
+        raise AssertionError("render on the band canvas: nothing was rendered")
+    work, work_p = base.clone(), base.clone()
+    square = torch.zeros((f + 2 * pad, f + 2 * pad, b), device=dev)
+    # what this chunk needs on the band window: the unmasked sources'
+    # stamp pixels that reach it read once, the union of their clipped
+    # padded patches read and written once, 11 operations a patch element
+    off_np, keep = offsets.cpu().numpy(), mask.cpu().numpy()
+    covered = int(covered_mask(off_np, keep, s, (band_rows, f)).sum()) * b
+    patch_px, stamp_px = clipped_patches(off_np, keep, s, band_rows, f)
+    t_bound, by = bound(stamp_px * b * 4 + n * 9 + 2 * covered * 4, patch_px * b * 11)
+    records.append({
+        "name": "render_band", "route": "cuda", "source": "debvader_tpu_torch/csrc/render.cu",
+        "replaces": "debvader_tpu/kernels/render.py:149 (render_field_pallas) on the rectangular row-band canvas of "
+                    "debvader_tpu/pipeline/sharded_field.py:454",
+        "launches": counts["render"], "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, (band_rows, f), mask, out=window(work))),
+        "device_ms": profiled_device_ms(
+            torch, lambda: rd.render_field_kernel(stamps, offsets, (band_rows, f), mask, out=window(work)), "render_"),
+        "plain_ms": cuda_ms(torch, lambda: rd.render_field_plain(stamps, offsets, (band_rows, f), mask,
+                                                                 out=window(work_p)), reps=PLAIN_REPS, warmup=1),
+        "square_ms": cuda_ms(torch, lambda: rd.render_field_kernel(stamps, offsets, f, mask,
+                                                                    out=window(square, f))),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+        "shape": [n, s, s, b, band_rows, f], "canvas": list(base.shape), "covered_elements": covered,
+        "patch_pixels": patch_px, "stamp_pixels": stamp_px,
+    })
+
+    # order 3: the spline's patches placed into a filled band canvas
+    from debvader_tpu_torch.kernels.render import place_corners, shift_patches
+    from debvader_tpu_torch.ops.spline import subpixel_shift_spline_const
+
+    patches, int_off = shift_patches(stamps, offsets, 10, subpixel_shift_spline_const)
+    patches = patches.contiguous()
+    p = patches.shape[1]
+    ch, cw = band_rows + 2 * p, f + 2 * p
+    y, x, visible = place_corners(int_off, mask, (band_rows, f), s, 10, (ch, cw))
+    canvas0 = torch.randn((ch, cw, b), generator=gen, device=dev)
+    got, again = canvas0.clone(), canvas0.clone()
+    rd.place_patches(got, patches, y, x, visible)
+    rd.place_patches(again, patches, y, x, visible)
+    want = canvas0.cpu()
+    rd.place_patches_plain(want, patches.cpu(), y.cpu(), x.cpu(), visible.cpu())
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("place on the band canvas: the canvas differs from the CPU plain version")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("place on the band canvas: two launches differ")
+    covered = footprint_elements(y.cpu(), x.cpu(), p, ch, b, cols=cw)
+    t_bound, by = bound(patches.numel() * 4 + n * 9 + covered * 8, patches.numel())
+    work = canvas0.clone()
+    sq_patches_y, sq_x, sq_vis = place_corners(int_off, mask, f, s, 10, f + 2 * p)
+    sq_canvas = torch.zeros((f + 2 * p, f + 2 * p, b), device=dev)
+    ar = torch.arange(p, device=dev)
+    flat = ((y[:, None] + ar)[:, :, None] * cw + (x[:, None] + ar)[:, None, :]).reshape(-1)
+    masked = torch.where(visible[:, None, None, None], patches, torch.zeros((), device=dev)).reshape(-1, b)
+    records.append({
+        "name": "place_band", "route": "cuda", "source": "debvader_tpu_torch/csrc/render.cu",
+        "replaces": "debvader_tpu/ops/shift.py:209 (render_field's order-3 scan, XLA; no Pallas kernel) on the "
+                    "rectangular row-band canvas of debvader_tpu/pipeline/sharded_field.py:454",
+        "launches": counts["place"], "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: rd.place_patches(work, patches, y, x, visible)),
+        "device_ms": profiled_device_ms(torch, lambda: rd.place_patches(work, patches, y, x, visible),
+                                        "place_tile_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: rd.place_patches_plain(work, patches, y, x, visible), reps=PLAIN_REPS,
+                            warmup=1),
+        "square_ms": cuda_ms(torch, lambda: rd.place_patches(sq_canvas, patches, sq_patches_y, sq_x, sq_vis)),
+        "library_ms": cuda_ms(torch, lambda: work.view(-1, b).index_put_((flat,), masked, accumulate=True)),
+        "library_call": "index_put_(accumulate=True) of the masked patches",
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": [n, p, p, b, ch, cw], "covered_elements": covered,
+    })
+    return records
+
+
+def catalogue_rows_equal(got, want, what: str) -> float:
+    """Hold two streaming catalogues' rows equal (list_idx, centres,
+    passed_cuts) and their mse_center to 1e-4 relative (the CPU tests'
+    tolerance against the JAX package); returns the largest relative mse
+    difference."""
+    for col in ("list_idx", "galaxy_distances_to_center_x", "galaxy_distances_to_center_y", "passed_cuts"):
+        if not np.array_equal(np.asarray(got[col]), np.asarray(want[col])):
+            raise AssertionError(f"{what}: catalogue column {col} differs")
+    a, b = np.asarray(got.mse_center, np.float64), np.asarray(want.mse_center, np.float64)
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    if rel > 1e-4:
+        raise AssertionError(f"{what}: mse_center differs by {rel} relative")
+    return rel
+
+
+def bitwise_catalogue(got, want) -> dict:
+    """Which columns of two catalogues are bit for bit equal."""
+    out = {}
+    for col in want.dtype.names:
+        a, b = np.asarray(got[col]), np.asarray(want[col])
+        if a.dtype == object:
+            a, b = np.stack(list(a)), np.stack(list(b))
+        out[col] = bool(a.shape == b.shape and a.tobytes() == b.tobytes())
+    return out
+
+
+def run_multi_device(torch, net, big: np.ndarray, centers: np.ndarray, field: np.ndarray, main_centers: np.ndarray,
+                     main_cutouts: np.ndarray, qv, reset_counts, read_counts) -> tuple[dict, list]:
+    """Phase 22 (module docstring): the single-controller mesh on the one
+    card.  Returns (report, the band-canvas kernel records)."""
+    import dataclasses as dc
+
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.models import quantized as tq
+    from debvader_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from debvader_tpu_torch.training import train as tt
+    from debvader_tpu_torch.weights import flax_from_state_dict
+
+    out = {"card": nvidia_smi_line()}
+    cards = torch.cuda.device_count()
+    try:
+        make_mesh(cards + 1)
+    except ValueError as e:
+        out["make_mesh_past_the_cards"] = str(e)
+    else:
+        raise AssertionError(f"make_mesh({cards + 1}) on {cards} card(s) did not raise")
+    mesh4, mesh1 = make_mesh(4, devices=["cuda:0"] * 4), make_mesh(1, devices=["cuda:0"])
+    if any(d.type != "cuda" for d in mesh4.flat + mesh1.flat):
+        raise AssertionError("a mesh of the card holds another device")
+    scale = float(np.abs(big).max())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    serve = {}
+    for order in (1, 3):
+        cfg = dc.replace(tiled_cfg(), interp_order=order)
+        single = dt.DeblendField(net, big, z_mode="mean", cfg=cfg, device="cuda")
+        single.deblend_and_render(centers)  # warm, the field memoized
+        (cat_s, res_s), single_s = timed(lambda: single.deblend_and_render(centers))
+        runs = {}
+        for name, mesh in (("4", mesh4), ("1", mesh1)):
+            sf = dt.ShardedFieldDeblender(net, big, mesh, z_mode="mean", cfg=cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            t = {}
+            (cat, res), first_s = timed(lambda: sf.deblend_and_render(centers, timings=t))
+            counts = read_counts(f"sharded serve ({name} band(s), order {order})",
+                                 {"render": 1} if order == 1 else {"place": 1})
+            peak = torch.cuda.max_memory_allocated() - base
+            (cat2, res2), warm_s = timed(lambda: sf.deblend_and_render(centers))
+            if not np.array_equal(res2.view(np.int32), res.view(np.int32)):
+                raise AssertionError(f"two sharded serves ({name} bands, order {order}) differ")
+            err = float(np.abs(res - res_s).max())
+            if err > 1e-5 * scale:
+                raise AssertionError(f"sharded serve ({name} bands, order {order}): residual off the single-device "
+                                     f"route by {err}, field scale {scale}")
+            rel = catalogue_rows_equal(cat, cat_s, f"sharded serve ({name} bands, order {order})")
+            runs[name] = {"cat": cat, "res": res, "report": {
+                "first_s": first_s, "warm_s": warm_s, "timings_s": t, "launches": counts,
+                "residual_max_abs_err": err, "mse_center_max_rel_err": rel, "device_peak_bytes": int(peak),
+                "residency": sf.residency_report(), "band_h": sf.band_h, "halo": sf.halo, "h_pad": sf.h_pad}}
+        rows_4_vs_1 = catalogue_rows_equal(runs["1"]["cat"], runs["4"]["cat"], f"1 band against 4 (order {order})")
+        serve[f"order{order}"] = {
+            "sources": int(len(centers)), "deblended": int(len(cat_s)), "field_scale": scale,
+            "single_device_warm_s": single_s, "bands4": runs["4"]["report"], "bands1": runs["1"]["report"],
+            "one_vs_four_mse_max_rel_err": rows_4_vs_1,
+            "one_vs_four_bitwise": bitwise_catalogue(runs["1"]["cat"], runs["4"]["cat"]),
+        }
+    out["sharded_serve"] = serve
+
+    # registered: the windowed kernel on the bands, windows inside the field's rows
+    from debvader_tpu_torch.kernels import registration as kr
+
+    single = dt.DeblendField(net, big, z_mode="mean", cfg=tiled_cfg(), device="cuda")
+    (cat_s, res_s), single_s = timed(lambda: single.deblend_and_render(centers, optimise_positions=True))
+    sf = dt.ShardedFieldDeblender(net, big, mesh4, z_mode="mean", cfg=tiled_cfg())
+    reset_counts()
+    kr.register_full.launches = 0
+    (cat, res), first_s = timed(lambda: sf.deblend_and_render(centers, optimise_positions=True))
+    reg_counts = read_counts("registered sharded serve (4 bands)", {"registration": 1, "render": 1})
+    if kr.register_full.launches:
+        raise AssertionError(f"the registered sharded serve launched the full-field registration "
+                             f"{kr.register_full.launches} times")
+    shift_err = float(np.abs(np.stack(list(cat.shifts)) - np.stack(list(cat_s.shifts))).max())
+    err = float(np.abs(res - res_s).max())
+    if not (shift_err <= 2e-3 and err <= 2e-4):
+        raise AssertionError(f"registered sharded serve: shifts off the single-device route by {shift_err} px, "
+                             f"the residual by {err}")
+    out["registered_serve"] = {
+        "sources": int(len(centers)), "bands": 4, "shift_max_abs_err_px": shift_err, "residual_max_abs_err": err,
+        "mse_center_max_rel_err": catalogue_rows_equal(cat, cat_s, "registered sharded serve"),
+        "largest_shift_px": float(np.abs(np.stack(list(cat_s.shifts))).max()), "launches": reg_counts,
+        "full_field_launches": 0, "first_s": first_s, "single_device_s": single_s}
+    band_rows = serve["order1"]["bands4"]["h_pad"]
+    counts = {"render": serve["order1"]["bands4"]["launches"]["render"],
+              "place": serve["order3"]["bands4"]["launches"]["place"]}
+
+    # band-tiled detection against the tiled detection's rows
+    det = dt.DetectionConfig(**DETECTION)
+    sf = dt.ShardedFieldDeblender(net, big, mesh4, z_mode="mean", cfg=tiled_cfg())
+    reset_counts()
+    t = {}
+    found, first_s = timed(lambda: sf.detect_objects(det, timings=t))
+    det_counts = read_counts("band-tiled detection", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1})
+    _, warm_s = timed(lambda: sf.detect_objects(det))
+    tiled, tiled_s = timed(lambda: dt.detect_objects_tiled(big, det, tile=TILES["tile_size"],
+                                                           overlap=TILES["tile_overlap"], device="cuda"))
+    shared = len(set(map(tuple, found)) & set(map(tuple, tiled)))
+    if shared < 0.98 * len(tiled):
+        raise AssertionError(f"band-tiled detection found {shared} of the tiled detection's {len(tiled)} rows")
+    out["band_detection"] = {"rows": int(len(found)), "tiled_rows": int(len(tiled)), "shared_rows": shared,
+                             "first_s": first_s, "warm_s": warm_s, "tiled_warm_s": tiled_s, "timings_s": t,
+                             "launches": det_counts}
+
+    records = band_kernels(torch, band_rows, big.shape[1], counts)
+
+    # the batch fan-out: DeblendField(mesh=) and the int8 forward at 2 shards against 1
+    mesh2 = make_mesh(2, devices=["cuda:0"] * 2)
+    fan = {}
+    cfg = serving_cfg()
+    fields = {}
+    for name, mesh in (("1", mesh1), ("2", mesh2)):
+        df = dt.DeblendField(net, field, cfg=cfg, mesh=mesh, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(5))
+        (cat, res), secs = timed(lambda: df.deblend_and_render(main_centers))
+        fields[name] = (cat, res)
+        fan[f"deblend_field_mesh{name}_s"] = secs
+    err = float(np.abs(fields["2"][1] - fields["1"][1]).max())
+    fscale = float(np.abs(field).max())
+    if err > 1e-5 * fscale:
+        raise AssertionError(f"DeblendField(mesh=) at 2 shards off 1 shard by {err}")
+    fan["deblend_field_residual_max_abs_err"] = err
+    fan["deblend_field_mse_max_rel_err"] = catalogue_rows_equal(fields["2"][0], fields["1"][0], "DeblendField(mesh=)")
+    stamps = torch.as_tensor(main_cutouts, device="cuda")
+    reset_counts()
+    q2 = tq.make_sharded_quantized_forward(qv, mesh2, z_mode="mean")(stamps)
+    q_counts = read_counts("sharded int8 forward", {"int8_conv": 1})
+    q1 = tq.make_sharded_quantized_forward(qv, mesh1, z_mode="mean")(stamps)
+    torch.cuda.synchronize()
+    q_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(q2, q1))
+    if q_err > 1e-5:
+        raise AssertionError(f"make_sharded_quantized_forward at 2 shards off 1 shard by {q_err} of the scale")
+    # host stamps go to the mesh's card; a CPU tensor's outputs come back through a blocking copy
+    fwd2 = tq.make_sharded_quantized_forward(qv, mesh2, z_mode="mean")
+    for name, fed in (("numpy", main_cutouts), ("cpu_tensor", torch.as_tensor(main_cutouts))):
+        got = fwd2(fed)
+        if not all(torch.equal(a.to("cuda"), b) for a, b in zip(got, q2)):
+            raise AssertionError(f"the sharded int8 forward fed {name} stamps differs from the card-fed one")
+        fan[f"int8_{name}_device"] = str(got[0].device)
+    fan.update(int8_max_rel_err=q_err, int8_launches=q_counts["int8_conv"], stamps=int(len(main_cutouts)))
+    out["batch_fanout"] = fan
+
+    # one data-parallel training step at 2 shards against the single-device step
+    shipped = dt.load_deblender("sim_demo", device="cpu")
+    variables = flax_from_state_dict(shipped.state_dict(), shipped.cfg)
+    tcfg = dt.TrainConfig(batch_size=TRAIN_BATCH)
+    x = torch.as_tensor(main_cutouts[:TRAIN_BATCH], device="cuda")
+    steps = {}
+    for name, step in (("single", tt.make_train_step(tcfg)), ("mesh2", make_sharded_train_step(mesh2, tcfg))):
+        state = tt.create_train_state(dt.DeblenderVAE(), tcfg, variables=variables, device="cuda")
+        state, terms = step(state, x, x)
+        torch.cuda.synchronize()
+        first = ({k: v.detach().clone() for k, v in state.module.state_dict().items()},
+                 {k: float(v) for k, v in terms.items()})
+        # warm steps from there (not compared)
+        secs = [timed(lambda: step(state, x, x))[1] for _ in range(3)]
+        steps[name] = first + (float(np.median(secs)),)
+    term_err = {k: abs(steps["mesh2"][1][k] / steps["single"][1][k] - 1) for k in steps["single"][1]}
+    if max(term_err.values()) > 1e-5:
+        raise AssertionError(f"a data-parallel step's terms differ from the single-device step's: {term_err}")
+    a = {k: v.double() for k, v in steps["mesh2"][0].items()}
+    b = {k: v.double() for k, v in steps["single"][0].items()}
+    n_all = sum(v.numel() for v in b.values())
+    n_off = sum(int(((a[k] - v).abs() > 1e-6).sum()) for k, v in b.items())
+    if n_off > 1e-3 * n_all:
+        raise AssertionError(f"a data-parallel step moved {n_off} of {n_all} parameters off the single-device step's")
+    out["training_step"] = {"batch": TRAIN_BATCH, "terms_max_rel_err": term_err, "params_off_1e-6": n_off,
+                            "params": n_all, "single_warm_s": steps["single"][2], "mesh2_warm_s": steps["mesh2"][2]}
+    return out, records
+
+
 def stamp_mask(field_size: int, centers: np.ndarray, size: int = 59) -> np.ndarray:
     """True inside the size x size window of each source, clipped to the field."""
     mask = np.zeros((field_size, field_size), bool)
@@ -4063,7 +4421,7 @@ def main() -> int:
 
     big = make_field(**BIG_FIELD)
     mark("make_field_4096")
-    tiled, tiled_catalog, (tiled_residual, _) = run_tiled(torch, net, big, reset_counts, count_now)
+    tiled, tiled_catalog, (tiled_residual, tiled_centers) = run_tiled(torch, net, big, reset_counts, count_now)
     report["tiled"] = tiled
     print(json.dumps({"tiled": tiled}))
     print("tiled detection stages (first call, warm call):")
@@ -4073,7 +4431,7 @@ def main() -> int:
     iterative_serving = run_iterative_serving(torch, net, big, tiled_catalog, tiled_residual, reset_counts, count_now)
     report["iterative_serving"] = iterative_serving
     print(json.dumps({"iterative_serving": iterative_serving}))
-    del big, tiled_residual
+    del tiled_residual
     mark("iterative_serving")
     # phase 18: training at full width
     training = run_training(torch)
@@ -4131,6 +4489,29 @@ def main() -> int:
     report["export_cli"] = exported
     print(json.dumps({"export_cli": exported}))
     mark("export_cli")
+    # phase 22: multi-device on a mesh that repeats the card
+    multi, band_recs = run_multi_device(torch, net, big, tiled_centers, field, centers, main_cutouts, qv,
+                                        reset_counts, read_counts)
+    del big
+    records += band_recs
+    report["multi_device"] = multi
+    print(json.dumps({"multi_device": multi}))
+    for order in ("order1", "order3"):
+        r = multi["sharded_serve"][order]
+        print(f"sharded serve {order}, {r['sources']} sources on {multi['card']}: 4 bands {r['bands4']['warm_s']:.3f} s "
+              f"warm ({r['bands4']['first_s']:.3f} s first), 1 band {r['bands1']['warm_s']:.3f} s, single device "
+              f"{r['single_device_warm_s']:.3f} s; peak {r['bands4']['device_peak_bytes']} bytes (4 bands) and "
+              f"{r['bands1']['device_peak_bytes']} (1 band); per band resident "
+              f"{r['bands4']['residency']['per_shard'][0]} bytes")
+    r = multi["registered_serve"]
+    print(f"registered sharded serve, {r['sources']} sources on {multi['card']}: 4 bands {r['first_s']:.3f} s, single "
+          f"device {r['single_device_s']:.3f} s; shifts within {r['shift_max_abs_err_px']} px, residual within "
+          f"{r['residual_max_abs_err']}; {r['launches']['registration']} registration launches, 0 full-field")
+    for rec in band_recs:
+        print(json.dumps({rec["name"]: {k: rec.get(k) for k in (
+            "shape", "launches", "max_abs_err", "ms", "device_ms", "plain_ms", "square_ms", "library_ms", "bound_ms",
+            "bound_by")}}))
+    mark("multi_device")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 

@@ -27,7 +27,10 @@ int8 tensor cores (``csrc/int8_conv.cu``); the model options of the JAX
 ``decoder_subpixel``, ``decoder_f32_stages``), export through
 ``torch.export`` (``utils/export.py``, ``DeblendField(artifact=)``), the
 reference-shaped ``compat`` namespace and the command line
-(``python -m debvader_tpu_torch``, cli.py).
+(``python -m debvader_tpu_torch``, cli.py); and multi-device serving and
+training on a single-controller mesh (``parallel/``: ``make_mesh``, the
+``mesh=`` options, ``ShardedFieldDeblender``, the row-band sharded serve
+of pipeline/sharded_field.py).
 Public functions keep the JAX package's NHWC layout.  Entry points run on the GPU
 (``device="cuda"``) unless the caller passes ``device="cpu"``; the kernels
 are hand-written CUDA (``csrc/``) built with ``nvcc`` at first use, and
@@ -56,6 +59,7 @@ from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.shift import render_field, render_pad
 from debvader_tpu_torch.pipeline.field import DeblendField
 from debvader_tpu_torch.pipeline.iterative import IterativeDeblendField
+from debvader_tpu_torch.pipeline.sharded_field import ShardedFieldDeblender
 from debvader_tpu_torch.pipeline.tiles import TiledDeblendField, detect_objects_tiled
 from debvader_tpu_torch.training.train import train_deblender, train_network
 from debvader_tpu_torch.utils.profiling import stage_timer
@@ -71,6 +75,7 @@ __all__ = [
     "DeblendField",
     "TiledDeblendField",
     "IterativeDeblendField",
+    "ShardedFieldDeblender",
     "DeblenderVAE",
     "create_model_vae",
     "create_encoder",

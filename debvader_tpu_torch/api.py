@@ -14,7 +14,11 @@ encoded once (the encoder is deterministic at inference), then
 (replica, source) pairs of latent draws decode in chunks of at most
 ``max_chunk``.  The draws come from an explicit ``torch.Generator`` on the
 device, or from an injected ``eps`` so that a test can hand the JAX
-package the same noise.
+package the same noise.  With ``mesh`` (parallel/mesh.py) the tiled
+(replica, source) batch is split over the mesh's 'data' axis through the
+whole forward instead, as the JAX package's mesh route does; its noise is
+the single-device route's draw, made once for the chunk and split, so
+both routes give the same numbers for the same generator.
 """
 
 from __future__ import annotations
@@ -95,19 +99,36 @@ def deblend(
 
 
 @torch.no_grad()
-def _replica_chunks(net, x, n_samples, generator, normalise, max_chunk, eps):
+def _replica_chunks(net, x, n_samples, generator, normalise, max_chunk, eps, mesh=None, apply_fn=None):
     """Yields (reps, N, S, S, B) chunks of sampled means, ``n_samples``
     replicas in all: one encode of x (N, S, S, B), then for each chunk of
     ``reps = max(max_chunk // N, 1)`` replicas the posterior tiled with the
     replica axis outermost, one latent draw a (replica, source) pair, the
-    decode, the flux calibration and the denormalisation."""
+    decode, the flux calibration and the denormalisation.  With ``mesh``
+    each chunk is x tiled the same way through ``apply_fn``'s sharded
+    forward (``make_sharded_apply(net, mesh)`` when None), with the same
+    draw."""
     n = x.shape[0]
     latent = net.cfg.latent_dim
     if eps is not None and tuple(eps.shape) != (n_samples, n, latent):
         raise ValueError(f"eps must be {(n_samples, n, latent)}, got {tuple(eps.shape)}")
+    reps_per_chunk = max(max_chunk // max(n, 1), 1)
+    if mesh is not None:
+        from debvader_tpu_torch.parallel.sharded import latent_draw, make_sharded_apply, sharded_forward
+
+        if apply_fn is None:
+            apply_fn = make_sharded_apply(net, mesh, z_mode="sample")
+        done = 0
+        while done < n_samples:
+            reps = min(reps_per_chunk, n_samples - done)
+            noise = (latent_draw(generator, reps * n, latent, x.device) if eps is None
+                     else eps[done : done + reps].reshape(reps * n, latent))
+            loc = sharded_forward(apply_fn, x.repeat(reps, 1, 1, 1), mesh, normalise, eps=noise).loc
+            yield loc.reshape((reps, n) + tuple(loc.shape[1:]))
+            done += reps
+        return
     with fp32_math():
         posterior = net.encode(_guard(x, normalise))
-    reps_per_chunk = max(max_chunk // max(n, 1), 1)
     done = 0
     while done < n_samples:
         reps = min(reps_per_chunk, n_samples - done)
@@ -153,6 +174,8 @@ def sample_stats_tensor(
     normalise: bool = False,
     max_chunk: int = 8192,
     eps: torch.Tensor | None = None,
+    mesh=None,
+    apply_fn=None,
 ):
     """:func:`deblend_sample_stats` on a (N, S, S, B) float32 tensor
     already on the model's device."""
@@ -160,7 +183,7 @@ def sample_stats_tensor(
         raise ValueError(f"n_samples must be at least 1, got {n_samples}")
     mean = m2 = None
     count = 0
-    for samples in _replica_chunks(net, x, n_samples, generator, normalise, max_chunk, eps):
+    for samples in _replica_chunks(net, x, n_samples, generator, normalise, max_chunk, eps, mesh, apply_fn):
         reps = samples.shape[0]
         c_mean = samples.mean(dim=0)
         c_m2 = torch.square(samples - c_mean[None]).sum(dim=0)
@@ -181,15 +204,20 @@ def deblend_samples(
     max_chunk: int = 8192,
     eps=None,
     device="cuda",
+    mesh=None,
+    apply_fn=None,
 ) -> torch.Tensor:
     """Epistemic sampling: ``n_samples`` stochastic forwards an image, as
     the (n_samples, N, S, S, B) tensor of their means on ``device``.
 
     The latent draws come from ``generator`` (a fresh one seeded 0 when
     None) or are the given ``eps`` (n_samples, N, latent), replica axis
-    first."""
+    first.  ``mesh`` (and optionally a cached ``apply_fn`` from
+    ``parallel.make_sharded_apply(net, mesh, 'sample')``) splits each
+    chunk's (replica, source) batch over the mesh's 'data' axis, with the
+    same draws."""
     x, generator, eps = _sampling_inputs(images, generator, eps, device)
-    return torch.cat(list(_replica_chunks(net, x, n_samples, generator, normalise, max_chunk, eps)))
+    return torch.cat(list(_replica_chunks(net, x, n_samples, generator, normalise, max_chunk, eps, mesh, apply_fn)))
 
 
 def deblend_sample_stats(
@@ -201,6 +229,8 @@ def deblend_sample_stats(
     max_chunk: int = 8192,
     eps=None,
     device="cuda",
+    mesh=None,
+    apply_fn=None,
 ):
     """(mean, std) over ``n_samples`` stochastic forwards an image, both
     (N, S, S, B) on ``device``, without the sample cube of
@@ -208,6 +238,7 @@ def deblend_sample_stats(
     statistics (stable for singleton chunks), so the peak is one replica
     chunk and two stamp maps.  ``std`` is the population standard
     deviation, sqrt(max(M2 / n_samples, 0)).  Same draws as
-    :func:`deblend_samples` for the same generator state or ``eps``."""
+    :func:`deblend_samples` for the same generator state or ``eps``;
+    ``mesh`` / ``apply_fn`` as there."""
     x, generator, eps = _sampling_inputs(images, generator, eps, device)
-    return sample_stats_tensor(net, x, n_samples, generator, normalise, max_chunk, eps)
+    return sample_stats_tensor(net, x, n_samples, generator, normalise, max_chunk, eps, mesh, apply_fn)

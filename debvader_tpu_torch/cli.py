@@ -273,12 +273,15 @@ def _write_catalog(catalog, path: str) -> None:
 
 
 def _cmd_train(args) -> int:
-    from debvader_tpu_torch.config import _not_ported
     from debvader_tpu_torch.training.checkpoint import save_weights
     from debvader_tpu_torch.training.train import train_deblender
 
+    mesh = None
     if args.mesh:
-        _not_ported("train --mesh", "multi-device")
+        from debvader_tpu_torch.parallel import make_mesh
+
+        # N cards, or the CPU repeated N times under --device cpu
+        mesh = make_mesh(args.mesh, devices=None if args.device == "cuda" else [args.device] * args.mesh)
     x = np.load(args.blended).astype(np.float32)
     y = np.load(args.isolated).astype(np.float32)
     n_val = max(int(len(x) * args.val_fraction), 1)
@@ -297,6 +300,7 @@ def _cmd_train(args) -> int:
         model_cfg=_model_cfg(args),
         steps_per_dispatch=args.steps_per_dispatch,
         device=args.device,
+        mesh=mesh,
     )
     out = save_weights(args.out, state.variables())
     print(
@@ -409,7 +413,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--batch-size", type=int, default=5)
     p.add_argument("--val-fraction", type=float, default=0.1)
-    p.add_argument("--mesh", type=int, help="data-parallel over N devices (not ported yet)")
+    p.add_argument("--mesh", type=int, help="data-parallel over N devices: N cards, or the CPU N times with "
+                   "--device cpu")
     p.add_argument("--metrics-log", help="JSONL epoch metrics path")
     p.add_argument("--steps-per-dispatch", type=int, default=1)
     p.set_defaults(fn=_cmd_train)

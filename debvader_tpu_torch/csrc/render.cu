@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas TPU kernel debvader_tpu/kernels/render.py
 // render_field_pallas (_render_kernel).  For stamps (N, S, S, B), offsets
-// (N, 2) and an optional per-source mask, with pos0 = (F - S) / 2,
+// (N, 2) and an optional per-source mask into an H x W window (the field,
+// or a row band of it on the sharded serve, ops/shift.py's (fy, fx)
+// field_size), with pos0 = ((H - S) / 2, (W - S) / 2) per axis,
 // io = floor(offset) and (fy, fx) = offset - io in [0, 1):
 //   out[y, x, c] (+)= sum over sources, in ascending index, of
 //       fx * (fy * s[a, b, c] + (1 - fy) * s[a + 1, b, c])
@@ -134,7 +136,7 @@ struct Placed {
 
 // Place source i; false for a dropped source.
 __device__ __forceinline__ bool placed(const float* __restrict__ offsets, const uint8_t* __restrict__ mask,
-                                       int i, int pos0, Placed* p) {
+                                       int i, int pos0y, int pos0x, Placed* p) {
   if (mask != nullptr && !mask[i]) return false;
   const float oy = offsets[2 * i], ox = offsets[2 * i + 1];
   const float iy = floorf(oy), ix = floorf(ox);
@@ -143,8 +145,8 @@ __device__ __forceinline__ bool placed(const float* __restrict__ offsets, const 
   p->src = i;
   p->fy = __fsub_rn(oy, iy);
   p->fx = __fsub_rn(ox, ix);
-  p->y0 = pos0 + static_cast<int>(iy) - 1;
-  p->x0 = pos0 + static_cast<int>(ix) - 1;
+  p->y0 = pos0y + static_cast<int>(iy) - 1;
+  p->x0 = pos0x + static_cast<int>(ix) - 1;
   return true;
 }
 
@@ -152,8 +154,8 @@ __device__ __forceinline__ bool placed(const float* __restrict__ offsets, const 
 // [ty0, ty0 + th) x [tx0, tx0 + tw); false for a dropped source.
 __device__ __forceinline__ bool place(const float* __restrict__ offsets,
                                       const uint8_t* __restrict__ mask, int i, int n, int s,
-                                      int pos0, int ty0, int tx0, int th, int tw, Placed* p) {
-  if (i >= n || !placed(offsets, mask, i, pos0, p)) return false;
+                                      int pos0y, int pos0x, int ty0, int tx0, int th, int tw, Placed* p) {
+  if (i >= n || !placed(offsets, mask, i, pos0y, pos0x, p)) return false;
   return p->y0 < ty0 + th && p->y0 + s + 2 > ty0 && p->x0 < tx0 + tw && p->x0 + s + 2 > tx0;
 }
 
@@ -232,8 +234,8 @@ __device__ __forceinline__ void stage(float* win, const float* __restrict__ st, 
 template <int B>
 __global__ void __launch_bounds__(TileShape<B>::kThreads)
 render_tile_kernel(const float* __restrict__ stamps, const float* __restrict__ offsets,
-                   const uint8_t* __restrict__ mask, float* __restrict__ out, int n, int s, int f,
-                   int pitch, int accumulate) {
+                   const uint8_t* __restrict__ mask, float* __restrict__ out, int n, int s, int h,
+                   int w, int pitch, int accumulate) {
   using Sh = TileShape<B>;
   extern __shared__ __align__(16) unsigned char win_bytes[];  // two windows
   float* win = reinterpret_cast<float*>(win_bytes);
@@ -242,7 +244,7 @@ render_tile_kernel(const float* __restrict__ stamps, const float* __restrict__ o
 
   const int tid = threadIdx.x;
   const int ty0 = blockIdx.y * kTileRows, tx0 = blockIdx.x * kTileCols;
-  const int pos0 = (f - s) / 2;
+  const int pos0y = (h - s) / 2, pos0x = (w - s) / 2;
   const size_t stamp_elems = static_cast<size_t>(s) * s * B;
   const int x = tx0 + tid / B;
   float* o = out + static_cast<long long>(tx0) * B + tid;
@@ -255,7 +257,7 @@ render_tile_kernel(const float* __restrict__ stamps, const float* __restrict__ o
   for (int base = 0; base < n; base += Sh::kThreads) {
     Placed p;
     const bool hit =
-        place(offsets, mask, base + tid, n, s, pos0, ty0, tx0, kTileRows, kTileCols, &p);
+        place(offsets, mask, base + tid, n, s, pos0y, pos0x, ty0, tx0, kTileRows, kTileCols, &p);
     const int total = compact<Sh::kWarps>(hit, p, list, warp_count);
     if (total == 0) continue;
     touched = true;
@@ -298,18 +300,18 @@ render_tile_kernel(const float* __restrict__ stamps, const float* __restrict__ o
     for (int i = tid; i < kTileRows * kPairs; i += Sh::kThreads) {
       const int r = i / kPairs, q = i - r * kPairs;
       const int y = ty0 + r, xx = tx0 + (2 * q) / B;
-      if (y < f && xx < f) {
+      if (y < h && xx < w) {
         *reinterpret_cast<float2*>(out + static_cast<long long>(y) * pitch + static_cast<long long>(tx0) * B +
                                    2 * q) = make_float2(0.f, 0.f);
       }
     }
     return;
   }
-  if (x >= f) return;
+  if (x >= w) return;
 #pragma unroll
   for (int r = 0; r < kTileRows; ++r) {
     const int y = ty0 + r;
-    if (y < f) {
+    if (y < h) {
       float* e = o + static_cast<long long>(y) * pitch;
       *e = accumulate ? __fadd_rn(*e, acc[r]) : acc[r];
     }
@@ -326,7 +328,7 @@ template <typename T>
 __global__ void __launch_bounds__(kGenThreads)
 render_generic_kernel(const T* __restrict__ stamps, const float* __restrict__ offsets,
                       const uint8_t* __restrict__ mask, T* __restrict__ out, int n, int s,
-                      int b, int f, int pitch, int accumulate) {
+                      int b, int h, int w, int pitch, int accumulate) {
   extern __shared__ float acc_s[];  // kGenTile * kGenTile * b
   __shared__ Placed list[kGenThreads];
   __shared__ int warp_count[kGenWarps];
@@ -335,7 +337,7 @@ render_generic_kernel(const T* __restrict__ stamps, const float* __restrict__ of
   const int ty0 = blockIdx.y * kGenTile, tx0 = blockIdx.x * kGenTile;
   const int row_elems = kGenTile * b;
   const int tile_elems = kGenTile * row_elems;
-  const int pos0 = (f - s) / 2;
+  const int pos0y = (h - s) / 2, pos0x = (w - s) / 2;
   bool touched = false;
 
   for (int e = tid; e < tile_elems; e += kGenThreads) acc_s[e] = 0.f;
@@ -343,8 +345,8 @@ render_generic_kernel(const T* __restrict__ stamps, const float* __restrict__ of
   for (int base = 0; base < n; base += kGenThreads) {
     Placed p;
     // a bf16 canvas lists a masked source too: it adds +0.0 where it covers
-    const bool hit = place(offsets, kIsBf16<T> ? nullptr : mask, base + tid, n, s, pos0, ty0, tx0, kGenTile,
-                           kGenTile, &p);
+    const bool hit = place(offsets, kIsBf16<T> ? nullptr : mask, base + tid, n, s, pos0y, pos0x, ty0, tx0,
+                           kGenTile, kGenTile, &p);
     const int total = compact<kGenWarps>(hit, p, list, warp_count);
     if (total == 0) continue;
     if constexpr (kIsBf16<T>) {
@@ -353,7 +355,7 @@ render_generic_kernel(const T* __restrict__ stamps, const float* __restrict__ of
         for (int e = tid; e < tile_elems; e += kGenThreads) {
           const int r = e / row_elems, rem = e - r * row_elems;
           const int y = ty0 + r, x = tx0 + rem / b;
-          if (y < f && x < f) acc_s[e] = widen(out[static_cast<long long>(y) * pitch + static_cast<long long>(tx0) * b + rem]);
+          if (y < h && x < w) acc_s[e] = widen(out[static_cast<long long>(y) * pitch + static_cast<long long>(tx0) * b + rem]);
         }
       }
     }
@@ -388,7 +390,7 @@ render_generic_kernel(const T* __restrict__ stamps, const float* __restrict__ of
   for (int e = tid; e < tile_elems; e += kGenThreads) {
     const int r = e / row_elems, rem = e - r * row_elems;
     const int y = ty0 + r, x = tx0 + rem / b;
-    if (y >= f || x >= f) continue;
+    if (y >= h || x >= w) continue;
     T* o = out + static_cast<long long>(y) * pitch + static_cast<long long>(tx0) * b + rem;
     if constexpr (kIsBf16<T>) {
       *o = narrow<T>(acc_s[e]);
@@ -400,18 +402,18 @@ render_generic_kernel(const T* __restrict__ stamps, const float* __restrict__ of
 
 template <typename T>
 int launch_render_generic(const T* stamps, const float* offsets, const uint8_t* mask, T* out, int n, int s,
-                          int b, int f, int pitch, int accumulate, cudaStream_t st) {
+                          int b, int h, int w, int pitch, int accumulate, cudaStream_t st) {
   const size_t shared = static_cast<size_t>(kGenTile) * kGenTile * b * sizeof(float);
   if (shared > 40 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((f + kGenTile - 1) / kGenTile, (f + kGenTile - 1) / kGenTile);
-  render_generic_kernel<T><<<grid, kGenThreads, shared, st>>>(stamps, offsets, mask, out, n, s, b, f, pitch,
+  const dim3 grid((w + kGenTile - 1) / kGenTile, (h + kGenTile - 1) / kGenTile);
+  render_generic_kernel<T><<<grid, kGenThreads, shared, st>>>(stamps, offsets, mask, out, n, s, b, h, w, pitch,
                                                               accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int B>
 int launch_tile(const float* stamps, const float* offsets, const uint8_t* mask, float* out, int n, int s,
-                int f, int pitch, int accumulate, cudaStream_t stream) {
+                int h, int w, int pitch, int accumulate, cudaStream_t stream) {
   using Sh = TileShape<B>;
   if constexpr (Sh::kShared > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -419,23 +421,23 @@ int launch_tile(const float* stamps, const float* offsets, const uint8_t* mask, 
         static_cast<int>(Sh::kShared));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((f + kTileCols - 1) / kTileCols, (f + kTileRows - 1) / kTileRows);
+  const dim3 grid((w + kTileCols - 1) / kTileCols, (h + kTileRows - 1) / kTileRows);
   render_tile_kernel<B><<<grid, Sh::kThreads, Sh::kShared, stream>>>(
-      stamps, offsets, mask, out, n, s, f, pitch, accumulate);
+      stamps, offsets, mask, out, n, s, h, w, pitch, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The float32 order-1 launch: the tile kernel for B = 6 on 8-byte-aligned
-// stamps and window, else the generic kernel.
+// The float32 order-1 launch on an h x w window: the tile kernel for B = 6
+// on 8-byte-aligned stamps and window, else the generic kernel.
 int render_f32(const float* stamps, const float* offsets, const uint8_t* mask, float* out, int n, int s,
-               int b, int f, int pitch, int accumulate, cudaStream_t st) {
-  if (f <= 0 || b <= 0) return 0;
+               int b, int h, int w, int pitch, int accumulate, cudaStream_t st) {
+  if (h <= 0 || w <= 0 || b <= 0) return 0;
   const bool aligned = (reinterpret_cast<uintptr_t>(stamps) & 7u) == 0 &&
                        (reinterpret_cast<uintptr_t>(out) & 7u) == 0 && (pitch & 1) == 0;
   if (b == 6 && aligned) {
-    return launch_tile<6>(stamps, offsets, mask, out, n, s, f, pitch, accumulate, st);
+    return launch_tile<6>(stamps, offsets, mask, out, n, s, h, w, pitch, accumulate, st);
   }
-  return launch_render_generic<float>(stamps, offsets, mask, out, n, s, b, f, pitch, accumulate, st);
+  return launch_render_generic<float>(stamps, offsets, mask, out, n, s, b, h, w, pitch, accumulate, st);
 }
 
 // ------------------------------------------------------- order-3 place
@@ -491,7 +493,8 @@ __device__ __forceinline__ void place_stage(float* win, const float* __restrict_
 template <int B>
 __global__ void __launch_bounds__(PlaceShape<B>::kThreads)
 place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__ corners,
-                  const uint8_t* __restrict__ visible, float* __restrict__ canvas, int n, int p, int c) {
+                  const uint8_t* __restrict__ visible, float* __restrict__ canvas, int n, int p, int rows,
+                  int cols, long long pitch) {
   using Sh = PlaceShape<B>;
   extern __shared__ __align__(16) unsigned char win_bytes[];  // two windows
   float* win = reinterpret_cast<float*>(win_bytes);
@@ -501,9 +504,8 @@ place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__
   const int tid = threadIdx.x;
   const int ty0 = blockIdx.y * kTileRows, tx0 = blockIdx.x * kTileCols;
   const size_t patch_elems = static_cast<size_t>(p) * p * B;
-  const long long pitch = static_cast<long long>(c) * B;
   const int col = tid / B;  // this thread's pixel in the tile row
-  const bool col_ok = tx0 + col < c;
+  const bool col_ok = tx0 + col < cols;
   float* o = canvas + static_cast<long long>(tx0) * B + tid;
 
   float acc[kTileRows];
@@ -518,7 +520,7 @@ place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__
       // each sum starts from the canvas's own value
       touched = true;
 #pragma unroll
-      for (int r = 0; r < kTileRows; ++r) acc[r] = (col_ok && ty0 + r < c) ? o[(ty0 + r) * pitch] : 0.f;
+      for (int r = 0; r < kTileRows; ++r) acc[r] = (col_ok && ty0 + r < rows) ? o[(ty0 + r) * pitch] : 0.f;
     }
 
     place_stage<B>(win, patches + list[0].src * patch_elems, p, ty0 - list[0].y0,
@@ -552,7 +554,7 @@ place_tile_kernel(const float* __restrict__ patches, const int32_t* __restrict__
   if (!touched || !col_ok) return;
 #pragma unroll
   for (int r = 0; r < kTileRows; ++r) {
-    if (ty0 + r < c) o[(ty0 + r) * pitch] = acc[r];
+    if (ty0 + r < rows) o[(ty0 + r) * pitch] = acc[r];
   }
 }
 
@@ -560,7 +562,7 @@ template <typename T>
 __global__ void __launch_bounds__(kGenThreads)
 place_generic_kernel(const T* __restrict__ patches, const int32_t* __restrict__ corners,
                      const uint8_t* __restrict__ visible, T* __restrict__ canvas, int n, int p,
-                     int b, int c) {
+                     int b, int rows, int cols, long long pitch) {
   extern __shared__ float acc_s[];  // kGenTile * kGenTile * b
   __shared__ Patch list[kGenThreads];
   __shared__ int warp_count[kGenWarps];
@@ -569,7 +571,6 @@ place_generic_kernel(const T* __restrict__ patches, const int32_t* __restrict__ 
   const int ty0 = blockIdx.y * kGenTile, tx0 = blockIdx.x * kGenTile;
   const int row_elems = kGenTile * b;
   const int tile_elems = kGenTile * row_elems;
-  const long long pitch = static_cast<long long>(c) * b;
   bool touched = false;
 
   for (int base = 0; base < n; base += kGenThreads) {
@@ -583,7 +584,7 @@ place_generic_kernel(const T* __restrict__ patches, const int32_t* __restrict__ 
       for (int e = tid; e < tile_elems; e += kGenThreads) {
         const int r = e / row_elems, rem = e - r * row_elems;
         const int y = ty0 + r, x = tx0 + rem / b;
-        acc_s[e] = (y < c && x < c) ? widen(canvas[y * pitch + static_cast<long long>(tx0) * b + rem]) : 0.f;
+        acc_s[e] = (y < rows && x < cols) ? widen(canvas[y * pitch + static_cast<long long>(tx0) * b + rem]) : 0.f;
       }
     }
     for (int k = 0; k < total; ++k) {
@@ -605,23 +606,24 @@ place_generic_kernel(const T* __restrict__ patches, const int32_t* __restrict__ 
   for (int e = tid; e < tile_elems; e += kGenThreads) {
     const int r = e / row_elems, rem = e - r * row_elems;
     const int y = ty0 + r, x = tx0 + rem / b;
-    if (y < c && x < c) canvas[y * pitch + static_cast<long long>(tx0) * b + rem] = narrow<T>(acc_s[e]);
+    if (y < rows && x < cols) canvas[y * pitch + static_cast<long long>(tx0) * b + rem] = narrow<T>(acc_s[e]);
   }
 }
 
 template <typename T>
 int launch_place_generic(const T* patches, const int32_t* corners, const uint8_t* visible, T* canvas, int n,
-                         int p, int b, int c, cudaStream_t st) {
+                         int p, int b, int rows, int cols, long long pitch, cudaStream_t st) {
   const size_t shared = static_cast<size_t>(kGenTile) * kGenTile * b * sizeof(float);
   if (shared > 40 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((c + kGenTile - 1) / kGenTile, (c + kGenTile - 1) / kGenTile);
-  place_generic_kernel<T><<<grid, kGenThreads, shared, st>>>(patches, corners, visible, canvas, n, p, b, c);
+  const dim3 grid((cols + kGenTile - 1) / kGenTile, (rows + kGenTile - 1) / kGenTile);
+  place_generic_kernel<T><<<grid, kGenThreads, shared, st>>>(patches, corners, visible, canvas, n, p, b, rows, cols,
+                                                             pitch);
   return static_cast<int>(cudaGetLastError());
 }
 
 int place_f32(const float* patches, const int32_t* corners, const uint8_t* visible, float* canvas, int n, int p,
-              int b, int c, cudaStream_t st) {
-  if (n <= 0 || c <= 0 || b <= 0 || p <= 0) return 0;
+              int b, int rows, int cols, long long pitch, cudaStream_t st) {
+  if (n <= 0 || rows <= 0 || cols <= 0 || b <= 0 || p <= 0) return 0;
   if (b == 6 && (reinterpret_cast<uintptr_t>(patches) & 7u) == 0) {
     using Sh = PlaceShape<6>;
     if constexpr (Sh::kShared > 48 * 1024) {
@@ -629,11 +631,12 @@ int place_f32(const float* patches, const int32_t* corners, const uint8_t* visib
           place_tile_kernel<6>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Sh::kShared));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const dim3 grid((c + kTileCols - 1) / kTileCols, (c + kTileRows - 1) / kTileRows);
-    place_tile_kernel<6><<<grid, Sh::kThreads, Sh::kShared, st>>>(patches, corners, visible, canvas, n, p, c);
+    const dim3 grid((cols + kTileCols - 1) / kTileCols, (rows + kTileRows - 1) / kTileRows);
+    place_tile_kernel<6><<<grid, Sh::kThreads, Sh::kShared, st>>>(patches, corners, visible, canvas, n, p, rows, cols,
+                                                                   pitch);
     return static_cast<int>(cudaGetLastError());
   }
-  return launch_place_generic<float>(patches, corners, visible, canvas, n, p, b, c, st);
+  return launch_place_generic<float>(patches, corners, visible, canvas, n, p, b, rows, cols, pitch, st);
 }
 
 // --------------------------------------------- bfloat16 canvases, B = 6
@@ -837,7 +840,7 @@ render_scan_kernel(const bf16* __restrict__ stamps, const float* __restrict__ of
     // a masked source adds +0.0 where it covers, as the plain version's
     // where(visible, patch, 0) does; a non-finite or huge offset nothing
     Placed p;
-    src[i] = placed(offsets, nullptr, i, pos0, &p)
+    src[i] = placed(offsets, nullptr, i, pos0, pos0, &p)
                  ? RenderSrc{p.y0, p.x0, p.fy, p.fx, mask == nullptr || mask[i]}
                  : RenderSrc{kDropped, kDropped, 0.f, 0.f, 0};
   }
@@ -951,11 +954,13 @@ inline long long tiles_of(int rows, int cols) {
 
 // patches (n, p, p, b) float32 contiguous; corners (n, 2) int32, the
 // canvas row and column of each patch's element (0, 0); visible n bytes (0:
-// the patch adds +0.0) or null; canvas (c, c, b) float32 contiguous, added
-// into in place.  Returns the cudaError_t of the launch.
+// the patch adds +0.0) or null; canvas (h, w, b) float32, element (y, x, c)
+// at canvas[y * pitch + x * b + c], added into in place (a square
+// contiguous canvas: h = w = c, pitch = c * b).  Returns the cudaError_t of
+// the launch.
 extern "C" int dvt_place(const float* patches, const int32_t* corners, const uint8_t* visible,
-                         float* canvas, int n, int p, int b, int c, void* stream) {
-  return place_f32(patches, corners, visible, canvas, n, p, b, c, static_cast<cudaStream_t>(stream));
+                         float* canvas, int n, int p, int b, int h, int w, int pitch, void* stream) {
+  return place_f32(patches, corners, visible, canvas, n, p, b, h, w, pitch, static_cast<cudaStream_t>(stream));
 }
 
 // dvt_place with bf16 patches and a bf16 canvas (2-byte elements), each add
@@ -982,18 +987,20 @@ extern "C" int dvt_place_bf16(const bf16* patches, const int64_t* ys, const int6
 extern "C" int dvt_place_bf16_generic(const bf16* patches, const int32_t* corners, const uint8_t* visible,
                                       bf16* canvas, int n, int p, int b, int c, void* stream) {
   if (n <= 0 || c <= 0 || b <= 0 || p <= 0) return 0;
-  return launch_place_generic<bf16>(patches, corners, visible, canvas, n, p, b, c,
-                                    static_cast<cudaStream_t>(stream));
+  return launch_place_generic<bf16>(patches, corners, visible, canvas, n, p, b, c, c,
+                                    static_cast<long long>(c) * b, static_cast<cudaStream_t>(stream));
 }
 
-// stamps (n, s, s, b) float32 contiguous; offsets (n, 2) float32; mask n
-// bytes (0 drops the source) or null; out: the (f, f, b) window, element
-// (y, x, c) at out[y * pitch + x * b + c]; accumulate != 0 adds to what out
-// holds, else out is overwritten.  Returns the cudaError_t of the launch.
+// stamps (n, s, s, b) float32 contiguous; offsets (n, 2) float32, from the
+// window's centre ((h - s) / 2, (w - s) / 2); mask n bytes (0 drops the
+// source) or null; out: the (h, w, b) window, element (y, x, c) at
+// out[y * pitch + x * b + c]; accumulate != 0 adds to what out holds, else
+// out is overwritten.  A square window (h = w) is the field of the render.
+// Returns the cudaError_t of the launch.
 extern "C" int dvt_render(const float* stamps, const float* offsets, const uint8_t* mask,
-                          float* out, int n, int s, int b, int f, int pitch,
+                          float* out, int n, int s, int b, int h, int w, int pitch,
                           int accumulate, void* stream) {
-  return render_f32(stamps, offsets, mask, out, n, s, b, f, pitch, accumulate, static_cast<cudaStream_t>(stream));
+  return render_f32(stamps, offsets, mask, out, n, s, b, h, w, pitch, accumulate, static_cast<cudaStream_t>(stream));
 }
 
 // dvt_render with bf16 stamps and a bf16 window `out`, always added into:
@@ -1007,7 +1014,7 @@ extern "C" int dvt_render_bf16(const bf16* stamps, const float* offsets, const u
   if (f <= 0 || b <= 0 || n <= 0) return 0;
   if (b != 6 || n > kScanSources || (pitch & 1) != 0 || (reinterpret_cast<uintptr_t>(stamps) & 3u) != 0 ||
       (reinterpret_cast<uintptr_t>(out) & 3u) != 0) {
-    return launch_render_generic<bf16>(stamps, offsets, mask, out, n, s, b, f, pitch, 1, st);
+    return launch_render_generic<bf16>(stamps, offsets, mask, out, n, s, b, f, f, pitch, 1, st);
   }
   constexpr int kThreads = ScanShape<6>::kThreads;
   constexpr size_t kPerSource = sizeof(RenderSrc) + ScanShape<6>::kListBytes;

@@ -35,6 +35,13 @@ cover it in ascending source index, the JAX package's sequential scan
 order, so its canvas is bit-identical to the plain version's and the
 same from run to run.
 
+The float32 kernels also take a rectangular field (fy, fx) and a canvas
+with strided rows: the row bands of the sharded serve
+(pipeline/sharded_field.py), each rendered into a (band_h + 2 * halo +
+2 * pad) x (F + 2 * pad) canvas, with the centre taken per axis as the JAX
+package's ``render_field(..., (fy, fx))`` takes it.  A square field takes
+the same arithmetic as before, so its canvas is unchanged bit for bit.
+
 Both kernels also take a bfloat16 canvas (the serving path's canvases
 under ``DeblendField(device_dtype='bfloat16')``), with bfloat16 stamps or
 patches: each source's value is computed in float32, rounded to bfloat16
@@ -58,6 +65,7 @@ import torch.nn.functional as F
 from debvader_tpu_torch.kernels import _build
 
 __all__ = [
+    "field_hw",
     "subpixel_shift_const",
     "subpixel_shift",
     "shift_patches",
@@ -70,6 +78,15 @@ __all__ = [
 ]
 
 _INTERP_PAD = 1  # the bilinear shift reaches one pixel past the stamp
+
+
+def field_hw(field_size) -> tuple[int, int]:
+    """(rows, columns) of a render's field: an int is a square field, a
+    pair (fy, fx) a rectangle (a row band of the sharded serve)."""
+    if isinstance(field_size, (tuple, list)):
+        fy, fx = field_size
+        return int(fy), int(fx)
+    return int(field_size), int(field_size)
 
 
 def subpixel_shift_const(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -137,19 +154,21 @@ def shift_patches(stamps, offsets, interp_pad: int, interp):
     return shifted, int_off.to(torch.int64)
 
 
-def place_corners(int_off, mask, field_size: int, stamp_size: int, interp_pad: int, canvas_size: int):
+def place_corners(int_off, mask, field_size, stamp_size: int, interp_pad: int, canvas_size):
     """(y, x, visible) of each padded patch (P = stamp_size + 2 *
     interp_pad) placed at field centre + ``int_off`` on a canvas padded by
     P on each side: its canvas corner, clipped into range, and whether it
     lands unclipped (so any placement that overlaps the field is kept; a
     patch entirely off the canvas is clipped into range and dropped, never
-    wrapped) and is not masked out."""
+    wrapped) and is not masked out.  ``field_size`` and ``canvas_size``
+    are ints for a square or (rows, columns) pairs (:func:`field_hw`); the
+    centre is taken per axis."""
     pad_s = stamp_size + 2 * interp_pad
-    pos0 = (field_size - stamp_size) // 2
-    yu = pos0 + int_off[:, 0] - interp_pad + pad_s
-    xu = pos0 + int_off[:, 1] - interp_pad + pad_s
-    y = torch.clamp(yu, 0, canvas_size - pad_s)
-    x = torch.clamp(xu, 0, canvas_size - pad_s)
+    (fy, fx), (cy, cx) = field_hw(field_size), field_hw(canvas_size)
+    yu = (fy - stamp_size) // 2 + int_off[:, 0] - interp_pad + pad_s
+    xu = (fx - stamp_size) // 2 + int_off[:, 1] - interp_pad + pad_s
+    y = torch.clamp(yu, 0, cy - pad_s)
+    x = torch.clamp(xu, 0, cx - pad_s)
     visible = (yu == y) & (xu == x)
     if mask is not None:
         visible = visible & mask.to(torch.bool)
@@ -160,8 +179,15 @@ _CANVAS_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_place(canvas, patches, y, x, visible):
-    if canvas.ndim != 3 or canvas.shape[0] != canvas.shape[1] or not canvas.is_contiguous():
-        raise ValueError(f"canvas must be a contiguous (C, C, B) tensor, got {tuple(canvas.shape)}")
+    if canvas.ndim != 3 or canvas.stride(2) != 1 or canvas.stride(1) != canvas.shape[2]:
+        raise ValueError(
+            f"canvas must be an (H, W, B) tensor contiguous along pixels and bands, got {tuple(canvas.shape)}"
+        )
+    if canvas.dtype == torch.bfloat16 and (canvas.shape[0] != canvas.shape[1] or not canvas.is_contiguous()):
+        raise ValueError(
+            f"a bfloat16 canvas must be a contiguous square (C, C, B), got {tuple(canvas.shape)}: the bfloat16 "
+            f"place takes the square canvas of DeblendField(device_dtype='bfloat16') only"
+        )
     if canvas.dtype not in _CANVAS_DTYPES or patches.dtype != canvas.dtype:
         raise ValueError(
             f"canvas and patches must both be float32 or both bfloat16, got {canvas.dtype} and {patches.dtype}"
@@ -169,8 +195,8 @@ def _check_place(canvas, patches, y, x, visible):
     n, p = patches.shape[:2]
     if patches.ndim != 4 or patches.shape[2] != p or patches.shape[3] != canvas.shape[2]:
         raise ValueError(f"patches must be (N, P, P, {canvas.shape[2]}), got {tuple(patches.shape)}")
-    if p > canvas.shape[0]:
-        raise ValueError(f"patches of {p} pixels do not fit a canvas of {canvas.shape[0]}")
+    if p > min(canvas.shape[0], canvas.shape[1]):
+        raise ValueError(f"patches of {p} pixels do not fit a canvas of {tuple(canvas.shape[:2])}")
     for name, v in (("y", y), ("x", x), ("visible", visible)):
         if tuple(v.shape) != (n,):
             raise ValueError(f"{name} must be ({n},), got {tuple(v.shape)}")
@@ -203,17 +229,22 @@ def _launch_place(canvas, patches, y, x, visible):
     n, p, _, b = patches.shape
     c = canvas.shape[0]
     bf16 = canvas.dtype == torch.bfloat16
-    if not (bf16 and b == 6 and _aligned4(patches, canvas)):
+    if not bf16:
         corners = torch.stack([y, x], -1).to(torch.int32)
-        symbol = "dvt_place_bf16_generic" if bf16 else "dvt_place"
-        fn = _build.launcher("render", symbol, 4, 4)
+        fn = _build.launcher("render", "dvt_place", 4, 6)
+        status = _build.call(fn, canvas.device, patches.data_ptr(), corners.data_ptr(),
+                             visible.to(torch.uint8).data_ptr(), canvas.data_ptr(), n, p, b,
+                             canvas.shape[0], canvas.shape[1], canvas.stride(0))
+        _build.check(status, "dvt_place")
+        place_patches.launches += 1
+        return
+    if not (b == 6 and _aligned4(patches, canvas)):
+        corners = torch.stack([y, x], -1).to(torch.int32)
+        fn = _build.launcher("render", "dvt_place_bf16_generic", 4, 4)
         status = _build.call(fn, canvas.device, patches.data_ptr(), corners.data_ptr(),
                              visible.to(torch.uint8).data_ptr(), canvas.data_ptr(), n, p, b, c)
-        _build.check(status, symbol)
-        if bf16:
-            place_patches.launches_bf16 += 1
-        else:
-            place_patches.launches += 1
+        _build.check(status, "dvt_place_bf16_generic")
+        place_patches.launches_bf16 += 1
         return
     # the corners and flags go as they come: no kernel a call to stack or
     # cast them
@@ -229,8 +260,10 @@ def _launch_place(canvas, patches, y, x, visible):
 
 
 def place_patches(canvas, patches, y, x, visible) -> None:
-    """Add patches (N, P, P, B) into a (C, C, B) canvas of the same dtype
-    (float32, or bfloat16 with every add rounded) in place: patch i at
+    """Add patches (N, P, P, B) into an (H, W, B) canvas of the same dtype
+    in place: float32 (a square field's canvas, or a row band's rectangle;
+    rows may be strided, pixels and bands contiguous), or a contiguous
+    square bfloat16 canvas with every add rounded.  Patch i lands at
     canvas rows y[i] .. y[i] + P - 1 and columns x[i] .. x[i] + P - 1 (the
     corners lie in range, as :func:`place_corners` clips them), +0.0 where
     visible[i] is False; the patches covering an element added in
@@ -251,7 +284,7 @@ place_patches.launches_bf16 = 0
 
 
 def render_into_canvas(
-    canvas, stamps, offsets, mask, field_size: int, interp_pad: int, interp, place=place_patches_plain
+    canvas, stamps, offsets, mask, field_size, interp_pad: int, interp, place=place_patches_plain
 ) -> None:
     """Shift, then place: pad the stamps by ``interp_pad``, shift each by
     the fractional part of its offset with ``interp(padded, frac)``, and add
@@ -262,7 +295,7 @@ def render_into_canvas(
     if stamps.shape[0] == 0:
         return
     shifted, int_off = shift_patches(stamps, offsets, interp_pad, interp)
-    y, x, visible = place_corners(int_off, mask, field_size, stamps.shape[1], interp_pad, canvas.shape[0])
+    y, x, visible = place_corners(int_off, mask, field_size, stamps.shape[1], interp_pad, tuple(canvas.shape[:2]))
     place(canvas, shifted.to(canvas.dtype), y, x, visible)
 
 
@@ -276,7 +309,7 @@ def _check(stamps, offsets, mask):
         raise ValueError(f"mask must be ({n},), got {tuple(mask.shape)}")
 
 
-def render_field_plain(stamps, offsets, field_size: int, mask=None, out=None):
+def render_field_plain(stamps, offsets, field_size, mask=None, out=None):
     """Plain PyTorch version of :func:`render_field_kernel`: the shift of
     the padded stamps, their patches added into a padded canvas in source
     order (:func:`place_patches_plain`), cropped.  A bfloat16 ``out`` is the
@@ -285,11 +318,12 @@ def render_field_plain(stamps, offsets, field_size: int, mask=None, out=None):
     copied back."""
     _check(stamps, offsets, mask)
     s, b = stamps.shape[1], stamps.shape[-1]
+    fy, fx = field_hw(field_size)
     pad = s + 2 * _INTERP_PAD
     bf16 = out is not None and out.dtype == torch.bfloat16
     dtype = torch.bfloat16 if bf16 else torch.float32
-    canvas = torch.zeros((field_size + 2 * pad,) * 2 + (b,), dtype=dtype, device=stamps.device)
-    window = canvas[pad : pad + field_size, pad : pad + field_size]
+    canvas = torch.zeros((fy + 2 * pad, fx + 2 * pad, b), dtype=dtype, device=stamps.device)
+    window = canvas[pad : pad + fy, pad : pad + fx]
     if bf16:
         window.copy_(out)
     render_into_canvas(canvas, stamps, offsets, mask, field_size, _INTERP_PAD, subpixel_shift_const)
@@ -304,9 +338,10 @@ def render_field_plain(stamps, offsets, field_size: int, mask=None, out=None):
 
 def _launch(stamps, offsets, field_size, mask, out):
     n, s, _, b = stamps.shape
+    fy, fx = field_hw(field_size)
     accumulate = out is not None
     if out is None:
-        out = torch.empty((field_size, field_size, b), dtype=torch.float32, device=stamps.device)
+        out = torch.empty((fy, fx, b), dtype=torch.float32, device=stamps.device)
     mask_ptr = None if mask is None else mask.data_ptr()
     if out.dtype == torch.bfloat16:
         fn = _build.launcher("render", "dvt_render_bf16", 4, 5)
@@ -314,15 +349,15 @@ def _launch(stamps, offsets, field_size, mask, out):
             m = min(n - i, _SCAN_SOURCES)
             status = _build.call(
                 fn, stamps.device, stamps[i:].data_ptr(), offsets[i:].data_ptr(),
-                None if mask is None else mask[i:].data_ptr(), out.data_ptr(), m, s, b, field_size, out.stride(0),
+                None if mask is None else mask[i:].data_ptr(), out.data_ptr(), m, s, b, fy, out.stride(0),
             )
             _build.check(status, "render_bf16")
             render_field_kernel.launches_bf16 += 1
         return out
-    fn = _build.launcher("render", "dvt_render", 4, 6)
+    fn = _build.launcher("render", "dvt_render", 4, 7)
     status = _build.call(
         fn, stamps.device, stamps.data_ptr(), offsets.data_ptr(), mask_ptr,
-        out.data_ptr(), n, s, b, field_size, out.stride(0), int(accumulate),
+        out.data_ptr(), n, s, b, fy, fx, out.stride(0), int(accumulate),
     )
     _build.check(status, "render")
     render_field_kernel.launches += 1
@@ -332,30 +367,39 @@ def _launch(stamps, offsets, field_size, mask, out):
 def render_field_kernel(
     stamps: torch.Tensor,
     offsets: torch.Tensor,
-    field_size: int,
+    field_size,
     mask: torch.Tensor | None = None,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Sum of all stamps placed at (field centre + offset): (F, F, B).
+    """Sum of all stamps placed at (field centre + offset): (F, F, B), or
+    (fy, fx, B) for a rectangular ``field_size`` (fy, fx) (a row band of
+    the sharded serve; the centre is taken per axis).
 
     stamps (N, S, S, B) float32; offsets (N, 2) float; mask (N,) bool drops
-    sources.  ``out``, when given, is an (F, F, B) float32 tensor (or a
-    window of a larger canvas: rows may be strided, pixels and bands are
-    contiguous) that the render is added to in place and that is returned.
-    A bfloat16 ``out`` takes bfloat16 stamps, and every source's value and
-    every add into it are rounded to bfloat16 (module docstring).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    sources.  ``out``, when given, is a float32 tensor of the field's shape
+    (or a window of a larger canvas: rows may be strided, pixels and bands
+    are contiguous) that the render is added to in place and that is
+    returned.  A bfloat16 ``out`` takes bfloat16 stamps and a square field,
+    and every source's value and every add into it are rounded to bfloat16
+    (module docstring).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     _check(stamps, offsets, mask)
     b = stamps.shape[-1]
+    fy, fx = field_hw(field_size)
     bf16 = out is not None and out.dtype == torch.bfloat16
     if bf16 and stamps.dtype != torch.bfloat16:
         raise ValueError(f"a bfloat16 out takes bfloat16 stamps, got {stamps.dtype}")
+    if bf16 and fy != fx:
+        raise ValueError(
+            f"a bfloat16 out must be a square field, got ({fy}, {fx}): the bfloat16 render takes the square "
+            f"canvas of DeblendField(device_dtype='bfloat16') only"
+        )
     if out is not None:
-        if tuple(out.shape) != (field_size, field_size, b) or out.dtype not in _CANVAS_DTYPES:
-            raise ValueError(f"out must be float32 or bfloat16 ({field_size}, {field_size}, {b})")
+        if tuple(out.shape) != (fy, fx, b) or out.dtype not in _CANVAS_DTYPES:
+            raise ValueError(f"out must be float32 or bfloat16 ({fy}, {fx}, {b})")
         if out.device != stamps.device:
             raise ValueError("out must lie on the stamps' device")
-        if field_size > 1 and (out.stride(2) != 1 or out.stride(1) != b):
+        if fy * fx > 1 and (out.stride(2) != 1 or out.stride(1) != b):
             raise ValueError("out must be contiguous along pixels and bands")
     if stamps.device.type == "cpu":
         return render_field_plain(stamps, offsets, field_size, mask, out)

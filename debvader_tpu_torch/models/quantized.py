@@ -46,8 +46,8 @@ What is held to the JAX package:
   order and layouts, so a teacher fingerprint is the same in both
   packages.
 
-``make_sharded_quantized_forward`` waits for ROADMAP.md Queue 1's
-"multi-device" item.
+``make_sharded_quantized_forward`` splits the batch over a mesh's 'data'
+axis (parallel/mesh.py), the bundle copied to each shard's device.
 """
 
 from __future__ import annotations
@@ -604,7 +604,30 @@ def make_quantized_forward(qv: QuantizedVAE, z_mode: str = "sample"):
 
 
 def make_sharded_quantized_forward(qv: QuantizedVAE, mesh, z_mode: str = "sample"):
-    _not_ported("make_sharded_quantized_forward", "multi-device")
+    """Batch-sharded int8 serving fan-out: ``make_quantized_forward``'s
+    closure contract over ``parallel.make_sharded_apply``, whose per-shard
+    forward is the int8 forward here.  The bundle (model, int8 kernels and
+    activation scales) is copied once to each distinct shard device; the
+    stamp batch (guarded and normalised once) is padded to a multiple of
+    the mesh's 'data' axis and split over it.  Under 'sample' the noise of
+    the real rows is drawn once, as the single-device forward draws it,
+    and split with the batch.  Host images go to the mesh's first device,
+    as the single-device closure takes them to the bundle's; the outputs
+    lie on the images' device."""
+    from debvader_tpu_torch.parallel.sharded import make_sharded_apply, sharded_forward
+
+    def shard_forward(replica, x, eps):
+        with fp32_math():
+            return _forward(replica.model, x, z_mode, replica.int8_layers(), replica.act_scales, eps=eps)[0]
+
+    apply = make_sharded_apply(qv, mesh, z_mode, shard_forward)
+
+    def fwd(images, generator: torch.Generator | None = None, eps: torch.Tensor | None = None):
+        x = images.to(torch.float32) if isinstance(images, torch.Tensor) else _guard(images, mesh.flat[0])
+        dist = sharded_forward(apply, x, mesh, qv.normalise, generator, eps)
+        return dist.loc, dist.scale
+
+    return fwd
 
 
 def _requantize(model: DeblenderVAE, names, act_scales: dict) -> dict:

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 import dataclasses
 
-from debvader_tpu_torch.config import DetectionConfig, _not_ported
+from debvader_tpu_torch.config import DetectionConfig
 from debvader_tpu_torch.device import fp32_math, resolve_device
 from debvader_tpu_torch.kernels.clipped_stats import sigma_clipped_stats
 from debvader_tpu_torch.kernels.detect_fused import matched_filter_parents
@@ -611,17 +611,69 @@ def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None,
     accumulates the wall seconds of 'core' (the device core and the
     compaction, up to its count sync), 'download' (the three COO arrays)
     and the postprocess stages.  ``want_map=False`` skips each tile's
-    dense label map (``labels: None``)."""
-    if mesh is not None:
-        _not_ported("mesh=", "multi-device")
+    dense label map (``labels: None``).
+
+    ``mesh`` (parallel/mesh.py): the stack is padded to a multiple of the
+    mesh's 'data' axis (a cyclic repeat of its tiles) and split over it;
+    each shard's device runs the core on its slab (every stage is per
+    tile: no collective), all shards queued before any compaction syncs;
+    then each shard's masked pixels are compacted and downloaded, and the
+    host postprocess runs on the real tiles as without a mesh.  A tensor
+    stack may lie on any device; the shards' devices are the mesh's."""
     cfg = _normalize_batched_cfg(cfg or DetectionConfig())
-    x = _on_device(tiles, resolve_device(device))
+    if mesh is not None:
+        x = tiles if isinstance(tiles, torch.Tensor) else torch.as_tensor(np.asarray(tiles, np.float32))
+        x = x.to(torch.float32)
+    else:
+        x = _on_device(tiles, resolve_device(device))
     if x.ndim != 3 or x.shape[1] != x.shape[2]:
         raise ValueError(
             f"detection tiles must be a (T, F, F) square stack (got {tuple(x.shape)}); "
             f"see detect_sources for the square-field contract"
         )
-    return _detect_stack(x, _batched_core, cfg, timings, want_map)
+    if mesh is None:
+        return _detect_stack(x, _batched_core, cfg, timings, want_map)
+    return _detect_stack_sharded(x, mesh, cfg, timings, want_map)
+
+
+def _detect_stack_sharded(x: torch.Tensor, mesh, cfg: DetectionConfig, timings, want_map) -> list[dict]:
+    """``_detect_stack`` over the mesh's 'data' shards: the stack padded
+    to a multiple of the axis by a cyclic repeat of its tiles (the pad can
+    exceed the stack: 3 tiles on 8 shards), split, and handed to
+    :func:`detect_shards`."""
+    from debvader_tpu_torch.parallel.mesh import DATA_AXIS, batch_sharding
+
+    n = x.shape[0]
+    pad = (-n) % mesh.shape[DATA_AXIS]
+    if pad:
+        x = torch.cat([x, x[torch.arange(pad, device=x.device) % n]])
+    return detect_shards(batch_sharding(x, mesh), cfg, timings, want_map, n=n)
+
+
+def detect_shards(pieces: list, cfg: DetectionConfig, timings=None, want_map=True, n: int | None = None) -> list[dict]:
+    """Detection over a tile stack already split into equal (T/D, F, F)
+    pieces, each on its shard's device: the core of every piece is queued
+    first (every stage is per tile: no collective), then each piece's
+    masked pixels are compacted and downloaded (the compaction syncs), the
+    indices offset to the whole stack's flat order, and the host
+    postprocess runs tile by tile on the first ``n`` tiles (all of them by
+    default).  ``cfg`` is normalised here as ``detect_sources_batched``
+    normalises it."""
+    cfg = _normalize_batched_cfg(cfg)
+    t = timings if timings is not None else {}
+    per_shard, f = pieces[0].shape[0], pieces[0].shape[-1]
+    n = per_shard * len(pieces) if n is None else n
+    devices = list(dict.fromkeys(p.device for p in pieces))
+    with stage_timer(t, "core", devices):
+        cores = [_batched_core(p.to(torch.float32), cfg) for p in pieces]
+        coos = [_compact_masked(labels, filt) for labels, filt, _ in cores]
+    with stage_timer(t, "download"):
+        parts = [[a.cpu().numpy() for a in coo] for coo in coos]
+        grms = np.concatenate([g.cpu().numpy() for _, _, g in cores])
+    idx = np.concatenate([p[0] + k * per_shard * f * f for k, p in enumerate(parts)])
+    lab = np.concatenate([p[1] for p in parts])
+    val = np.concatenate([p[2] for p in parts])
+    return _postprocess_stack(idx, lab, val, n, f, grms, cfg, t, want_map)
 
 
 def detect_objects(field_image, cfg: DetectionConfig | None = None, device="cuda") -> np.ndarray:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from debvader_tpu_torch.kernels import render as _render
-from debvader_tpu_torch.kernels.render import place_patches, render_field_kernel, render_into_canvas
+from debvader_tpu_torch.kernels.render import field_hw, place_patches, render_field_kernel, render_into_canvas
 from debvader_tpu_torch.ops.spline import subpixel_shift_spline_const
 
 __all__ = ["render_pad", "subpixel_shift", "subpixel_shift_const", "shift_full", "render_field"]
@@ -73,14 +73,17 @@ def render_pad(stamp_size: int, order: int = 1) -> int:
 def render_field(
     stamps: torch.Tensor,
     offsets: torch.Tensor,
-    field_size: int,
+    field_size,
     mask: torch.Tensor | None = None,
     order: int = 1,
     canvas: torch.Tensor | None = None,
     crop: bool = True,
 ) -> torch.Tensor:
     """Sum of all stamps placed at (field centre + offset): (F, F, B), or
-    the padded canvas when ``crop=False``.
+    the padded canvas when ``crop=False``.  ``field_size`` may be an
+    (fy, fx) pair for a rectangular field (the row bands of the sharded
+    serve): the result is (fy, fx, B), the canvas (fy + 2 * pad, fx + 2 *
+    pad, B), and the centre is taken per axis.
 
     stamps (N, S, S, B); offsets (N, 2) float, the stamp moved by
     ``offset`` from being centred in the field; mask (N,) bool drops
@@ -100,37 +103,42 @@ def render_field(
     and every shifted value and every add into it is rounded to bfloat16,
     in source order, as the JAX package's scan adds into a bfloat16 canvas.
     Without ``canvas``, bfloat16 stamps render into a new bfloat16 canvas
-    and any other stamps into a float32 one."""
+    and any other stamps into a float32 one.  A bfloat16 canvas is square."""
     s, b = stamps.shape[1], stamps.shape[-1]
     dev = stamps.device
     pad = render_pad(s, order)
-    canvas_size = field_size + 2 * pad
+    fy, fx = field_hw(field_size)
+    canvas_shape = (fy + 2 * pad, fx + 2 * pad, b)
     dtype = torch.bfloat16 if stamps.dtype == torch.bfloat16 else torch.float32
     if canvas is not None and (
-        tuple(canvas.shape) != (canvas_size, canvas_size, b) or canvas.dtype not in (torch.float32, torch.bfloat16)
+        tuple(canvas.shape) != canvas_shape or canvas.dtype not in (torch.float32, torch.bfloat16)
     ):
         raise ValueError(
-            f"canvas must be float32 or bfloat16 {(canvas_size, canvas_size, b)}, got "
-            f"{canvas.dtype} {tuple(canvas.shape)}"
+            f"canvas must be float32 or bfloat16 {canvas_shape}, got {canvas.dtype} {tuple(canvas.shape)}"
         )
     if canvas is not None:
         dtype = canvas.dtype
     if dtype == torch.bfloat16 and stamps.dtype != torch.bfloat16:
         raise ValueError(f"a bfloat16 canvas takes bfloat16 stamps, got {stamps.dtype}")
+    if dtype == torch.bfloat16 and fy != fx:
+        raise ValueError(
+            f"a bfloat16 render takes a square field, got ({fy}, {fx}): rectangular (row-band) canvases "
+            f"are float32"
+        )
 
     def window(c):
-        return c[pad : pad + field_size, pad : pad + field_size]
+        return c[pad : pad + fy, pad : pad + fx]
 
     if order == 1 and dev.type == "cuda":
         if canvas is None and crop and dtype == torch.float32:
-            return render_field_kernel(stamps, offsets, field_size, mask)
+            return render_field_kernel(stamps, offsets, (fy, fx), mask)
         if canvas is None:
-            canvas = torch.zeros((canvas_size, canvas_size, b), dtype=dtype, device=dev)
-        render_field_kernel(stamps, offsets, field_size, mask, out=window(canvas))
+            canvas = torch.zeros(canvas_shape, dtype=dtype, device=dev)
+        render_field_kernel(stamps, offsets, (fy, fx), mask, out=window(canvas))
         return window(canvas) if crop else canvas
 
     if canvas is None:
-        canvas = torch.zeros((canvas_size, canvas_size, b), dtype=dtype, device=dev)
+        canvas = torch.zeros(canvas_shape, dtype=dtype, device=dev)
     interp = _render.subpixel_shift_const if order == 1 else subpixel_shift_spline_const
-    render_into_canvas(canvas, stamps, offsets, mask, field_size, (pad - s) // 2, interp, place_patches)
+    render_into_canvas(canvas, stamps, offsets, mask, (fy, fx), (pad - s) // 2, interp, place_patches)
     return window(canvas) if crop else canvas

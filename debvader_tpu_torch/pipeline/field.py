@@ -41,8 +41,13 @@ on the float model.  ``artifact=`` (an exported forward, utils/export.py)
 runs both routes' batched forward through the exported program, with the
 live route's bracket; the epistemic replicas stay on ``net`` there too.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item by
-title): mesh fan-out.
+``mesh=`` (parallel/mesh.py) splits both routes' batched forward over the
+mesh's 'data' axis (parallel/sharded.py: the batch padded to a multiple of
+the axis, each shard's forward on its device, the outputs gathered onto
+the pipeline's device), the int8 forward too under ``quantized=``, and the
+epistemic replicas the same way; the latent noise is drawn once for the
+whole batch from ``generator``, so a mesh run gives the single-device
+run's numbers.
 """
 
 from __future__ import annotations
@@ -51,10 +56,10 @@ import numpy as np
 import torch
 
 from debvader_tpu_torch.api import deblend_tensor, sample_stats_tensor
-from debvader_tpu_torch.config import PipelineConfig, _not_ported
+from debvader_tpu_torch.config import PipelineConfig
 from debvader_tpu_torch.device import resolve_device
 from debvader_tpu_torch.models.distributions import PixelNormal
-from debvader_tpu_torch.models.quantized import make_quantized_forward
+from debvader_tpu_torch.models.quantized import make_quantized_forward, make_sharded_quantized_forward
 from debvader_tpu_torch.ops.extraction import extract_cutouts, extract_cutouts_np
 from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.registration import position_optimization_batch_windowed
@@ -125,6 +130,79 @@ def _records(res: dict) -> np.recarray:
     for (name, _), col in zip(fields, columns):
         out[name] = col
     return out.view(np.recarray)
+
+
+_STREAM_COLUMNS = ("shifts", "list_idx", "galaxy_distances_to_center_x", "galaxy_distances_to_center_y",
+                   "mse_center", "epistemic_norm", "passed_cuts")
+
+
+def _stream_columns(measure: bool) -> dict:
+    """The streaming catalogue's empty columns."""
+    return {k: [] for k in _STREAM_COLUMNS + (_MEASURE_COLUMNS if measure else ())}
+
+
+def _chunk_step(raw, dets, forward, canvases: dict, canvas_size, cfg: PipelineConfig, band: int, measure: bool,
+                epistemic=None, reg_band=None, row_bounds=None, canvas_dtype=torch.float32) -> dict:
+    """One stream chunk of m sources on their device, shared by the
+    single-device and the row-band routes: ``forward(raw)`` (a
+    PixelNormal) of the raw cutouts (m, S, S, B), the mse cut's centre
+    window, the epistemic norm (``epistemic(raw)`` gives the epistemic
+    stddev stamps; zeros without it), the windowed registration against
+    ``reg_band`` (when given; its windows inside ``row_bounds``) and the
+    renders, at ``dets`` (m, 2) plus the shifts, into ``canvases``
+    ({'mean' / 'std' / 'epi': padded canvas, or None before the first
+    chunk}, updated in place) of ``canvas_size`` (F or (H, W)), the stamps
+    cast to ``canvas_dtype``.  Returns the per-source scalars on the
+    device; nothing here waits for the device."""
+    dist = forward(raw)
+    means = dist.mean()
+    std = dist.stddev() if ("std" in canvases or measure) else None
+    c0 = raw.shape[1] // 2 - cfg.mse_window
+    c1 = raw.shape[1] // 2 + cfg.mse_window
+    scalars = {"mse_center": torch.mean(torch.square(raw[:, c0:c1, c0:c1] - means[:, c0:c1, c0:c1]), dim=(1, 2, 3))}
+    epi = None
+    if epistemic is not None:
+        epi = epistemic(raw)
+        scalars["epistemic_norm"] = epi[..., band].sum(dim=(1, 2)) / torch.clamp(
+            means[..., band].sum(dim=(1, 2)), min=1e-30)
+    else:
+        scalars["epistemic_norm"] = torch.zeros((raw.shape[0],), dtype=torch.float32, device=raw.device)
+    offs = dets
+    if reg_band is not None:
+        scalars["shifts"] = position_optimization_batch_windowed(
+            reg_band, means[..., band], dets, bound=cfg.position_bounds, iterations=cfg.gn_iterations,
+            row_bounds=row_bounds,
+        )
+        offs = dets + scalars["shifts"]
+    # the stddev canvas adds the sources' stddevs: the reference's
+    # predicted-field convention
+    stamps = {"mean": means, "std": std, "epi": epi}
+    for name, canvas in canvases.items():
+        canvases[name] = render_field(stamps[name].to(canvas_dtype), offs, canvas_size, order=cfg.interp_order,
+                                      canvas=canvas, crop=False)
+    if measure:
+        m = measure_batch(means, std)
+        scalars.update({k: m[k] for k in _MEASURE_COLUMNS})
+    return scalars
+
+
+def _append_chunk(cols: dict, got: dict, list_idx, dets: np.ndarray, mse_criterion: float,
+                  epistemic_criterion: float) -> None:
+    """One chunk's scalars, read back to the host, added to the catalogue
+    columns: the sources' indices, detected offsets, shifts (zero when
+    positions were not optimised) and the cuts' verdict."""
+    mse, epi = got["mse_center"], got["epistemic_norm"]
+    passed = ~((epi > epistemic_criterion) | (mse > mse_criterion)) & np.isfinite(mse) & np.isfinite(epi)
+    cols["shifts"].extend(list(got["shifts"] if "shifts" in got else np.zeros((len(dets), 2), np.float32)))
+    cols["list_idx"].extend(list(list_idx))
+    cols["galaxy_distances_to_center_x"].extend(list(dets[:, 0]))
+    cols["galaxy_distances_to_center_y"].extend(list(dets[:, 1]))
+    cols["mse_center"].extend(list(mse))
+    cols["epistemic_norm"].extend(list(epi))
+    cols["passed_cuts"].extend(list(passed))
+    for k in _MEASURE_COLUMNS:
+        if k in cols:
+            cols[k].extend(list(got[k]))
 
 
 def _crop_canvas(canvas: torch.Tensor, pad: int, out_dtype=None) -> torch.Tensor:
@@ -252,15 +330,21 @@ class DeblendField:
         of ``net``; it carries its own weights, z_mode and flux
         calibration, and bytes or a path are served with the pipeline's
         ``normalise`` bracket on ``device``.  Exclusive with ``mesh`` and
-        ``quantized``; epistemic sampling stays on ``net``."""
+        ``quantized``; epistemic sampling stays on ``net``.
+
+        ``mesh``: a parallel.Mesh; the batched stamp forward of both routes
+        (and, under ``quantized``, the int8 forward; and the epistemic
+        replicas) is split over its 'data' axis, each shard on its own
+        device with a copy of the weights, the results gathered onto
+        ``device``.  The field, the cutouts and the canvases stay on
+        ``device``.  Same numbers as without a mesh, for the same
+        ``generator``."""
         if artifact is not None and (mesh is not None or quantized is not None):
             raise ValueError(
                 "artifact serving is mutually exclusive with mesh and "
                 "quantized modes (export one artifact per serving "
                 "configuration instead)"
             )
-        if mesh is not None:
-            _not_ported("mesh=", "multi-device")
         self.quantized = quantized
         if quantized is not None and bool(quantized.normalise) != bool(normalise):
             raise ValueError(
@@ -287,11 +371,24 @@ class DeblendField:
             raise ValueError(f"z_mode must be 'sample' or 'mean', got {z_mode!r}")
         self.device = resolve_device(device)
         self.net = net
+        self.mesh = mesh
+        self._sharded_apply = self._sharded_apply_sample = None
+        if mesh is not None:
+            from debvader_tpu_torch.parallel.sharded import make_sharded_apply
+
+            self._sharded_apply = make_sharded_apply(net, mesh, z_mode=z_mode)
+            # the epistemic replicas must sample even under z_mode='mean'
+            self._sharded_apply_sample = (
+                self._sharded_apply if z_mode == "sample" else make_sharded_apply(net, mesh, z_mode="sample")
+            )
         self._quant_fwd = None
         if quantized is not None:
             if quantized.device.type != self.device.type:
                 raise ValueError(f"the quantized bundle lies on {quantized.device}, the pipeline runs on {self.device}")
-            self._quant_fwd = make_quantized_forward(quantized, z_mode=z_mode)
+            if mesh is not None:
+                self._quant_fwd = make_sharded_quantized_forward(quantized, mesh, z_mode=z_mode)
+            else:
+                self._quant_fwd = make_quantized_forward(quantized, z_mode=z_mode)
         self._artifact_fwd = None
         if artifact is not None:
             if callable(artifact):
@@ -397,12 +494,17 @@ class DeblendField:
     def _deblend(self, cutouts: torch.Tensor) -> PixelNormal:
         """The batched stamp forward of (N, S, S, B) cutouts on the device:
         the int8 forward of ``quantized`` (its own guard and normalisation
-        bracket, no flux calibration), the exported program of
-        ``artifact``, else the float model's."""
+        bracket, no flux calibration; split over the mesh when there is
+        one), the exported program of ``artifact``, the mesh-sharded
+        forward, else the float model's."""
         if self._quant_fwd is not None:
             return PixelNormal(*self._quant_fwd(cutouts, self.generator))
         if self._artifact_fwd is not None:
             return PixelNormal(*self._artifact_fwd(cutouts, self.generator))
+        if self.mesh is not None:
+            from debvader_tpu_torch.parallel.sharded import sharded_forward
+
+            return sharded_forward(self._sharded_apply, cutouts, self.mesh, self.normalise, self.generator)
         return deblend_tensor(self.net, cutouts, self.normalise, self.generator, self.z_mode)
 
     def _epistemic(self, cutouts: torch.Tensor, max_chunk: int) -> torch.Tensor:
@@ -416,6 +518,8 @@ class DeblendField:
             generator=self.generator,
             normalise=self.normalise,
             max_chunk=max_chunk,
+            mesh=self.mesh,
+            apply_fn=self._sharded_apply_sample,
         )[1]
 
     @property
@@ -821,7 +925,6 @@ class DeblendField:
             )
         field_size = field_dev.shape[1]
         centers = np.asarray(galaxy_distances_to_center, np.float32).reshape(-1, 2)
-        order = self.cfg.interp_order
         band = self._band
         cdt = self._canvas_dtype
         # registration reads the detection band at float32: cast once for
@@ -833,23 +936,11 @@ class DeblendField:
             canvases["std"] = None
         if render_epistemic:
             canvases["epi"] = None
-        names = [
-            "shifts",
-            "list_idx",
-            "galaxy_distances_to_center_x",
-            "galaxy_distances_to_center_y",
-            "mse_center",
-            "epistemic_norm",
-            "passed_cuts",
-        ]
-        if measure:
-            names.extend(_MEASURE_COLUMNS)
-        cols: dict[str, list] = {k: [] for k in names}
-
-        w = self.cfg.mse_window
-        c0 = self.cutout_size // 2 - w
-        c1 = self.cutout_size // 2 + w
+        cols = _stream_columns(measure)
         chunk = self._stream_chunk(resident_fields, optimise_positions)
+        # the replicas take the guarded cutouts themselves and draw at most
+        # one stream chunk of decodes at a time
+        epistemic = (lambda x: self._epistemic(x, chunk)) if self.epistemic_uncertainty_estimation else None
         n_deblended = 0
 
         for s0 in range(0, len(centers), chunk):
@@ -860,78 +951,19 @@ class DeblendField:
                 continue
             list_idx = np.flatnonzero(valid)
             # the forward zero-fills non-finite pixels (chip gaps) itself,
-            # so no NaN reaches the rendered model; the mse cut below uses
-            # the raw cutouts, so a NaN in its window fails the cut as on
+            # so no NaN reaches the rendered model; the mse cut uses the raw
+            # cutouts, so a NaN in its window fails the cut as on
             # deblend_field's host path
             raw_cutouts = all_cutouts[torch.as_tensor(list_idx, device=self.device)].to(torch.float32)
-            n = len(list_idx)
             dets = part[list_idx]
-            dets_dev = torch.as_tensor(dets, device=self.device)
-
-            dist = self._deblend(raw_cutouts)
-            means_dev = dist.mean()
-            std_dev = dist.stddev() if (render_std or measure) else None
-            mse_center = torch.mean(
-                torch.square(raw_cutouts[:, c0:c1, c0:c1] - means_dev[:, c0:c1, c0:c1]),
-                dim=(1, 2, 3),
+            scalars = _chunk_step(
+                raw_cutouts, torch.as_tensor(dets, device=self.device), self._deblend, canvases, field_size,
+                self.cfg, band, measure, epistemic=epistemic, reg_band=reg_band, canvas_dtype=cdt,
             )
-            epi = None
-            if self.epistemic_uncertainty_estimation:
-                # the replicas take the guarded cutouts themselves and draw
-                # at most one stream chunk of decodes at a time
-                epi = self._epistemic(raw_cutouts, chunk)
-                epi_norm_dev = epi[..., band].sum(dim=(1, 2)) / torch.clamp(
-                    means_dev[..., band].sum(dim=(1, 2)), min=1e-30
-                )
-            else:
-                epi_norm_dev = torch.zeros((n,), dtype=torch.float32, device=self.device)
             # per-source scalars only: a few KB a chunk to the host
-            fetch = {"mse_center": mse_center, "epistemic_norm": epi_norm_dev}
-            offs_dev = dets_dev
-            if optimise_positions:
-                fetch["shifts"] = position_optimization_batch_windowed(
-                    reg_band,
-                    means_dev[..., band],
-                    dets_dev,
-                    bound=self.cfg.position_bounds,
-                    iterations=self.cfg.gn_iterations,
-                )
-                offs_dev = dets_dev + fetch["shifts"]
-            canvases["mean"] = render_field(
-                means_dev.to(cdt), offs_dev, field_size, order=order, canvas=canvases["mean"], crop=False
-            )
-            if render_std:
-                # additive stddev accumulation, the reference's
-                # predicted-field convention
-                canvases["std"] = render_field(
-                    std_dev.to(cdt), offs_dev, field_size, order=order, canvas=canvases["std"], crop=False
-                )
-
-            if render_epistemic:
-                canvases["epi"] = render_field(
-                    epi.to(cdt), offs_dev, field_size, order=order, canvas=canvases["epi"], crop=False
-                )
-
-            if measure:
-                m = measure_batch(means_dev, std_dev)
-                fetch.update({k: m[k] for k in _MEASURE_COLUMNS})
-            got = {k: v.cpu().numpy() for k, v in fetch.items()}
-            epi_norm = got["epistemic_norm"]
-            passed = (
-                ~((epi_norm > epistemic_criterion) | (got["mse_center"] > mse_criterion))
-                & np.isfinite(got["mse_center"])
-                & np.isfinite(epi_norm)
-            )
-            cols["shifts"].extend(list(got["shifts"] if optimise_positions else np.zeros((n, 2), np.float32)))
-            cols["list_idx"].extend(list(s0 + list_idx))
-            cols["galaxy_distances_to_center_x"].extend(list(dets[:, 0]))
-            cols["galaxy_distances_to_center_y"].extend(list(dets[:, 1]))
-            cols["mse_center"].extend(list(got["mse_center"]))
-            cols["epistemic_norm"].extend(list(epi_norm))
-            cols["passed_cuts"].extend(list(passed))
-            for k in _MEASURE_COLUMNS if measure else ():
-                cols[k].extend(list(got[k]))
-            n_deblended += n
+            got = {k: v.cpu().numpy() for k, v in scalars.items()}
+            _append_chunk(cols, got, s0 + list_idx, dets, mse_criterion, epistemic_criterion)
+            n_deblended += len(list_idx)
 
         self.nb_of_detected_objects.append(len(centers))
         self.nb_of_deblended_galaxies.append(n_deblended)

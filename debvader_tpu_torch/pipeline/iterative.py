@@ -157,6 +157,7 @@ class IterativeDeblendField(DeblendField):
                     det_cfg,
                     tile=self.cfg.tile_size,
                     overlap=self.cfg.tile_overlap,
+                    mesh=self.mesh,
                     device=self.device,
                 )
             if len(centers) == 0:

@@ -92,7 +92,9 @@ def detect_objects_tiled(
     stack through ``detect_sources_batched`` (a field no larger than one
     tile as a stack of one); each tile's detections are kept only inside
     its core, so every source is reported once.  ``timings`` accumulates
-    the batched detection's stage seconds plus 'tile_select'."""
+    the batched detection's stage seconds plus 'tile_select'.  ``mesh``
+    splits the tile stack over the mesh's 'data' axis
+    (``detect_sources_batched``)."""
     det_cfg = det_cfg or DetectionConfig()
     dev = resolve_device(device)
     band = _detection_band(field_image, det_cfg, dev)
@@ -139,6 +141,7 @@ class TiledDeblendField(DeblendField):
             self.det_cfg,
             tile=self.cfg.tile_size,
             overlap=self.cfg.tile_overlap,
+            mesh=self.mesh,
             timings=t,
             device=self.device,
         )

@@ -35,8 +35,10 @@ deterministic algorithms on, so two seeded runs on a card are
 bit-identical, as the JAX package's are.  ``steps_per_dispatch``,
 ``device_dataset`` and ``scan_epochs`` keep the JAX package's validation
 and results; the port runs their steps one by one (a step is a few
-launches of cuDNN and cuBLAS, not an XLA dispatch).  ``mesh=`` is the
-multi-device item of ROADMAP.md.
+launches of cuDNN and cuBLAS, not an XLA dispatch).  ``mesh=`` runs the
+steps data-parallel over a parallel.Mesh (parallel/sharded.py): every
+batch, a partial one too, is the single-device step's, split over the
+mesh's 'data' axis, with BatchNorm's statistics over the global batch.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from debvader_tpu_torch.config import ModelConfig, TrainConfig, _not_ported
+from debvader_tpu_torch.config import ModelConfig, TrainConfig
 from debvader_tpu_torch.device import fp32_math, resolve_device
 from debvader_tpu_torch.models.vae import DeblenderVAE, init_vae
 from debvader_tpu_torch.training import losses
@@ -303,10 +305,10 @@ def _batches(n: int, batch_size: int, rng: np.random.Generator | None, drop_rema
         yield block
 
 
-def _check_scan_epochs(use_loader: bool, n: int | None, batch_size: int, callbacks) -> None:
+def _check_scan_epochs(use_loader: bool, n: int | None, batch_size: int, callbacks, mesh=None) -> None:
     """The JAX package's limits of ``scan_epochs``: array data on one
     device, whole batches only, best-validation callbacks only."""
-    if use_loader:
+    if use_loader or mesh is not None:
         raise ValueError("scan_epochs requires in-memory array data on a single device (no loader, no mesh)")
     if n % batch_size:
         raise ValueError(
@@ -351,15 +353,33 @@ def train_network(
     (with ``steps_per_dispatch > 1`` and array data: the training set is
     put on the device once, auto when it is at most 4 GB) give the
     per-step results; ``scan_epochs`` checks the JAX package's limits and
-    gives the per-epoch results and best-validation checkpoints."""
+    gives the per-epoch results and best-validation checkpoints.
+
+    ``mesh``: a parallel.Mesh; the state is placed on its first device
+    (``parallel.sharded.shard_train_state``) and every training and
+    validation batch runs data-parallel over its 'data' axis, a batch that
+    does not divide it padded with rows of weight 0 (the single-device
+    step's results, to the order of float sums)."""
     train_cfg = train_cfg or TrainConfig()
     if model.cfg != state.module.cfg:
         raise ValueError("model is not the architecture of the state's module")
-    if mesh is not None:
-        _not_ported("train_network(mesh=)", "multi-device")
     spd = int(steps_per_dispatch)
     if spd < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {spd}")
+    if mesh is not None:
+        from debvader_tpu_torch.parallel.mesh import DATA_AXIS
+        from debvader_tpu_torch.parallel.sharded import (
+            make_sharded_eval_step,
+            make_sharded_train_step,
+            shard_train_state,
+        )
+
+        if spd > 1 and batch_size % mesh.shape[DATA_AXIS]:
+            raise ValueError(
+                f"steps_per_dispatch with mesh requires batch_size divisible by the data axis "
+                f"({mesh.shape[DATA_AXIS]})"
+            )
+        state = shard_train_state(state, mesh)
     if isinstance(metrics_log, (str, bytes)) or hasattr(metrics_log, "__fspath__"):
         from debvader_tpu_torch.utils.profiling import MetricsLog
 
@@ -369,7 +389,7 @@ def train_network(
         x_tr, y_tr = training_data
     x_va, y_va = validation_data
     if scan_epochs:
-        _check_scan_epochs(use_loader, None if use_loader else len(x_tr), batch_size, callbacks)
+        _check_scan_epochs(use_loader, None if use_loader else len(x_tr), batch_size, callbacks, mesh)
     dev = state.device
 
     def upload(a):
@@ -388,8 +408,10 @@ def train_network(
         ix = torch.from_numpy(idx).to(dev)
         return x_dev[ix], y_dev[ix]
 
-    train_step = make_train_step(train_cfg)
-    eval_step = make_eval_step(train_cfg)
+    if mesh is None:
+        train_step, eval_step = make_train_step(train_cfg), make_eval_step(train_cfg)
+    else:
+        train_step, eval_step = make_sharded_train_step(mesh, train_cfg), make_sharded_eval_step(mesh, train_cfg)
     shuffle_rng = np.random.default_rng(train_cfg.seed)
     history: dict[str, list[float]] = {}
     for epoch in range(epochs):
@@ -472,13 +494,15 @@ def train_deblender(
     (checkpoint.load_weights), through ``transfer.transfer_band_count`` when
     its band count is not ``nb_of_bands``.  ``with_callbacks`` saves the
     best validation mse and loss of each stage under
-    ``<weights_dir>/<survey_name>/<vae|deblender>/<monitor>/ckpt.npz``."""
+    ``<weights_dir>/<survey_name>/<vae|deblender>/<monitor>/ckpt.npz``.
+    ``mesh``: both stages data-parallel over a parallel.Mesh (train_network),
+    the states on its first device (``device`` is not read)."""
     from debvader_tpu_torch.training import checkpoint as ckpt
 
     model_cfg = model_cfg or ModelConfig(nb_of_bands=nb_of_bands)
     train_cfg = train_cfg or TrainConfig(batch_size=batch_size)
     if mesh is not None:
-        _not_ported("train_deblender(mesh=)", "multi-device")
+        device = mesh.flat[0]
     data_axis = -1 if channel_last else 2
     if np.shape(training_data_vae[0])[data_axis] != nb_of_bands:
         raise ValueError("The number of bands in the data does not correspond to the number of filters in the network.")
@@ -492,7 +516,7 @@ def train_deblender(
             variables = transfer_band_count(variables, model_cfg, generator=_seed(train_cfg.seed, 0))
     state = create_train_state(model, train_cfg, variables=variables, device=device)
     run = dict(verbose=verbose, train_cfg=train_cfg, metrics_log=metrics_log, steps_per_dispatch=steps_per_dispatch,
-               device_dataset=device_dataset, scan_epochs=scan_epochs)
+               device_dataset=device_dataset, scan_epochs=scan_epochs, mesh=mesh)
     callbacks = ckpt.define_callbacks("vae", survey_name, weights_dir=weights_dir) if with_callbacks else None
     state, hist_vae = train_network(
         model, state, epochs, training_data_vae, validation_data_vae, batch_size, callbacks, **run

@@ -28,14 +28,15 @@ __all__ = ["stage_timer", "trace", "MetricsLog"]
 def stage_timer(times: dict, name: str, device=None) -> Iterator[None]:
     """Add the wall seconds of a stage to ``times[name]``.
 
-    ``device``: the device the stage ran on; a CUDA device is synchronised
-    before the clock stops."""
+    ``device``: the device the stage ran on, or a list of them (a mesh's);
+    each CUDA device is synchronised before the clock stops."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+        for dev in device if isinstance(device, (list, tuple)) else [device]:
+            if dev is not None and torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
         times[name] = times.get(name, 0.0) + (time.perf_counter() - t0)
 
 

@@ -2,12 +2,13 @@
 ``--device cpu`` at the JAX package's ``TINY`` size, as tests/test_cli.py
 drives the JAX CLI: train -> deblend -> detect -> serve -> export ->
 deblend/serve --artifact, quantize -> serve --quantized, the iterative
-route, the model flags, and what still raises.  ``detect`` is held bit for
+route, the model flags, train --mesh, and what still raises.  ``detect`` is held bit for
 bit against the JAX CLI's, ``deblend`` against the port's ``api.deblend``
 with the same seed, ``--artifact`` against the live weights.
 """
 
 import csv
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -209,11 +210,34 @@ def test_cli_detect_lutz(weights_dir):
     assert len(np.load(root / "centers_lutz.npy")) >= 2
 
 
+def test_cli_train_on_a_mesh(weights_dir, tmp_path):
+    """train --mesh 4 (the CPU four times under --device cpu): the
+    single-device run's epoch metrics within rtol 1e-4 (the mesh
+    histories' tolerance, tests/test_torch_mesh_training.py) and its
+    weights within 5e-3; --mesh 4 without four cards raises."""
+    root, out = weights_dir
+    rc = main(["train", *TINY, "--blended", str(root / "x.npy"), "--isolated", str(root / "y.npy"),
+               "--out", str(tmp_path / "w"), "--epochs", "1", "--batch-size", "4", "--mesh", "4",
+               "--metrics-log", str(tmp_path / "metrics.jsonl")])
+    assert rc == 0
+    want = [json.loads(line) for line in (root / "metrics.jsonl").read_text().splitlines()]
+    got = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    for g, w in zip(got, want):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+    a, b = np.load(str(tmp_path / "w.npz")), np.load(str(out) + ".npz")
+    assert sorted(a.files) == sorted(b.files)
+    for k in b.files:
+        np.testing.assert_allclose(a[k], b[k], rtol=0, atol=5e-3, err_msg=k)
+    if torch.cuda.device_count() < 4:
+        with pytest.raises((ValueError, RuntimeError)):
+            main(["train", *[a for a in TINY if a not in ("--device", "cpu")], "--blended", str(root / "x.npy"),
+                  "--isolated", str(root / "y.npy"), "--out", str(tmp_path / "w4"), "--mesh", "4"])
+
+
 def test_cli_what_still_raises(weights_dir, tmp_path):
     root, _ = weights_dir
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: multi-device"):
-        main(["train", *TINY, "--blended", str(root / "x.npy"), "--isolated", str(root / "y.npy"),
-              "--out", str(tmp_path / "w"), "--mesh", "4"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: reference checkpoint import"):
         main(["import-weights", "--ckpt", "model", "--out", str(tmp_path / "w")])
 

@@ -145,32 +145,38 @@ def test_no_valid_source_returns_empty_and_the_field(nets):
     np.testing.assert_array_equal(df.get_residual_field(), field)
 
 
-_ROADMAP_TITLES = {
-    "mesh": "multi-device",
-}
-
-
 # (the upload_dtype case, kwargs0, went when upload_dtype was ported:
 # tests/test_torch_residency.py holds it against JAX; the quantized case,
 # kwargs2, went when quantized serving was ported:
 # tests/test_torch_quantized.py holds DeblendField(quantized=) against JAX;
 # the artifact case, kwargs3, went when export was ported:
 # tests/test_torch_export.py holds DeblendField(artifact=) against the live
-# route)
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        pytest.param({"mesh": object()}, id="kwargs1"),
-    ],
-)
-def test_unported_constructor_options_raise(nets, kwargs):
-    """Each option still to come names its ROADMAP.md Queue 1 item by
-    title, so a renumbering of the queue cannot make the message stale."""
-    _, tnet = nets
-    field, _ = _blob_field(seed=6)
-    (option,) = kwargs
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1: {_ROADMAP_TITLES[option]}"):
-        dtt.DeblendField(tnet, field, device="cpu", **kwargs)
+# route; the mesh case, kwargs1, went when the mesh was ported: it is the
+# parity test below, tests/test_torch_parallel.py holds the rest)
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_mesh_option_matches_jax_and_single_device(nets, n_shards):
+    """DeblendField(mesh=) at full width: the record array and its residual
+    against JAX's DeblendField(mesh=) on its virtual devices (z_mode='mean')
+    and against the port's single-device route, which it matches to float
+    reassociation."""
+    import debvader_tpu as dt
+    from debvader_tpu.parallel import make_mesh as jax_make_mesh
+
+    from debvader_tpu_torch.parallel import make_mesh
+
+    jnet, tnet = nets
+    field, centers = _blob_field(seed=6)
+    jdf = dt.DeblendField(jnet, field, z_mode="mean", mesh=jax_make_mesh(n_shards))
+    tdf = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu", mesh=make_mesh(n_shards, devices=["cpu"] * n_shards))
+    single = dtt.DeblendField(tnet, field, z_mode="mean", device="cpu")
+    got = tdf.deblend_field(centers)
+    for want, df, tol in ((jdf.deblend_field(centers), jdf, 2e-5), (single.deblend_field(centers), single, 1e-6)):
+        assert len(got) == len(want) == 5
+        np.testing.assert_array_equal(got.list_idx, want.list_idx)
+        np.testing.assert_array_equal(got.passed_cuts, want.passed_cuts)
+        _close(np.stack(list(got.output_images_mean)), np.stack(list(want.output_images_mean)), tol)
+        _close(np.stack(list(got.output_images_stddev)), np.stack(list(want.output_images_stddev)), tol)
+        _close(tdf.get_residual_field(), df.get_residual_field(), tol)
 
 
 def test_deblend_field_measure_matches_jax(nets):

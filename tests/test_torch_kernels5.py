@@ -110,7 +110,9 @@ def test_place_corners_clip_and_drop_off_canvas_sources():
 @pytest.mark.parametrize(
     "bad",
     [
-        {"canvas": torch.zeros(10, 11, 2)},
+        # a rectangular float32 canvas is a row band's (tested in
+        # test_torch_sharded_field.py); a bfloat16 canvas stays square
+        {"canvas": torch.zeros(10, 11, 2, dtype=torch.bfloat16), "patches": torch.zeros(2, 4, 4, 2, dtype=torch.bfloat16)},
         {"canvas": torch.zeros(10, 10, 3)},
         {"patches": torch.zeros(2, 4, 5, 2)},
         {"patches": torch.zeros(2, 11, 11, 2)},

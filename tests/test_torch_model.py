@@ -216,6 +216,17 @@ def test_import_pulls_in_no_jax_or_reference_package():
         export.artifact_forward(export.export_deblender(bf), device="cpu")(np.zeros((2, 23, 23, 3), np.float32))
         compat.extract_cutouts(field, 64, np.zeros((1, 2), np.float32), 23, 3)
         cli.build_parser().parse_args(["detect", "--field", "f.npy", "--out", "c.npy"])
+        from debvader_tpu_torch import parallel
+        from debvader_tpu_torch.pipeline.sharded_field import ShardedFieldDeblender
+        mesh = parallel.make_mesh(2, devices=["cpu"] * 2)
+        big = np.zeros((1, 160, 160, 3), np.float32)
+        ShardedFieldDeblender(net, big, mesh, cutout_size=23, nb_of_bands=3, z_mode="mean",
+                              cfg=dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1)
+                              ).deblend_and_render(np.zeros((1, 2), np.float32))
+        dtt.DeblendField(net, field, cutout_size=23, nb_of_bands=3, mesh=mesh, device="cpu",
+                         cfg=dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1)
+                         ).deblend_and_render(np.zeros((1, 2), np.float32))
+        train.train_network(dtt.DeblenderVAE(tiny), state, 1, (x, x), (x, x), 2, verbose=0, mesh=mesh)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
                or m == "debvader_tpu" or m.startswith("debvader_tpu.")]

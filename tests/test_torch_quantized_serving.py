@@ -70,8 +70,7 @@ def _raises_both(exc, match, jax_call, torch_call):
 
 def test_validation_errors_match_jax():
     """The same errors, with JAX's messages: unknown layers, a bad
-    act_granularity, decoder_f32_stages, the re-teaching guard; the
-    sharded forward names its ROADMAP item."""
+    act_granularity, decoder_f32_stages, the re-teaching guard."""
     jmodel, variables, model, x = _tiny()
     j, t = _raises_both(ValueError, "unknown quantization layers",
                         lambda: jq.quantize_vae(jmodel, variables, jnp.asarray(x), layers=["enc/Conv_99"]),
@@ -95,8 +94,65 @@ def test_validation_errors_match_jax():
     assert j == t
     with pytest.raises(ValueError, match="loss"):
         tq.qat_finetune(tqv, steps=1, loss="mse")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: multi-device"):
-        tq.make_sharded_quantized_forward(tqv, object())
+
+
+@pytest.mark.parametrize("normalise", [False, True])
+def test_sharded_quantized_forward_matches_jax_and_single_device(normalise):
+    """make_sharded_quantized_forward over 4 shards (an odd batch of 7,
+    padded): JAX's sharded closure on its mesh within LOC_TOL of the
+    scale under 'mean', and the port's single-device closure to float
+    reassociation under 'mean' and under 'sample' with one seeded
+    generator (the noise drawn once and split)."""
+    from debvader_tpu.parallel import make_mesh as jax_make_mesh
+
+    from debvader_tpu_torch.parallel import make_mesh
+
+    jqv, tqv = _bundles("per_channel", normalise)
+    x = _stamps(n=7, seed=9) * 3.0
+    x[0, 3, 4, 1] = np.nan
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    jloc, jscale = jq.make_sharded_quantized_forward(jqv, jax_make_mesh(4), z_mode="mean")(
+        jnp.asarray(np.concatenate([x, np.zeros((1,) + x.shape[1:], np.float32)])), jax.random.PRNGKey(0))
+    tloc, tscale = tq.make_sharded_quantized_forward(tqv, mesh, z_mode="mean")(x)
+    for got, want in ((tloc, jloc[:7]), (tscale, jscale[:7])):
+        want = np.asarray(want)
+        assert got.shape == want.shape and np.isfinite(got.numpy()).all()
+        assert float(np.abs(got.numpy() - want).max()) <= LOC_TOL * float(np.abs(want).max())
+    for z_mode in ("mean", "sample"):
+        one = tq.make_quantized_forward(tqv, z_mode=z_mode)(x, torch.Generator().manual_seed(2))
+        four = tq.make_sharded_quantized_forward(tqv, mesh, z_mode=z_mode)(x, torch.Generator().manual_seed(2))
+        for got, want in zip(four, one):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    # host stamps and a tensor of them give the same bits
+    fed = tq.make_sharded_quantized_forward(tqv, mesh, z_mode="mean")(torch.from_numpy(x))
+    for got, want in zip(fed, (tloc, tscale)):
+        assert torch.equal(got, want)
+
+
+def test_deblend_field_quantized_on_a_mesh_matches_single_device():
+    """DeblendField(quantized=, mesh=) reproduces the single-device int8
+    pipeline (JAX's test_quantized_mesh_composes: rtol 1e-4, atol 1e-5),
+    and JAX's DeblendField(quantized=, mesh=) on its mesh."""
+    import debvader_tpu as dt
+    from debvader_tpu.config import PipelineConfig as JaxPipelineConfig
+    from debvader_tpu.parallel import make_mesh as jax_make_mesh
+
+    from debvader_tpu_torch.parallel import make_mesh
+
+    jmodel, variables, model, _ = _tiny()
+    jqv, tqv = _bundles("per_tensor")
+    field, centers = _field()
+    kw = dict(cutout_size=23, nb_of_bands=3, z_mode="mean")
+    cfg = dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1)
+    _, single = dtt.DeblendField(model, field, quantized=tqv, device="cpu", cfg=cfg, **kw).deblend_and_render(centers)
+    cat, sharded = dtt.DeblendField(model, field, quantized=tqv, device="cpu", cfg=cfg,
+                                    mesh=make_mesh(4, devices=["cpu"] * 4), **kw).deblend_and_render(centers)
+    np.testing.assert_allclose(sharded, single, rtol=1e-4, atol=1e-5)
+    jcat, jres = dt.DeblendField((jmodel, variables), field, quantized=jqv, mesh=jax_make_mesh(4),
+                                 cfg=JaxPipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1),
+                                 **kw).deblend_and_render(centers)
+    np.testing.assert_array_equal(cat.list_idx, jcat.list_idx)
+    assert float(np.abs(sharded - jres).max()) <= 1e-5 * float(np.abs(field).max())
 
 
 @pytest.mark.parametrize("bundle_normalise", [False, True])

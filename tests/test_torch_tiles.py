@@ -176,13 +176,32 @@ def test_detect_sources_batched_times_its_stages():
 
 
 def test_batched_detection_validates_its_arguments():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: multi-device"):
-        td.detect_sources_batched(_stack(), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match=r"\(T, F, F\) square stack"):
         td.detect_sources_batched(np.zeros((2, 64, 32), np.float32), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             td.detect_sources_batched(_stack())
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("core", ["fused", "chain"])
+def test_batched_detection_on_a_mesh_equals_jax(core, shards):
+    """detect_sources_batched(mesh=): the 3-tile stack padded to the data
+    axis by a cyclic repeat (5 pad tiles on 8 shards), each shard's core on
+    its own, the labels and catalogues of every tile equal to JAX's on its
+    mesh and to the port's without a mesh."""
+    from debvader_tpu.parallel import make_mesh as jax_make_mesh
+
+    from debvader_tpu_torch.parallel import make_mesh
+
+    tiles = _stack()
+    kw = dict(SERVING, **CORES[core])
+    mesh = make_mesh(shards, devices=["cpu"] * shards)
+    t = {}
+    got = td.detect_sources_batched(tiles, DetectionConfig(**kw), mesh=mesh, timings=t)
+    _catalogs_equal(got, jd.detect_sources_batched(tiles, _jcfg(**kw), mesh=jax_make_mesh(shards)))
+    _catalogs_equal(got, td.detect_sources_batched(tiles, DetectionConfig(**kw), device="cpu"))
+    assert {"core", "download", "merge"} <= set(t)
 
 
 @pytest.mark.parametrize(
@@ -295,8 +314,6 @@ def test_tiled_detection_rejects_what_jax_rejects():
         ttiles.detect_objects_tiled(np.zeros((1, 128, 96, 6), np.float32), device="cpu")
     with pytest.raises(ValueError, match="square field"):
         ttiles.detect_objects_tiled(torch.zeros(96, 128), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ttiles.detect_objects_tiled(np.zeros((128, 128), np.float32), mesh=object(), device="cpu")
     t = {}
     assert ttiles.detect_objects_tiled(np.zeros((128, 128), np.float32), tile=64, overlap=16, timings=t,
                                        device="cpu").shape == (0, 2)
@@ -372,11 +389,44 @@ def test_detection_on_the_device_field_equals_the_host_field(nets):
     assert cat is None and np.array_equal(res, empty) and not model.any()
 
 
-def _iterative(nets, field, det_kw=SERVING, run_kw=None, **kw):
+def test_tiled_routes_on_a_mesh_equal_jax(nets):
+    """The tiled routes with mesh= (JAX's tests/test_tiles.py mesh cases):
+    detect_objects_tiled, TiledDeblendField.detect_deblend_render (the
+    tile stack and the stamp forward split over 4 shards) and
+    IterativeDeblendField.iterative_deblend_and_render, each against JAX's
+    on its mesh and against the port without a mesh."""
+    from debvader_tpu.parallel import make_mesh as jax_make_mesh
+
+    from debvader_tpu_torch.parallel import make_mesh
+
+    field = _scene()
+    mesh, jmesh = make_mesh(4, devices=["cpu"] * 4), jax_make_mesh(4)
+    got = ttiles.detect_objects_tiled(field, DetectionConfig(**SERVING), tile=128, overlap=32, mesh=mesh,
+                                      device="cpu")
+    np.testing.assert_array_equal(got, jtiles.detect_objects_tiled(field, _jcfg(**SERVING), tile=128, overlap=32,
+                                                                  mesh=jmesh))
+    np.testing.assert_array_equal(got, _tiled_pair(field)[0])
+    scale = float(np.abs(field).max())
+    _, plain = _tiled_fields(nets, field)
+    jm = jtiles.TiledDeblendField(nets[0], field, z_mode="mean", cfg=_pcfgs()[0], det_cfg=_jcfg(**SERVING),
+                                  mesh=jmesh)
+    tm = dtt.TiledDeblendField(nets[1], field, z_mode="mean", cfg=_pcfgs()[1], det_cfg=DetectionConfig(**SERVING),
+                               device="cpu", mesh=mesh)
+    tcat, tres = tm.detect_deblend_render()
+    for cat, res in (jm.detect_deblend_render(), plain.detect_deblend_render()):
+        _stream_catalogs_equal(tcat, cat)
+        np.testing.assert_allclose(tres, res, rtol=0, atol=2e-5 * scale)
+    jdf, (jcat, jres), tdf, (tcat, tres) = _iterative(nets, field, jkw={"mesh": jmesh}, tkw={"mesh": mesh})
+    _stream_catalogs_equal(tcat, jcat)
+    assert tdf.nb_of_detected_objects == jdf.nb_of_detected_objects == [10, 10]
+    np.testing.assert_allclose(tres, jres, rtol=0, atol=2e-5 * float(np.abs(jres).max()))
+
+
+def _iterative(nets, field, det_kw=SERVING, run_kw=None, jkw=None, tkw=None, **kw):
     jc, tc = _pcfgs()
     run_kw = run_kw or {}
-    jdf = JaxIterative(nets[0], field, z_mode="mean", cfg=jc, **kw)
-    tdf = dtt.IterativeDeblendField(nets[1], field, z_mode="mean", cfg=tc, device="cpu", **kw)
+    jdf = JaxIterative(nets[0], field, z_mode="mean", cfg=jc, **kw, **(jkw or {}))
+    tdf = dtt.IterativeDeblendField(nets[1], field, z_mode="mean", cfg=tc, device="cpu", **kw, **(tkw or {}))
     want = jdf.iterative_deblend_and_render(det_cfg=_jcfg(**det_kw), **run_kw)
     got = tdf.iterative_deblend_and_render(det_cfg=DetectionConfig(**det_kw), **run_kw)
     return jdf, want, tdf, got
