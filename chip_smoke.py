@@ -199,7 +199,29 @@ without printing its last line):
    bit for bit the card-fed result; one
    data-parallel training step at 2 shards against the single-device step
    from the same state and generator (the multi_device line);
-23. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+23. the int8 route in bfloat16: quantize_vae(load_deblender("sim_demo",
+   dtype="bfloat16")) calibrated on the record-array batch's 295 stamps;
+   phase 19's kernel checks on its bfloat16 epilogues (each of the 18
+   layers bit for bit its plain version on a 128-stamp chunk's real int8
+   inputs, as raw sums and unfused; dec/Dense_1 under strict_cast and
+   not; both bfloat16 points; NaN, +-inf, signed zeros, bfloat16 halfway
+   points rounded to even and overflow to inf; a batch of 1, 295 stamps,
+   the ragged 39-stamp chunk; each timed with its bound beside
+   torch._int_mm over an im2col and the bfloat16 cuDNN layer);
+   DeblendField(quantized=<it>, z_mode='mean') on both routes with the
+   launches counted from 0 (exactly 18 bfloat16 fused layers and one of
+   each bfloat16 point a chunk), two runs bit-identical, the flux error
+   against the float32 forward (this post-training bundle under JAX's PTQ
+   envelope of 0.35; the packaged QAT bundle served in bfloat16 under 5e-2
+   beside its float32 route's),
+   warm deblend_and_render in turns against the float32 int8 route and
+   the bfloat16 float route with one profiled call each, the crop card
+   against CPU (the int8_bf16_layer_groups and quantized_bf16 lines); then the
+   reference checkpoint import: the shipped sim_demo weights as a
+   TensorBundle, `import-weights` in a process of its own,
+   load_deblender of its file on the card, the forward bit for bit the
+   shipped weights' (the checkpoint_import line);
+24. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 Phase 4's default-threshold detection also times the native segment merge
@@ -218,6 +240,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -2821,31 +2844,34 @@ def int8_im2col(torch, ic, q, layer):
 
 def bits_equal(torch, got, want) -> bool:
     """Bit for bit, a NaN equal to any NaN (the card's arithmetic writes
-    one payload, but the comparison should not depend on it)."""
+    one payload, PyTorch's bfloat16 cast another, but the comparison should
+    not depend on it)."""
     if got.dtype != want.dtype or got.shape != want.shape:
         return False
-    if got.dtype != torch.float32:
+    if got.dtype not in (torch.float32, torch.bfloat16):
         return torch.equal(got, want)
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int16
     nan = torch.isnan(got)
-    return torch.equal(nan, torch.isnan(want)) and torch.equal(got.view(torch.int32)[~nan],
-                                                                want.view(torch.int32)[~nan])
+    return torch.equal(nan, torch.isnan(want)) and torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
 
 
 def unfused_chain(torch, ic, q, layer, alpha, flat_alpha, next_scale):
     """The same unit of work as one conv_fused launch, unfused as the
-    parent ran it: conv_s8's float32 output, the eager PReLU, the flatten,
-    the eager flat PReLU and the stand-alone quantizer."""
+    parent ran it: conv_s8's float32 output (cast to the layer's dtype),
+    the eager PReLU, the flatten, the eager flat PReLU (the cast to the
+    dtype handed on) and the stand-alone quantizer."""
     from debvader_tpu_torch.models.layers import prelu
 
-    y = ic.conv_s8(q, layer)
+    y = ic.conv_s8(q, layer).to(layer.dtype)
     if alpha is not None:
         y = prelu(y, alpha)
     if next_scale is None:
-        return y
+        return y.to(layer.out_dtype)
     y = (y.permute(0, 2, 3, 1) if y.ndim == 4 else y).reshape(y.shape[0], -1)
     if flat_alpha is not None:
         y = prelu(y, flat_alpha)
-    return ic.quant_act(y.reshape(-1, 1 if next_scale.ndim == 0 else next_scale.shape[0]), next_scale)
+    return ic.quant_act(y.to(layer.out_dtype).reshape(-1, 1 if next_scale.ndim == 0 else next_scale.shape[0]),
+                        next_scale)
 
 
 def check_int8_stamps(torch, ic, qv, stamps, what: str) -> int:
@@ -2868,11 +2894,18 @@ def check_int8_stamps(torch, ic, qv, stamps, what: str) -> int:
 def int8_specials(torch, ic, q, layer, args) -> dict:
     """The epilogue on non-finite and signed-zero values: dqw[0] NaN,
     bias[1] +inf, bias[2] -inf, dqw[3] 0 with bias[3] -0.0 (so y is a zero
-    of either sign) and the PReLU's alpha negated on channel 3; the kernel
-    bit for bit its plain version with the quantizer (a NaN gives 0) and
-    with the float32 output (NaN and the zeros' signs kept)."""
+    of either sign) and the PReLU's alpha negated on channel 3; a layer
+    that rounds to bfloat16 also gets y on bfloat16 halfway points (dqw 0,
+    bias[4] 1 + 2^-8 and bias[5] 1 + 3 * 2^-8, which round to the even 1
+    and 1 + 2^-6) and past the largest bfloat16 (bias[6], bias[7] +-3.4e38,
+    which round to +-inf); the kernel bit for bit its plain version with
+    the quantizer (a NaN gives 0) and with the float output (NaN and the
+    zeros' signs kept)."""
     dqw, bias = layer.dqw.clone(), layer.bias.clone()
     dqw[0], bias[1], bias[2], dqw[3], bias[3] = float("nan"), float("inf"), float("-inf"), 0.0, -0.0
+    if layer.rounding:
+        dqw[4:8] = 0.0
+        bias[4:8] = torch.tensor([1 + 2**-8, 1 + 3 * 2**-8, 3.4e38, -3.4e38], device=bias.device)
     sp = dataclasses.replace(layer, dqw=dqw, bias=bias)
     alpha, flat_alpha, next_scale = args
     if alpha is not None:
@@ -2889,6 +2922,12 @@ def int8_specials(torch, ic, q, layer, args) -> dict:
             out["nan"] = int(torch.isnan(got).sum())
             out["negative_zeros"] = int(((got == 0) & torch.signbit(got)).sum())
             out["positive_zeros"] = int(((got == 0) & ~torch.signbit(got)).sum())
+            if layer.rounding and got.dtype == torch.bfloat16:
+                ch = got[:, 4:6] if got.ndim == 2 else got[:, 4:6].movedim(1, -1).reshape(-1, 2)
+                out["ties_to_even"] = bool((ch[:, 0] == 1.0).all() and (ch[:, 1] == 1 + 2**-6).all())
+                out["overflow_to_inf"] = int(torch.isinf(got[:, 6]).sum())
+                if not out["ties_to_even"]:
+                    raise AssertionError("int8 layer, bfloat16 halfway points: not rounded to even")
     return out
 
 
@@ -2920,12 +2959,20 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
     the eager PReLU, quant_act); the stand-alone quantizer at its two
     points.  Then the edge cases: a batch of 1, the ragged 295-source
     batch, K = 54 (enc/Conv_0), all-(+-127) operands (the largest |acc|),
-    per-tensor scales and non-finite and signed-zero epilogue values."""
+    per-tensor scales and non-finite and signed-zero epilogue values.
+
+    A bfloat16 bundle (phase 23) runs the same checks on its bfloat16
+    epilogues, beside the bfloat16 cuDNN layer, with dec/Dense_1 also
+    under strict_cast=False (its bfloat16 epilogue) and bfloat16 halfway
+    points among the special values; its records are one a layer group,
+    and the stand-alone quantizer is not timed again."""
     from debvader_tpu_torch.device import fp32_math
     from debvader_tpu_torch.kernels import int8_conv as ic
     from debvader_tpu_torch.models import quantized as tq
 
     dev = torch.device("cuda")
+    bf16 = qv.cfg.dtype == "bfloat16"
+    cudnn_key = "cudnn_bf16_ms" if bf16 else "cudnn_f32_ms"
     convs, _, points = int8_calls(torch, qv, cutouts[:QUANT_CHUNK])
     rows = []
     for name, q, layer, args in convs:
@@ -2956,7 +3003,8 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
             lib["library_error"] = str(exc).splitlines()[0][:200]
         module = tq._module(qv.model, name)
         plan = ic._plan(q, layer, ic._sm_count(q.device.index or 0))
-        h = q.float() if layer.kind == "dense" else q.permute(0, 3, 1, 2).float().contiguous()
+        # the float layer's input in the dtype it computes in
+        h = (q.float() if layer.kind == "dense" else q.permute(0, 3, 1, 2).float().contiguous()).to(module.dtype)
         with fp32_math():
             cudnn_ms = cuda_ms(torch, lambda: module(h))
         rows.append({
@@ -2968,7 +3016,7 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
             "device_ms": profiled_device_ms(torch, lambda: ic.conv_fused(q, layer, *args), "conv_fused"),
             "plain_ms": cuda_ms(torch, lambda: ic.conv_fused_plain(q, layer, *args), reps=PLAIN_REPS, warmup=1),
             "bound_ms": t_bound, "bound_by": by, "bound_bytes": bytes_layer, "bound_ops": 2 * macs,
-            **lib, "cudnn_f32_ms": cudnn_ms,
+            **lib, cudnn_key: cudnn_ms,
             "chain_ms": cuda_ms(torch, lambda: unfused_chain(torch, ic, q, layer, *args)),
             "chain_device_ms": profiled_all_ms(torch, lambda: unfused_chain(torch, ic, q, layer, *args)),
         })
@@ -2977,7 +3025,7 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
     # launches, on the same two points' float inputs as the forward
     # computed them before the fused points
     quant_rows = []
-    for name, wrapper, args in points:
+    for name, wrapper, args in points if not bf16 else ():
         x = args[0]
         if wrapper == "bn_quant":
             bn, s = args[1:]
@@ -3011,13 +3059,25 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
         extremes[name] = int(raw.abs().max())
         # per-tensor: one scale for the layer's input and one for the next's
         qk, ws = qv.qweights[name]
-        flat = ic.make_layer(layer.kind, qk, ws, qv.act_scales[name].max(), layer.bias, layer.stride)
+        flat = ic.make_layer(layer.kind, qk, ws, qv.act_scales[name].max(), layer.bias, layer.stride, layer.dtype,
+                             layer.out_dtype)
         pt_args = args[:2] + (None if args[2] is None else args[2].max(),)
         if not bits_equal(torch, ic.conv_fused(q, flat, *pt_args), ic.conv_fused_plain(q, flat, *pt_args)):
             raise AssertionError(f"int8 layer {name}: per-tensor scales differ from the plain version")
         per_tensor[name] = True
         specials[name] = int8_specials(torch, ic, q, layer, args)
     cases.update(all_127_max_abs_acc=extremes, per_tensor_scales=per_tensor, special_values=specials)
+    if bf16:
+        # dec/Dense_1 under strict_cast=False: its bfloat16 epilogue (the
+        # bundle's config holds strict_cast=True: float32, rounded once)
+        name, q, layer, args = next(c for c in convs if c[0] == "dec/Dense_1")
+        loose = dataclasses.replace(layer, dtype=torch.bfloat16)
+        if not bits_equal(torch, ic.conv_fused(q, loose, *args), ic.conv_fused_plain(q, loose, *args)):
+            raise AssertionError("int8 layer dec/Dense_1 (strict_cast=False): the kernel differs from its plain version")
+        strict = ic.conv_fused(q, layer, *args)
+        cases["dense1_strict_cast_false"] = {
+            "codes_differing_from_strict": int((ic.conv_fused(q, loose, *args) != strict).sum()),
+            "elements": strict.numel(), "specials": int8_specials(torch, ic, q, loose, args)}
     groups = {}
     for r in rows:
         g = "enc_conv" if r["layer"].startswith("enc/Conv") else "dense" if r["kind"] == "dense" else "dec_convT"
@@ -3028,13 +3088,24 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
         return None if any(v is None for v in vals) else float(sum(vals))
 
     summary = {g: {k: total(k, rs) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                                              "cudnn_f32_ms", "chain_ms", "chain_device_ms")}
+                                              cudnn_key, "chain_ms", "chain_device_ms")}
                | {"layers": len(rs), "bound_bytes": sum(r["bound_bytes"] for r in rs),
                   "bound_ops": sum(r["bound_ops"] for r in rs)} for g, rs in groups.items()}
-    summary["all"] = {k: total(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "cudnn_f32_ms",
+    summary["all"] = {k: total(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", cudnn_key,
                                             "chain_ms", "chain_device_ms")}
     summary["all"].update(bound_bytes_ms=sum(r["bound_bytes"] for r in rows) / PEAK_BYTES_PER_S * 1e3,
                           bound_ops_ms=sum(r["bound_ops"] for r in rows) / PEAK_INT8_OPS_PER_S * 1e3)
+    if bf16:
+        records = [{
+            "name": f"int8_conv_bf16_{BF16_GROUPS[g]}", "route": "cuda",
+            "source": "debvader_tpu_torch/csrc/int8_conv_bf16.cu (csrc/int8_conv.cu compiled with DVT_INT8_BF16)",
+            "replaces": BF16_GROUP_REPLACES[g], "max_abs_err": 0.0, "ms": total("ms", rs),
+            "device_ms": total("device_ms", rs), "plain_ms": total("plain_ms", rs), "bound_ms": total("bound_ms", rs),
+            "bound_by": "bytes" if sum(r["bound_bytes"] for r in rs) / PEAK_BYTES_PER_S >= sum(
+                r["bound_ops"] for r in rs) / PEAK_INT8_OPS_PER_S else "operations",
+            "library_ms": total("library_ms", rs), "cudnn_bf16_ms": total(cudnn_key, rs), "chain_ms": total("chain_ms", rs),
+            "shape": [QUANT_CHUNK, 59, 59, 6], "layers": len(rs)} for g, rs in groups.items()] + point_rows
+        return records, {"layers": rows, "points": point_cases, "groups": summary, "cases": cases}
     records = [
         {"name": "int8_conv", "route": "cuda", "source": "debvader_tpu_torch/csrc/int8_conv.cu",
          "replaces": "debvader_tpu/models/quantized.py:340 (int8 conv, convT :399, dense :447, with _prelu :115 "
@@ -3052,6 +3123,17 @@ def check_int8_layers(torch, qv, cutouts: np.ndarray) -> tuple[list, dict]:
     return records, {"layers": rows, "quantizer": quant_rows, "points": point_cases, "groups": summary,
                      "cases": cases}
 
+
+# the bfloat16 records by layer group, and what each replaces
+BF16_GROUPS = {"enc_conv": "conv", "dense": "dense", "dec_convT": "convT"}
+BF16_GROUP_REPLACES = {
+    "enc_conv": "debvader_tpu/models/quantized.py:340-350 (int8 conv, its bfloat16 output :349) with _prelu :115 "
+                "in bfloat16 and the next _quant_act :172 (XLA; no Pallas kernel)",
+    "dense": "debvader_tpu/models/quantized.py:447-454 (int8 dense; dec/Dense_1's float32 epilogue and the cast at "
+             "the reshape under strict_cast :513-518) with _prelu :115 and _quant_act :172 (XLA; no Pallas kernel)",
+    "dec_convT": "debvader_tpu/models/quantized.py:399-409 (int8 transposed conv, its bfloat16 output :409) with "
+                 "_prelu :115 in bfloat16 and the next _quant_act :172 (XLA; no Pallas kernel)",
+}
 
 # what each fused point replaces in the JAX package
 POINT_REPLACES = {
@@ -3087,9 +3169,10 @@ def int8_points(torch, ic, points) -> tuple[list, dict]:
         kernel, plain = getattr(ic, wrapper), getattr(ic, f"{wrapper}_plain")
         x, params, scale = args[0], args[1:-1], args[-1]
         c = x.shape[-1]
+        bf16 = (args[1].dtype if wrapper == "bn_quant" else x.dtype) == torch.bfloat16
         per_channel = torch.linspace(0.5, 2.0, c, device=x.device) * scale.max()
         if wrapper == "bn_quant":
-            halves = BatchNorm(c).to(x.device)
+            halves = BatchNorm(c, dtype=args[1].dtype).to(x.device)
             with torch.no_grad():
                 halves.scale.zero_()
                 halves.bias.copy_(torch.tensor([5.0, -2.5, 1.75, 126.5, 127.5, -1e4], device=x.device)[:c])
@@ -3098,10 +3181,27 @@ def int8_points(torch, ic, points) -> tuple[list, dict]:
                                                                             device=x.device)[:c])
         else:
             pattern = torch.tensor([2.5, -2.5, 3.5, -3.5, 126.5, 127.5, -127.5, 1e4, -1e4, 0.5], device=x.device)
-            hx = pattern.repeat(x.numel() // len(pattern) + 1)[: x.numel()].view(x.shape).contiguous()
+            hx = pattern.repeat(x.numel() // len(pattern) + 1)[: x.numel()].view(x.shape).to(x.dtype).contiguous()
             alternate = torch.where(torch.arange(c, device=x.device) % 2 == 0, 1.0, 0.5)
             halves_args = (hx, torch.zeros(c, device=x.device), alternate)
             halves_scales = (torch.ones((), device=x.device),)
+        if bf16:
+            # bfloat16 halfway points by channel (scale 0.5): 50.375 rounds to
+            # the even 50.5 (quotient 101; the other way, 100.5 -> 100) and
+            # 50.125 to 50.0; +-3.4e38 lies past the largest bfloat16 (+-inf)
+            half = torch.full((), 0.5, device=x.device)
+            if wrapper == "bn_quant":
+                tie_bn = BatchNorm(c, dtype=torch.bfloat16).to(x.device)
+                with torch.no_grad():
+                    tie_bn.scale.zero_()
+                    tie_bn.bias.copy_(torch.tensor([50.375, -50.375, 50.125, -50.125, 3.4e38, -3.4e38],
+                                                   device=x.device).repeat(c)[:c])
+                runs_ties = {"bf16_ties": (x, tie_bn, half)}
+            else:
+                # the tie in the bias add: 50 + 0.375, the PReLU the identity
+                tie_bias = torch.tensor([0.375, -0.375, 0.125, -0.125, 3.4e38, -3.4e38], device=x.device).repeat(c)[:c]
+                mm = torch.where(tie_bias >= 0, 50.0, -50.0).expand(x.shape).to(x.dtype).contiguous()
+                runs_ties = {"bf16_ties": (mm, tie_bias, torch.ones(c, device=x.device), half)}
         runs = {
             "real": (x, *params, scale), "per_channel": (x, *params, per_channel),
             "specials": (point_specials(torch, x), *params, scale),
@@ -3109,6 +3209,8 @@ def int8_points(torch, ic, points) -> tuple[list, dict]:
         }
         for i, s in enumerate(halves_scales):
             runs[f"halves_{i}"] = (*halves_args, s)
+        if bf16:
+            runs.update(runs_ties)
         checked = {}
         for case, a in runs.items():
             got, want = kernel(*a), plain(*a)
@@ -3117,11 +3219,17 @@ def int8_points(torch, ic, points) -> tuple[list, dict]:
                 raise AssertionError(f"{wrapper} ({case}): {int((got != want).sum())} elements differ from its plain "
                                      "version")
             checked[case] = {"elements": got.numel(), "saturated": int((got.abs() == 127).sum())}
+            if case == "bf16_ties":
+                checked[case]["first"] = got.reshape(-1)[:6].tolist()
+                if checked[case]["first"] != [101, -101, 100, -100, 127, -127]:
+                    raise AssertionError(f"{wrapper} (bf16_ties): {checked[case]['first']}, not rounded to even")
         cases[wrapper] = checked
-        t_bound, by = bound(5 * x.numel() + 4 * (len(params) + 2) * c, 5 * x.numel())
+        t_bound, by = bound((x.element_size() + 1) * x.numel() + 4 * (len(params) + 2) * c, 5 * x.numel())
         records.append({
-            "name": f"int8_{wrapper}", "route": "cuda", "source": "debvader_tpu_torch/csrc/int8_conv.cu",
-            "replaces": POINT_REPLACES[wrapper], "max_abs_err": 0.0,
+            "name": f"int8_{wrapper}" + ("_bf16" if bf16 else ""), "route": "cuda",
+            "source": "debvader_tpu_torch/csrc/int8_conv.cu",
+            "replaces": POINT_REPLACES[wrapper] + (" under a bfloat16 compute dtype" if bf16 else ""),
+            "max_abs_err": 0.0,
             "ms": cuda_ms(torch, lambda: kernel(*args)),
             "device_ms": profiled_device_ms(torch, lambda: kernel(*args), "quant_point"),
             "plain_ms": cuda_ms(torch, lambda: plain(*args), reps=PLAIN_REPS, warmup=1),
@@ -3367,6 +3475,205 @@ def run_qat(torch) -> dict:
                controls_fail=sorted(controls), moved_more_than_lr=moved, parameters=total)
     if moved > QAT_MOVED_MAX_SHARE * total:
         raise AssertionError(f"qat step: {moved} of {total} parameters moved differently on the card")
+    return out
+
+
+# ---------------------------------------- the int8 route in bfloat16, import
+
+# Phase 23: the bfloat16 int8 route's 256^2 crop, card against CPU.  Its
+# int8 layers are exact on both; the float bfloat16 layers between them
+# (dec/Dense_0's product, the band head) may round to the neighbouring
+# bfloat16 on one device (cuBLAS and cuDNN against oneDNN), and a
+# quantizer after dec/Dense_0 then moves a code by one step, which the
+# decoder carries on.  The crop's model field is held to this share of its
+# scale, the JAX package's bfloat16 flux envelope (3e-2).
+QUANT_BF16_CROP_TOL = 3e-2
+# JAX's envelope of post-training quantization alone (quantize_vae of the
+# converged sim_demo weights, no QAT) against the float forward: mean and
+# largest total-flux error (tests/test_quantized.py:136-137; read 0.219 and
+# 0.375 there).  The 5e-2 envelope (QUANT_FLUX_MEAN_MAX) is the
+# QAT-fine-tuned bundle's, here the packaged sim_demo_int8 served in
+# bfloat16.
+QUANT_PTQ_FLUX_MEAN_MAX = 0.35
+QUANT_PTQ_FLUX_MAX = 0.6
+
+
+def run_quantized_bf16(torch, net, qv32, field: np.ndarray, centers: np.ndarray, cutouts: np.ndarray,
+                       f32_flux_err: float, reset_counts, read_counts) -> tuple[list, dict]:
+    """Phase 23, the int8 route in bfloat16: quantize_vae(load_deblender(
+    'sim_demo', dtype='bfloat16')) on the card, calibrated on the
+    record-array batch's real stamps; check_int8_layers on its bfloat16
+    epilogues; DeblendField(quantized=<it>, z_mode='mean') in 128-source
+    chunks on both routes, the launches of each counted from 0 and held to
+    exactly 18 fused layers (8 conv, 2 dense, 8 transposed conv, every one
+    a bfloat16 epilogue) and one of each bfloat16 point a chunk, two runs
+    bit-identical, the routes against each other; the total-flux error
+    against the float32 forward, of this bundle under JAX's envelope of
+    post-training quantization and of the packaged QAT bundle served in
+    bfloat16 under JAX's int8 envelope of 5e-2, beside its float32
+    route's; warm deblend_and_render in turns against the
+    float32 int8 route and the bfloat16 float route, one profiled call of
+    each; the 256^2 crop card against CPU."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import simulate_batch
+    from debvader_tpu_torch.models import quantized as tq
+
+    out = {}
+    t = time.perf_counter()
+    net_bf = dt.load_deblender("sim_demo", dtype="bfloat16", device="cuda")
+    qv = tq.quantize_vae(net_bf, cutouts)
+    torch.cuda.synchronize()
+    out["quantize_s"] = time.perf_counter() - t
+    out["calibration_stamps"] = int(len(cutouts))
+    out["epilogue_dtypes"] = dict(Counter(f"{str(layer.dtype)[6:]}->{str(layer.out_dtype)[6:]}"
+                                          for layer in qv.int8_layers().values()))
+    records, layers = check_int8_layers(torch, qv, cutouts)
+    out["layers"] = layers
+
+    chunks = -(-len(centers) // QUANT_CHUNK)
+    want = {"int8_conv": 18 * chunks, "int8_conv_bf16_conv": 8 * chunks, "int8_conv_bf16_dense": 2 * chunks,
+            "int8_conv_bf16_convT": 8 * chunks, "int8_bn_quant": chunks, "int8_bn_quant_bf16": chunks,
+            "int8_bias_prelu_quant": chunks, "int8_bias_prelu_quant_bf16": chunks, "int8_quant_act": 0,
+            "int8_conv_s8": 0}
+    reset_counts()
+    qdf = dt.DeblendField(net_bf, field, z_mode="mean", quantized=qv, cfg=serving_cfg(QUANT_CHUNK), device="cuda")
+    res = qdf.deblend_field(centers)
+    r_residual = qdf.get_residual_field()
+    torch.cuda.synchronize()
+    out["record_array_launches"] = exact_counts(read_counts("bf16 int8 record-array", {}), want,
+                                                "bf16 int8 record-array")
+    reset_counts()
+    catalog, residual, model = qdf.deblend_and_render(centers, return_model=True)
+    torch.cuda.synchronize()
+    out["launches"] = exact_counts(read_counts("bf16 int8 serving", {"render": 1}), want,
+                                   "bf16 int8 deblend_and_render")
+    out["chunks"] = chunks
+    means = np.stack(list(res.output_images_mean))
+    if not (np.isfinite(means).all() and np.isfinite(residual).all() and np.isfinite(r_residual).all()):
+        raise AssertionError("non-finite outputs on the bf16 int8 serving path")
+    _, again, _ = qdf.deblend_and_render(centers, return_model=True)
+    if not np.array_equal(again.view(np.int32), residual.view(np.int32)):
+        raise AssertionError("two bf16 int8 deblend_and_render runs differ")
+    catalogs_agree(catalog, res)
+    scale = float(np.abs(field).max())
+    routes = float(np.abs(residual - r_residual).max())
+    if routes > 1e-5 * scale:
+        raise AssertionError(f"bf16 int8 streaming and record-array residuals differ by {routes}")
+    out.update(sources=int(len(centers)), deblended=int(len(res)), routes_max_abs_err=routes)
+
+    # the total-flux error against the float32 forward on phase 19's 64
+    # simulated stamps: this post-training bundle under JAX's PTQ envelope;
+    # the packaged QAT-fine-tuned bundle served in bfloat16 (its weights and
+    # scales, a bfloat16 model) under JAX's 5e-2, beside its float32 route
+    x = simulate_batch(2024, 64)[0]
+    xt = torch.as_tensor(x, device="cuda")
+    ff = dt.deblend(net, x, z_mode="mean", device="cuda")[0].astype(np.float64).sum(axis=(1, 2, 3))
+    qat = dt.DeblenderVAE(dataclasses.replace(qv32.cfg, dtype="bfloat16")).to("cuda")
+    qat.load_state_dict(qv32.model.state_dict())
+    qv_qat = dataclasses.replace(qv32, model=qat.eval(), _layers={})
+    for key, bundle, limits in (("ptq", qv, (QUANT_PTQ_FLUX_MEAN_MAX, QUANT_PTQ_FLUX_MAX)),
+                                ("qat_sim_demo_int8", qv_qat, (QUANT_FLUX_MEAN_MAX, None))):
+        loc_q, _ = tq.make_quantized_forward(bundle, z_mode="mean")(xt)
+        fq = loc_q.double().sum(dim=(1, 2, 3)).cpu().numpy()
+        rel = np.abs(fq - ff) / np.maximum(np.abs(ff), 1e-9)
+        out[f"flux_rel_err_vs_float32_{key}"] = {"mean": float(rel.mean()), "max": float(rel.max()), "stamps": 64}
+        if not (rel.mean() < limits[0] and (limits[1] is None or rel.max() < limits[1])):
+            raise AssertionError(f"bf16 int8 ({key}) total-flux error {rel.mean()} (largest {rel.max()}) against "
+                                 f"the float32 forward")
+    out["flux_rel_err_vs_float32_qat_sim_demo_int8"]["float32_route_mean"] = f32_flux_err
+
+    # warm deblend_and_render in turns: the float32 int8 route, the bf16
+    # float route, the bf16 int8 route; one profiled call of each
+    routes_by = {
+        "int8_float32": dt.DeblendField(net, field, z_mode="mean", quantized=qv32, cfg=serving_cfg(QUANT_CHUNK),
+                                        device="cuda"),
+        "bf16_float": dt.DeblendField(net_bf, field, z_mode="mean", cfg=serving_cfg(QUANT_CHUNK), device="cuda"),
+        "int8_bf16": qdf,
+    }
+    for d in routes_by.values():
+        d.deblend_and_render(centers)
+    walls = {k: [] for k in routes_by}
+    for _ in range(3):
+        for key, d in routes_by.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d.deblend_and_render(centers)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t)
+    out["warm_deblend_and_render_s"] = walls
+    out["int8_bf16_over_int8_float32"] = float(np.median(walls["int8_bf16"]) / np.median(walls["int8_float32"]))
+    out["int8_bf16_over_bf16_float"] = float(np.median(walls["int8_bf16"]) / np.median(walls["bf16_float"]))
+    for key, d in routes_by.items():
+        prof = profile_run(torch, lambda: d.deblend_and_render(centers))
+        out[f"profiled_{key}"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_kernels",
+                                                       "device_idle_share")} | {
+            "top_device_events": prof["top_device_events"][:8]}
+
+    # the 256^2 crop on the card against the CPU
+    crop = np.ascontiguousarray(field[:, 384:640, 384:640, :])
+    c_centers = dt.detect_objects(crop, dt.DetectionConfig(**DETECTION), device="cpu")
+    got = {}
+    for dev, q, n in (("cuda", qv, net_bf),
+                      ("cpu", qv.to("cpu"), dt.load_deblender("sim_demo", dtype="bfloat16", device="cpu"))):
+        d = dt.DeblendField(n, crop, z_mode="mean", quantized=q, cfg=serving_cfg(QUANT_CHUNK), device=dev)
+        cat, resid, mdl = d.deblend_and_render(c_centers, return_model=True)
+        got[dev] = (cat, resid, np.asarray(mdl))
+    catalogs_agree(got["cuda"][0], got["cpu"][0])
+    m_abs = float(np.abs(got["cpu"][2]).max())
+    crop_err = {"residual": float(np.abs(got["cuda"][1] - got["cpu"][1]).max()),
+                "model": float(np.abs(got["cuda"][2] - got["cpu"][2]).max()),
+                "model_share_differing": float((got["cuda"][2] != got["cpu"][2]).mean()),
+                "model_share_beyond_one_bf16_ulp": float((np.abs(got["cuda"][2] - got["cpu"][2])
+                                                          > bf16_ulp(m_abs)).mean()),
+                "model_max_abs": m_abs, "sources": int(len(c_centers))}
+    out["crop_vs_cpu"] = crop_err
+    if crop_err["model"] > QUANT_BF16_CROP_TOL * m_abs:
+        raise AssertionError(f"bf16 int8 serving on the crop: card and CPU differ: {crop_err}")
+    return records, out
+
+
+IMPORT_DIR = Path("chiprun_out") / "import"
+
+
+def start_checkpoint_import() -> tuple:
+    """Phase 23, the reference checkpoint import, its first half: the
+    shipped sim_demo weights written as a 2-shard TensorBundle under
+    chiprun_out/import, and `python -m debvader_tpu_torch import-weights`
+    started on it in a process of its own (it runs beside the bf16 int8
+    checks)."""
+    from debvader_tpu_torch.utils.tf_checkpoint import read_index, write_bundle
+    from debvader_tpu_torch.utils.weight_import import export_to_tensors
+    from debvader_tpu_torch.weights import load_flax_npz, weights_file
+
+    out_dir = IMPORT_DIR.resolve()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t = time.perf_counter()
+    index = write_bundle(out_dir / "sim_demo.ckpt", export_to_tensors(load_flax_npz(weights_file("sim_demo"))),
+                         shards=2)
+    out = {"write_bundle_s": time.perf_counter() - t, "tensors": len(read_index(index))}
+    return out, start_cli(["import-weights", "--ckpt", str(out_dir / "sim_demo.ckpt"), "--out",
+                           str(out_dir / "imported")])
+
+
+def run_checkpoint_import(torch, net, cutouts: np.ndarray, started: tuple) -> dict:
+    """Phase 23, the import's second half: the CLI process waited for,
+    load_deblender of the file it wrote on the card; that model's forward
+    of the record-array batch bit for bit the shipped weights' forward.
+    The checkpoint and the weights file are deleted after the check."""
+    import debvader_tpu_torch as dt
+
+    out_dir = IMPORT_DIR.resolve()
+    out, cli = started
+    out["cli"] = finish_cli(cli)
+    imported = dt.load_deblender("imported", weights_dir=out_dir, device="cuda")
+    got_m, got_d = dt.deblend(imported, cutouts, z_mode="mean", device="cuda")
+    want_m, want_d = dt.deblend(net, cutouts, z_mode="mean", device="cuda")
+    shutil.rmtree(out_dir)
+    for a, b, what in ((got_m, want_m, "means"), (got_d.stddev().cpu().numpy(), want_d.stddev().cpu().numpy(),
+                                                  "stddevs")):
+        if not np.array_equal(np.asarray(a).view(np.int32), np.asarray(b).view(np.int32)):
+            raise AssertionError(f"the imported checkpoint's forward differs from the shipped weights' ({what})")
+    out.update(stamps=int(len(cutouts)), bit_for_bit=True)
     return out
 
 
@@ -3616,15 +3923,45 @@ def artifact_equal(got, want) -> dict:
             "scale": float(want.abs().max())}
 
 
+def start_cli(args: list):
+    """``python -m debvader_tpu_torch ARGS`` from the repo root started in
+    a process of its own, its output into temporary files (so that it
+    never waits on a full pipe); finish_cli waits for it, stop_cli stops
+    it on a failure elsewhere."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "debvader_tpu_torch", *args], cwd=Path(__file__).resolve().parent,
+                            stdout=out, stderr=err, text=True)
+    return proc, args, time.perf_counter(), out, err
+
+
+def stop_cli(started) -> None:
+    """Kill a start_cli process that is still running."""
+    if started[0].poll() is None:
+        started[0].kill()
+        started[0].wait()
+
+
+def finish_cli(started, timeout: int = 300) -> dict:
+    """Wait for a CLI process of start_cli; raises unless it exits 0
+    (and stops it if it outlasts ``timeout``)."""
+    proc, args, t, out, err = started
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        stop_cli(started)
+    with out, err:
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {args[0]} exited {proc.returncode}: {stderr[-3000:]}")
+    return {"s": time.perf_counter() - t, "stdout": stdout.strip().splitlines()[-1:]}
+
+
 def run_cli(args: list, timeout: int = 300) -> dict:
-    """``python -m debvader_tpu_torch ARGS`` from the repo root in a
-    process of its own; raises unless it exits 0."""
-    t = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "debvader_tpu_torch", *args], cwd=Path(__file__).resolve().parent,
-                         capture_output=True, text=True, timeout=timeout)
-    if out.returncode != 0:
-        raise AssertionError(f"CLI {args[0]} exited {out.returncode}: {out.stderr[-3000:]}")
-    return {"s": time.perf_counter() - t, "stdout": out.stdout.strip().splitlines()[-1:]}
+    """``python -m debvader_tpu_torch ARGS`` in a process of its own, to
+    its end; raises unless it exits 0."""
+    return finish_cli(start_cli(args), timeout)
 
 
 def run_export_cli(torch, net, field: np.ndarray, centers: np.ndarray, cutouts: np.ndarray, reset_counts,
@@ -3677,10 +4014,29 @@ def run_export_cli(torch, net, field: np.ndarray, centers: np.ndarray, cutouts: 
     if route_err > ARTIFACT_TOL * float(np.abs(field).max()):
         raise AssertionError(f"export: DeblendField(artifact=) residual {route_err} off the live route's")
 
-    # the CLI, each command a process of its own, on files under chiprun_out
+    # the CLI, each command a process of its own, on files under chiprun_out;
+    # export (which needs no other command's output) runs beside detect
+    # and serve
     out = Path("chiprun_out") / "cli"
     out.mkdir(parents=True, exist_ok=True)
     np.save(out / "field.npy", field)
+    exporting = start_cli(["export", "--out", str(out / "fwd.pt2")])
+    try:
+        cli = export_cli_runs(torch, net, field, out, exporting)
+    finally:
+        stop_cli(exporting)
+    return {
+        "export_s": export_s, "artifact_bytes": len(blob), "batches": batches, "forward_295_ms": ms,
+        "route": {"launches": launches, "residual_max_abs_err": route_err, "deblended": int(len(cat_a))},
+        "cli": cli,
+    }
+
+
+def export_cli_runs(torch, net, field: np.ndarray, out: Path, exporting) -> dict:
+    """Phase 21's CLI: detect, serve, the export started before, then
+    serve --artifact, each against the in-process route."""
+    import debvader_tpu_torch as dt
+
     cli = {"detect": run_cli(["detect", "--field", str(out / "field.npy"), "--out", str(out / "centers.npy"),
                               "--thresh", str(CLI_THRESH)])}
     det = dt.detect_objects_tiled(field, dt.DetectionConfig(thresh=CLI_THRESH), device="cuda")
@@ -3693,7 +4049,7 @@ def run_export_cli(torch, net, field: np.ndarray, centers: np.ndarray, cutouts: 
     serve_resid = np.load(out / "serve_residual.npy")
     serve_equal = bool(np.array_equal(serve_resid.view(np.int32), want.view(np.int32)))
     serve_err = float(np.abs(serve_resid - want).max())
-    cli["export"] = run_cli(["export", "--out", str(out / "fwd.pt2")])
+    cli["export"] = finish_cli(exporting)
     cli["serve_artifact"] = run_cli(["serve", "--field", str(out / "field.npy"), "--centers",
                                      str(out / "centers.npy"), "--artifact", str(out / "fwd.pt2"),
                                      "--out-prefix", str(out / "serve_artifact")])
@@ -3706,15 +4062,10 @@ def run_export_cli(torch, net, field: np.ndarray, centers: np.ndarray, cutouts: 
     # catalogues, drop the field-sized arrays and the artifact
     for name in ("field.npy", "serve_residual.npy", "serve_artifact_residual.npy", "fwd.pt2"):
         (out / name).unlink()
-    return {
-        "export_s": export_s, "artifact_bytes": len(blob), "batches": batches, "forward_295_ms": ms,
-        "route": {"launches": launches, "residual_max_abs_err": route_err, "deblended": int(len(cat_a))},
-        "cli": {"runs": cli, "detections": int(len(det)), "serve_bit_equal": serve_equal,
-                "serve_max_abs_err": serve_err,
-                "serve_artifact_max_abs_err_vs_serve": art_err,
-                "serve_artifact_bit_equal": bool(np.array_equal(art_resid.view(np.int32),
-                                                                serve_resid.view(np.int32)))},
-    }
+    return {"runs": cli, "detections": int(len(det)), "serve_bit_equal": serve_equal,
+            "serve_max_abs_err": serve_err,
+            "serve_artifact_max_abs_err_vs_serve": art_err,
+            "serve_artifact_bit_equal": bool(np.array_equal(art_resid.view(np.int32), serve_resid.view(np.int32)))}
 
 
 def band_kernels(torch, band_rows: int, f: int, counts: dict) -> list[dict]:
@@ -4140,6 +4491,11 @@ def main() -> int:
         "int8_bn_quant": (ic.bn_quant, "launches"),
         "int8_bias_prelu_quant": (ic.bias_prelu_quant, "launches"),
         "int8_conv_s8": (ic.conv_s8, "launches"),
+        "int8_conv_bf16_conv": (ic.conv_fused, "launches_bf16_conv"),
+        "int8_conv_bf16_dense": (ic.conv_fused, "launches_bf16_dense"),
+        "int8_conv_bf16_convT": (ic.conv_fused, "launches_bf16_convT"),
+        "int8_bn_quant_bf16": (ic.bn_quant, "launches_bf16"),
+        "int8_bias_prelu_quant_bf16": (ic.bias_prelu_quant, "launches_bf16"),
     }
 
     def reset_counts():
@@ -4512,6 +4868,36 @@ def main() -> int:
             "shape", "launches", "max_abs_err", "ms", "device_ms", "plain_ms", "square_ms", "library_ms", "bound_ms",
             "bound_by")}}))
     mark("multi_device")
+    # phase 23: the int8 route in bfloat16 (its kernels on the layers' real
+    # activations, the serving path with its launches counted from 0) and
+    # the reference checkpoint import
+    importing = start_checkpoint_import()
+    try:
+        bf16_int8_recs, quantized_bf16 = run_quantized_bf16(
+            torch, net, qv, field, centers, main_cutouts, quantized["flux_rel_err_vs_float"]["mean"], reset_counts,
+            read_counts)
+    except BaseException:
+        stop_cli(importing[1])  # and the failure goes on up
+        raise
+    records += bf16_int8_recs
+    bf16_int8_launches = quantized_bf16["launches"]
+    bf16_layers = quantized_bf16.pop("layers")
+    report["int8_bf16_layers"] = bf16_layers
+    print(json.dumps({"int8_bf16_layer_groups": bf16_layers["groups"], "int8_bf16_cases": bf16_layers["cases"],
+                      "int8_bf16_points": bf16_layers["points"]}))
+    for r in bf16_layers["layers"]:
+        print(f"  bf16 {r['layer']:26s} {r['out'][0]:8s}: {r['ms']:.4f} ms (device {r['device_ms']}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.3f} ms, _int_mm {r['library_ms']}, "
+              f"cuDNN bf16 {r['cudnn_bf16_ms']:.4f} ms, unfused chain {r['chain_ms']:.4f} ms")
+    for r in bf16_int8_recs:
+        print(json.dumps({r["name"]: {k: r.get(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                                            "library_ms", "cudnn_bf16_ms", "layers", "before")}}))
+    report["quantized_bf16"] = quantized_bf16
+    print(json.dumps({"quantized_bf16": quantized_bf16}))
+    imported = run_checkpoint_import(torch, net, main_cutouts, importing)
+    report["checkpoint_import"] = imported
+    print(json.dumps({"checkpoint_import": imported}))
+    mark("int8_bf16_import")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 
@@ -4524,6 +4910,8 @@ def main() -> int:
     counted_on.update(dict.fromkeys(("render_bf16", "place_bf16"), low_launches))
     counted_on.update(dict.fromkeys(("int8_conv", "int8_quant_act", "int8_bn_quant", "int8_bias_prelu_quant"),
                                     int8_launches))
+    counted_on.update(dict.fromkeys(("int8_conv_bf16_conv", "int8_conv_bf16_dense", "int8_conv_bf16_convT",
+                                     "int8_bn_quant_bf16", "int8_bias_prelu_quant_bf16"), bf16_int8_launches))
     for rec in records:
         if rec["name"] in counted_on:
             rec["launches"] = counted_on[rec["name"]][rec["name"]]

@@ -8,7 +8,7 @@ The JAX package's CLI over the port:
 - ``train``            two-stage training on (blended, isolated) .npy
 - ``quantize``         calibrate (+ optional QAT) an int8 serving bundle
 - ``export``           weights -> torch.export ``.pt2`` artifact
-- ``import-weights``   reference TF checkpoint -> weights (not ported yet)
+- ``import-weights``   reference TF checkpoint -> weights file
 
 ``--weights`` is a survey name of the packaged data ('sim_demo') or a
 weights file in the port's ``.npz`` format (what ``train --out`` writes),
@@ -341,9 +341,15 @@ def _cmd_export(args) -> int:
 
 
 def _cmd_import_weights(args) -> int:
-    from debvader_tpu_torch.config import _not_ported
+    from debvader_tpu_torch.training.checkpoint import save_weights
+    from debvader_tpu_torch.utils.tf_checkpoint import load_available_tensors
+    from debvader_tpu_torch.utils.weight_import import import_from_tensors
+    from debvader_tpu_torch.weights import flatten_flax
 
-    _not_ported("import-weights", "reference checkpoint import")
+    tree = import_from_tensors(load_available_tensors(args.ckpt), strict=not args.partial)
+    out = save_weights(args.out, flatten_flax(tree))
+    print(f"wrote {out}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -446,10 +452,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.set_defaults(fn=_cmd_export)
 
-    p = sub.add_parser("import-weights", help="reference TF checkpoint -> weights (not ported yet)")
+    p = sub.add_parser("import-weights", help="reference TF checkpoint -> weights file")
     p.add_argument("--ckpt", required=True, help="TF checkpoint prefix")
-    p.add_argument("--out", required=True, help="output weights file")
-    p.add_argument("--partial", action="store_true")
+    p.add_argument("--out", required=True, help="output weights file (.npz appended if missing); "
+                   "--weights takes it, load_deblender(<name>, weights_dir=<its directory>) serves it")
+    p.add_argument("--partial", action="store_true",
+                   help="write the tensors whose shard is present instead of raising for a missing one")
     p.set_defaults(fn=_cmd_import_weights)
     return parser
 

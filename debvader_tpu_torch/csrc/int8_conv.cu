@@ -78,6 +78,28 @@
 // device time on an H100 (the main loop alone about 0.6 ms); ring depth
 // (3-8 stages), wgmma groups in flight (0-3) and k-steps a stage (1-4)
 // changed nothing measurable.
+//
+// bfloat16 models (ModelConfig.dtype='bfloat16'): JAX's int8 forward
+// rounds where its compute dtype says (:349, :409, :454, _prelu :115,
+// the cast at the reshape :518).  The epilogue carries two more rounding
+// points in its kind (EPI), each a round to nearest even by
+// __float2bfloat16_rn and widened back by __bfloat162float:
+//   kEpiBf16:    the layer's dtype is bfloat16: y rounds after the bias,
+//                and each PReLU runs in bfloat16 arithmetic (prelu_bf16:
+//                its alpha rounded, the product rounded, the sum rounded);
+//   kEpiOutBf16: the value handed on is bfloat16: y rounds once more
+//                before the quantizer (a no-op after kEpiBf16, the one
+//                rounding of dec/Dense_1's float32 epilogue under
+//                strict_cast) and a float output is written as bfloat16.
+// Split K adds the int32 partial sums before the epilogue, so the
+// rounding points do not move.  The float32 kinds are the instances they
+// were; the bfloat16 kinds have instances of their own where the sim_demo
+// forward launches them (launch_epi), the generic instance reads the
+// rounding from the parameters.  csrc/int8_conv_bf16.cu compiles this
+// file again with DVT_INT8_BF16 set: that translation unit holds the
+// bfloat16 instances and its launcher is dvt_conv_fused_bf16, this one the
+// float32 instances, dvt_conv_fused, dvt_quant_act and dvt_quant_point, so
+// that the two build in parallel.
 
 // The int32 sums are exact whatever their order (|acc| <= K * 127^2 =
 // 66,064,384 < 2^31 at K = 4096), so the output is bit for bit the plain
@@ -90,10 +112,15 @@
 // 0.038 ms at 1,979 TOP/s int8 (chip_smoke.py phase 19).  Built with
 // -fmad=false.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#ifndef DVT_INT8_BF16
+#define DVT_INT8_BF16 0
+#endif
 
 namespace {
 
@@ -123,9 +150,13 @@ struct Params {
   void* out;
   int* ws;
   int* counters;
-  int n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, np_pad, mode, scale_len, splits;
+  int n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, np_pad, mode, scale_len, splits, rounding;
   ClassDesc cls[MAX_CLASSES];
 };
+
+// x rounded to the nearest bfloat16 (ties to even; NaN stays NaN, a value
+// past the largest bfloat16 goes to +-inf), as a float
+__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 // clip(round_half_even(d), -127, 127), a NaN d giving 0
 __device__ __forceinline__ int8_t saturate(float d) {
@@ -135,6 +166,7 @@ __device__ __forceinline__ int8_t saturate(float d) {
 }
 
 __device__ __forceinline__ int8_t quantize(float h, float s) { return saturate(__fdiv_rn(h, s)); }
+
 
 // h / s correctly rounded to float, from rs = RN_double(1 / s): the double
 // product is within 2^-52 of h / s (relative), and no float rounding
@@ -152,6 +184,17 @@ __device__ __forceinline__ float prelu(float x, float alpha) {
   const float mx = x != x ? x : fmaxf(x, 0.0f);
   const float mn = x != x ? x : fminf(x, 0.0f);
   return __fadd_rn(mx, __fmul_rn(alpha, mn));
+}
+
+// The same PReLU on a bfloat16 x in bfloat16 arithmetic, as PyTorch and
+// XLA compute it (each op in float32, its result rounded): the product of
+// two bfloat16 values is exact in float32 and one of max(x, 0), a * min(x,
+// 0) is zero, so this is one rounding of prelu(x, a) except for the sign
+// of a product too small for bfloat16, which the add of +0 then decides
+__device__ __forceinline__ float prelu_bf16(float x, float alpha) {
+  const float mx = x != x ? x : fmaxf(x, 0.0f);
+  const float mn = x != x ? x : fminf(x, 0.0f);
+  return bf16r(__fadd_rn(mx, bf16r(__fmul_rn(bf16r(alpha), mn))));
 }
 
 // (N, C, HW) float32 -> (N, HW, C) int8 through a 32 x 32 shared tile
@@ -189,53 +232,84 @@ __global__ void quant_act_flat(const float* __restrict__ x, const float* __restr
 // - kBnQuant, enc/Conv_0's input: the inference BatchNorm in flax's
 //   order, y = (x - mean[c]) * mul[c] + bias[c], then the quantizer;
 // - kBiasPreluQuant, dec/Dense_1's input: dec/Dense_0's bias and the
-//   PReLU after it, y = prelu(x + bias[c], alpha[c]), then the quantizer.
+//   PReLU after it, y = prelu(x + bias[c], alpha[c]), then the quantizer;
+// - their bfloat16 kinds (JAX :120-131 and :509-512 under a bfloat16
+//   compute dtype): kBnQuantBf16 rounds the stamps to bfloat16, computes
+//   the BatchNorm in float32 and rounds its result; kBiasPreluQuantBf16
+//   reads the bfloat16 product, adds the bias rounded to bfloat16 and
+//   rounds, then the bfloat16 PReLU (prelu_bf16).
 // x and q are channels last with C channels innermost ((N, H, W, C) or
 // (N, C)), so there is no transpose: each thread takes 4 consecutive
-// elements by one 16-byte load and one 4-byte store.  The channel
-// parameters and RN(1 / s) go into shared memory once a block.  Bound by
-// its bytes (4 in, 1 out an element).
-enum PointKind { kBnQuant = 0, kBiasPreluQuant = 1 };
+// elements by one 16-byte load (8 bytes for a bfloat16 x) and one 4-byte
+// store.  The channel parameters (rounded where the kind says) and RN(1 /
+// s) go into shared memory once a block.  Bound by its bytes (4 or 2 in, 1
+// out an element).
+enum PointKind { kBnQuant = 0, kBiasPreluQuant = 1, kBnQuantBf16 = 2, kBiasPreluQuantBf16 = 3 };
 
 template <int KIND>
 __global__ void __launch_bounds__(256)
-quant_point(const float* __restrict__ x, const float* __restrict__ p0, const float* __restrict__ p1,
+quant_point(const void* __restrict__ xv, const float* __restrict__ p0, const float* __restrict__ p1,
             const float* __restrict__ p2, const float* __restrict__ scale, int8_t* __restrict__ q,
             long long total, int c, int per_channel) {
+  constexpr bool BN = KIND == kBnQuant || KIND == kBnQuantBf16;
+  constexpr bool BF16 = KIND == kBnQuantBf16 || KIND == kBiasPreluQuantBf16;
+  constexpr bool BF16_IN = KIND == kBiasPreluQuantBf16;
   extern __shared__ double point_shared[];
   double* rs = point_shared;                     // c
   float* a = reinterpret_cast<float*>(rs + c);   // mean / bias
   float* m = a + c;                              // mul / alpha
-  float* d = m + c;                              // bias (kBnQuant)
+  float* d = m + c;                              // bias (BatchNorm)
   for (int k = threadIdx.x; k < c; k += blockDim.x) {
     rs[k] = 1.0 / static_cast<double>(per_channel ? scale[k] : scale[0]);
-    a[k] = p0[k];
+    a[k] = KIND == kBiasPreluQuantBf16 ? bf16r(p0[k]) : p0[k];
     m[k] = p1[k];
-    if (KIND == kBnQuant) d[k] = p2[k];
+    if (BN) d[k] = p2[k];
   }
   __syncthreads();
   auto one = [&](float v, int ch) -> int8_t {
-    const float y = KIND == kBnQuant ? __fadd_rn(__fmul_rn(__fsub_rn(v, a[ch]), m[ch]), d[ch])
-                                     : prelu(__fadd_rn(v, a[ch]), m[ch]);
+    float y;
+    if constexpr (BN) {
+      y = __fadd_rn(__fmul_rn(__fsub_rn(BF16 ? bf16r(v) : v, a[ch]), m[ch]), d[ch]);
+      if (BF16) y = bf16r(y);
+    } else if constexpr (BF16) {
+      y = prelu_bf16(bf16r(__fadd_rn(v, a[ch])), m[ch]);
+    } else {
+      y = prelu(__fadd_rn(v, a[ch]), m[ch]);
+    }
     return saturate(div_by_reciprocal(y, rs[ch]));
   };
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long groups = total / 4;
   for (long long g = first; g < groups; g += stride) {
-    const float4 v = reinterpret_cast<const float4*>(x)[g];
+    float v[4];
+    if constexpr (BF16_IN) {
+      // bfloat16 is the high half of a float: widening is a shift
+      const uint2 raw = reinterpret_cast<const uint2*>(xv)[g];
+      v[0] = __uint_as_float(raw.x << 16);
+      v[1] = __uint_as_float(raw.x & 0xFFFF0000u);
+      v[2] = __uint_as_float(raw.y << 16);
+      v[3] = __uint_as_float(raw.y & 0xFFFF0000u);
+    } else {
+      const float4 f = reinterpret_cast<const float4*>(xv)[g];
+      v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+    }
     int ch = static_cast<int>((g * 4) % c);
     char4 o;
-    o.x = one(v.x, ch);
+    o.x = one(v[0], ch);
     ch = ch + 1 == c ? 0 : ch + 1;
-    o.y = one(v.y, ch);
+    o.y = one(v[1], ch);
     ch = ch + 1 == c ? 0 : ch + 1;
-    o.z = one(v.z, ch);
+    o.z = one(v[2], ch);
     ch = ch + 1 == c ? 0 : ch + 1;
-    o.w = one(v.w, ch);
+    o.w = one(v[3], ch);
     reinterpret_cast<char4*>(q)[g] = o;
   }
-  for (long long i = groups * 4 + first; i < total; i += stride) q[i] = one(x[i], static_cast<int>(i % c));
+  for (long long i = groups * 4 + first; i < total; i += stride) {
+    const float v = BF16_IN ? __bfloat162float(static_cast<const __nv_bfloat16*>(xv)[i])
+                            : static_cast<const float*>(xv)[i];
+    q[i] = one(v, static_cast<int>(i % c));
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -332,9 +406,11 @@ __host__ __device__ inline int smem_bytes(int bn, bool alpha1, bool alpha2, int 
 }
 
 // The epilogue a kernel instance is built for: the output mode, whether
-// it applies alpha1 and alpha2, whether the next scale goes by element; or
-// GENERIC, which reads all of them from the parameters.
-constexpr int kEpiA1 = 4, kEpiA2 = 8, kEpiElemScale = 16, kEpiGeneric = 32;
+// it applies alpha1 and alpha2, whether the next scale goes by element,
+// its bfloat16 rounding points (kEpiBf16, kEpiOutBf16: the header); or
+// GENERIC, which reads all of them from the parameters (the rounding from
+// Params::rounding, the same two bits).
+constexpr int kEpiA1 = 4, kEpiA2 = 8, kEpiElemScale = 16, kEpiGeneric = 32, kEpiBf16 = 64, kEpiOutBf16 = 128;
 
 template <int BN, bool VEC, int EPI>
 __global__ void __launch_bounds__(THREADS) conv_fused(const __grid_constant__ Params p, int scale_mode_arg) {
@@ -344,6 +420,9 @@ __global__ void __launch_bounds__(THREADS) conv_fused(const __grid_constant__ Pa
   const bool has_a2 = GENERIC ? p.alpha2 != nullptr : (EPI & kEpiA2) != 0;
   const int scale_mode = GENERIC ? scale_mode_arg
                                  : (EPI & 3) != kInt8 ? kNoScale : (EPI & kEpiElemScale) ? kElementScale : kColumnScale;
+  const int rounding = GENERIC ? p.rounding : EPI & (kEpiBf16 | kEpiOutBf16);
+  const bool round_each = (rounding & kEpiBf16) != 0;
+  const bool round_out = (rounding & (kEpiBf16 | kEpiOutBf16)) != 0;
   constexpr int NW = BN < 64 ? BN : 64;  // one wgmma's width
   constexpr int NSUB = BN / NW;
   constexpr int STAGE = A_BYTES + BN * BK;  // one k-step's A and B
@@ -599,10 +678,21 @@ __global__ void __launch_bounds__(THREADS) conv_fused(const __grid_constant__ Pa
             if (!row_ok[e2] || co >= p.cout) continue;
           }
           float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[j][nb * 4 + e]), col_dq[col]), col_b[col]);
-          if (has_a1) y = prelu(y, t_alpha1[col * TP + row]);
-          if (has_a2) y = prelu(y, t_alpha2[col * TP + row]);
+          if (round_each) {
+            y = bf16r(y);
+            if (has_a1) y = prelu_bf16(y, t_alpha1[col * TP + row]);
+            if (has_a2) y = prelu_bf16(y, t_alpha2[col * TP + row]);
+          } else {
+            if (has_a1) y = prelu(y, t_alpha1[col * TP + row]);
+            if (has_a2) y = prelu(y, t_alpha2[col * TP + row]);
+            if (round_out) y = bf16r(y);
+          }
           if (mode == kFloat) {
-            static_cast<float*>(p.out)[(row_n[e2] * p.cout + co) * hwo + row_pix[e2]] = y;
+            const long long at = (row_n[e2] * p.cout + co) * hwo + row_pix[e2];
+            if (round_out)
+              static_cast<__nv_bfloat16*>(p.out)[at] = __float2bfloat16_rn(y);
+            else
+              static_cast<float*>(p.out)[at] = y;
             continue;
           }
           const double rs = scale_mode == kColumnScale ? col_rs[col]
@@ -646,23 +736,71 @@ cudaError_t launch_one(const Params& p, int scale_mode, dim3 grid, cudaStream_t 
 // The epilogues of the int8 forward have instances of their own: a
 // layer into the next int8 layer (PReLU, per-column scale), enc/Conv_7
 // into enc/Dense_0 (two PReLUs, per-element scale), the float32 outputs
-// with and without a PReLU, the raw sums; anything else runs the generic
+// with and without a PReLU, the raw sums, each at every channel tile; and
+// the bfloat16 kinds of the sim_demo forward at the tiles where it
+// launches them: a layer into the next (every tile; enc/Conv_0's byte
+// gather at 32), enc/Conv_7 into enc/Dense_0 with a per-tensor scale and
+// enc/Dense_0's bfloat16 output (128), dec/Dense_1's float32 epilogue
+// rounded once under strict_cast (128), dec/ConvTranspose2DTF_7's
+// bfloat16 output after its PReLU (32).  Anything else runs the generic
 // instance.
+constexpr int kB = kEpiBf16 | kEpiOutBf16;
+
+template <int BN, bool VEC, int EPI>
+constexpr bool instance() {
+  if constexpr ((EPI & (kEpiBf16 | kEpiOutBf16)) != 0 && !DVT_INT8_BF16) return false;
+  if constexpr ((EPI & (kEpiBf16 | kEpiOutBf16)) == 0 && DVT_INT8_BF16) return false;
+  if constexpr (!VEC) return EPI == (kInt8 | kEpiA1) || (BN == 32 && EPI == (kInt8 | kEpiA1 | kB));
+  switch (EPI) {
+    case kInt8 | kEpiA1:
+    case kInt8 | kEpiA1 | kEpiA2 | kEpiElemScale:
+    case kFloat | kEpiA1:
+    case kFloat:
+    case kRaw:
+    case kInt8 | kEpiA1 | kB:
+      return true;
+    case kInt8 | kEpiA1 | kEpiA2 | kB:
+    case kFloat | kB:
+    case kInt8 | kEpiA1 | kEpiOutBf16:
+      return BN == 128;
+    case kFloat | kEpiA1 | kB:
+      return BN == 32;
+    default:
+      return false;
+  }
+}
+
+template <int BN, bool VEC, int EPI>
+cudaError_t launch_kind(const Params& p, int scale_mode, dim3 grid, cudaStream_t stream) {
+  if constexpr (instance<BN, VEC, EPI>()) return launch_one<BN, VEC, EPI>(p, scale_mode, grid, stream);
+  return launch_one<BN, VEC, kEpiGeneric>(p, scale_mode, grid, stream);
+}
+
 template <int BN, bool VEC>
 cudaError_t launch_epi(const Params& p, int scale_mode, dim3 grid, cudaStream_t stream) {
   const int epi = p.mode | (p.alpha1 != nullptr ? kEpiA1 : 0) | (p.alpha2 != nullptr ? kEpiA2 : 0) |
-                  (scale_mode == kElementScale ? kEpiElemScale : 0);
+                  (scale_mode == kElementScale ? kEpiElemScale : 0) | p.rounding;
   switch (epi) {
     case kInt8 | kEpiA1:
-      return launch_one<BN, VEC, kInt8 | kEpiA1>(p, scale_mode, grid, stream);
+      return launch_kind<BN, VEC, kInt8 | kEpiA1>(p, scale_mode, grid, stream);
     case kInt8 | kEpiA1 | kEpiA2 | kEpiElemScale:
-      return launch_one<BN, VEC, kInt8 | kEpiA1 | kEpiA2 | kEpiElemScale>(p, scale_mode, grid, stream);
+      return launch_kind<BN, VEC, kInt8 | kEpiA1 | kEpiA2 | kEpiElemScale>(p, scale_mode, grid, stream);
     case kFloat | kEpiA1:
-      return launch_one<BN, VEC, kFloat | kEpiA1>(p, scale_mode, grid, stream);
+      return launch_kind<BN, VEC, kFloat | kEpiA1>(p, scale_mode, grid, stream);
     case kFloat:
-      return launch_one<BN, VEC, kFloat>(p, scale_mode, grid, stream);
+      return launch_kind<BN, VEC, kFloat>(p, scale_mode, grid, stream);
     case kRaw:
-      return launch_one<BN, VEC, kRaw>(p, scale_mode, grid, stream);
+      return launch_kind<BN, VEC, kRaw>(p, scale_mode, grid, stream);
+    case kInt8 | kEpiA1 | kB:
+      return launch_kind<BN, VEC, kInt8 | kEpiA1 | kB>(p, scale_mode, grid, stream);
+    case kInt8 | kEpiA1 | kEpiA2 | kB:
+      return launch_kind<BN, VEC, kInt8 | kEpiA1 | kEpiA2 | kB>(p, scale_mode, grid, stream);
+    case kFloat | kB:
+      return launch_kind<BN, VEC, kFloat | kB>(p, scale_mode, grid, stream);
+    case kInt8 | kEpiA1 | kEpiOutBf16:
+      return launch_kind<BN, VEC, kInt8 | kEpiA1 | kEpiOutBf16>(p, scale_mode, grid, stream);
+    case kFloat | kEpiA1 | kB:
+      return launch_kind<BN, VEC, kFloat | kEpiA1 | kB>(p, scale_mode, grid, stream);
     default:
       return launch_one<BN, VEC, kEpiGeneric>(p, scale_mode, grid, stream);
   }
@@ -671,15 +809,13 @@ cudaError_t launch_epi(const Params& p, int scale_mode, dim3 grid, cudaStream_t 
 template <int BN>
 cudaError_t launch(const Params& p, int scale_mode, dim3 grid, cudaStream_t stream) {
   // enc/Conv_0 (Cin = 6) is the one layer with a byte gather
-  if (p.cin % 16 != 0)
-    return p.mode == kInt8 && p.alpha1 != nullptr && p.alpha2 == nullptr && scale_mode == kColumnScale
-               ? launch_one<BN, false, kInt8 | kEpiA1>(p, scale_mode, grid, stream)
-               : launch_one<BN, false, kEpiGeneric>(p, scale_mode, grid, stream);
+  if (p.cin % 16 != 0) return launch_epi<BN, false>(p, scale_mode, grid, stream);
   return launch_epi<BN, true>(p, scale_mode, grid, stream);
 }
 
 }  // namespace
 
+#if !DVT_INT8_BF16
 extern "C" int dvt_quant_act(const void* x, const void* scale, void* q, int n, int c, int hw, int per_channel,
                              cudaStream_t stream) {
   if (hw == 1) {
@@ -696,13 +832,15 @@ extern "C" int dvt_quant_act(const void* x, const void* scale, void* q, int n, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (total) float32 and q (total) int8, channels last with c channels
-// innermost, x 16-byte aligned; p0, p1, p2 (c) float32: mean, mul, bias
-// (kind 0) or bias, alpha, unused (kind 1); scale (c) or (1).
+// x (total) float32 (bfloat16 for kind 3) and q (total) int8, channels
+// last with c channels innermost, x 16-byte aligned (8 for bfloat16); p0,
+// p1, p2 (c) float32: mean, mul, bias (kinds 0 and 2) or bias, alpha,
+// unused (kinds 1 and 3); scale (c) or (1).
 extern "C" int dvt_quant_point(const void* x, const void* p0, const void* p1, const void* p2, const void* scale,
                                void* q, int kind, int n, int c, int inner, int per_channel, cudaStream_t stream) {
-  if (kind != kBnQuant && kind != kBiasPreluQuant) return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 4 != 0 || c < 1) {
+  if (kind < kBnQuant || kind > kBiasPreluQuantBf16) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t align = kind == kBiasPreluQuantBf16 ? 8 : 16;
+  if (reinterpret_cast<uintptr_t>(x) % align != 0 || reinterpret_cast<uintptr_t>(q) % 4 != 0 || c < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long total = static_cast<long long>(n) * inner * c;
@@ -711,26 +849,46 @@ extern "C" int dvt_quant_point(const void* x, const void* p0, const void* p1, co
   const int blocks = static_cast<int>((groups + 255) / 256 < 8192 ? (groups + 255) / 256 : 8192);
   const size_t bytes = static_cast<size_t>(c) * (sizeof(double) + 3 * sizeof(float));
   if (bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const float* args[4] = {static_cast<const float*>(p0), static_cast<const float*>(p1),
-                          static_cast<const float*>(p2), static_cast<const float*>(scale)};
-  if (kind == kBnQuant)
-    quant_point<kBnQuant><<<blocks, 256, bytes, stream>>>(static_cast<const float*>(x), args[0], args[1], args[2],
-                                                          args[3], static_cast<int8_t*>(q), total, c, per_channel);
-  else
-    quant_point<kBiasPreluQuant><<<blocks, 256, bytes, stream>>>(static_cast<const float*>(x), args[0], args[1],
-                                                                 args[2], args[3], static_cast<int8_t*>(q), total,
-                                                                 c, per_channel);
+  const float *f0 = static_cast<const float*>(p0), *f1 = static_cast<const float*>(p1);
+  const float *f2 = static_cast<const float*>(p2), *fs = static_cast<const float*>(scale);
+  int8_t* qq = static_cast<int8_t*>(q);
+  switch (kind) {
+    case kBnQuant:
+      quant_point<kBnQuant><<<blocks, 256, bytes, stream>>>(x, f0, f1, f2, fs, qq, total, c, per_channel);
+      break;
+    case kBiasPreluQuant:
+      quant_point<kBiasPreluQuant><<<blocks, 256, bytes, stream>>>(x, f0, f1, f2, fs, qq, total, c, per_channel);
+      break;
+    case kBnQuantBf16:
+      quant_point<kBnQuantBf16><<<blocks, 256, bytes, stream>>>(x, f0, f1, f2, fs, qq, total, c, per_channel);
+      break;
+    default:
+      quant_point<kBiasPreluQuantBf16><<<blocks, 256, bytes, stream>>>(x, f0, f1, f2, fs, qq, total, c, per_channel);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+#endif
+
 // table: nclass rows of 23 ints (oy0, ox0, taps, kp, operand offset, 9 dy,
 // 9 dx), in host memory.  ws: with splits > 1, nclass * M * np_pad int32
-// partial sums, then one counter a tile; zeroed here.
-extern "C" int dvt_conv_fused(const void* a, const void* b, const void* dqw, const void* bias, const void* alpha1,
+// partial sums, then one counter a tile; zeroed here.  rounding: 0 (a
+// float32 epilogue) or kEpiBf16 | kEpiOutBf16 (a bfloat16 layer) or
+// kEpiOutBf16 (a float32 epilogue rounded once at the end); out is
+// bfloat16 in float mode when rounding is not 0.
+#if DVT_INT8_BF16
+#define DVT_CONV_FUSED dvt_conv_fused_bf16
+#else
+#define DVT_CONV_FUSED dvt_conv_fused
+#endif
+extern "C" int DVT_CONV_FUSED(const void* a, const void* b, const void* dqw, const void* bias, const void* alpha1,
                               const void* alpha2, const void* scale, void* out, void* ws, const void* table, int n,
                               int h, int w, int cin, int ho, int wo, int cout, int hq, int wq, int istride, int ostep,
-                              int nclass, int np_pad, int mode, int scale_len, int splits, cudaStream_t stream) {
-  if (nclass < 1 || nclass > MAX_CLASSES || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+                              int nclass, int np_pad, int mode, int scale_len, int splits, int rounding,
+                              cudaStream_t stream) {
+  if (nclass < 1 || nclass > MAX_CLASSES || splits < 1 || (rounding & ~(kEpiBf16 | kEpiOutBf16)) != 0 ||
+      (mode == kRaw && rounding != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.a = static_cast<const int8_t*>(a);
   p.b = static_cast<const int8_t*>(b);
@@ -742,7 +900,7 @@ extern "C" int dvt_conv_fused(const void* a, const void* b, const void* dqw, con
   p.out = out;
   p.n = n, p.h = h, p.w = w, p.cin = cin, p.ho = ho, p.wo = wo, p.cout = cout, p.hq = hq, p.wq = wq;
   p.istride = istride, p.ostep = ostep, p.np_pad = np_pad, p.mode = mode;
-  p.scale_len = scale_len, p.splits = splits;
+  p.scale_len = scale_len, p.splits = splits, p.rounding = rounding;
   const int* t = static_cast<const int*>(table);
   for (int c = 0; c < nclass; ++c, t += 5 + 2 * MAX_TAPS) {
     ClassDesc& cd = p.cls[c];

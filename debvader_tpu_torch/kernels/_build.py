@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into ``debvader_tpu_torch/_build/``,
 at first CUDA use, then loaded with ``ctypes``.  The library's file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per
-source at once and waits for all of them.
+carries a hash of the source (with the ``csrc/`` files it includes) and
+the flags, so an edited source is rebuilt and an unchanged one is
+reused.  ``build_all`` starts one ``nvcc`` per source at once and waits
+for all of them.
 
 Kernels held bit for bit against their plain versions are compiled with
 ``-fmad=false``: the plain PyTorch versions round each multiply and each
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -92,9 +94,17 @@ def _flags(name: str) -> tuple:
     return NVCC_FLAGS + (f"-fmad={fmad}",)
 
 
+def _source_bytes(name: str) -> bytes:
+    """``csrc/<name>.cu`` and the sources it includes from ``csrc/`` by
+    ``#include "..."`` (csrc/int8_conv_bf16.cu includes int8_conv.cu)."""
+    data = (CSRC / f"{name}.cu").read_bytes()
+    for included in re.findall(rb'^#include "([^"]+)"', data, re.MULTILINE):
+        data += (CSRC / included.decode()).read_bytes()
+    return data
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(_source_bytes(name) + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

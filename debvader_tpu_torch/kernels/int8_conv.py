@@ -6,7 +6,8 @@ contractions of int8 operands with ``preferred_element_type=int32``
 (``:340-347``, ``:399-407``, ``:447-452``), each followed by ``_prelu``
 (``:115``) and the next layer's ``_quant_act`` (``:172``); it has no
 Pallas kernel.  PyTorch has no int8 convolution on CUDA, so the port has
-its own, ``csrc/int8_conv.cu``:
+its own, ``csrc/int8_conv.cu`` (its bfloat16 epilogues' instances compiled
+apart, ``csrc/int8_conv_bf16.cu``):
 
 - ``quant_act(h, scale)``: float32 activations (N, C, H, W) or (N, F) to
   int8 ``clip(round_half_even(h / scale), -127, 127)``, channels last
@@ -40,14 +41,30 @@ integral; a conv or a stride-1 transposed conv as one class of all its
 taps; a dense layer as one 1 x 1 tap.  Each class's weights are packed in
 the order the tensor cores read them (``pack_operand``).
 
+bfloat16 models round where JAX's int8 forward rounds under a bfloat16
+compute dtype.  A layer carries two dtypes (``make_layer``): ``dtype``,
+the one its output and the PReLU(s) after it compute in (JAX's
+``(y + bias).astype(dtype)`` and ``_prelu``), and ``out_dtype``, the one
+it hands on (the cast at the decoder's reshape, :518).  With ``dtype``
+bfloat16, ``conv_fused`` rounds y after the bias and runs the PReLUs in
+bfloat16 arithmetic; with ``out_dtype`` bfloat16 it rounds before the
+quantizer and writes a float output as bfloat16.  dec/Dense_1 under
+``strict_cast`` is the one layer with a float32 ``dtype`` and a bfloat16
+``out_dtype``.  ``bn_quant`` follows ``bn.dtype`` (the stamps rounded to
+bfloat16, the BatchNorm in float32, rounded) and ``bias_prelu_quant`` a
+bfloat16 product (the bias added and the PReLU in bfloat16).
+
 The int32 sums are exact in any order (|acc| <= K * 127^2 < 2^31), so the
 kernel, the plain version and XLA agree bit for bit.  The plain versions
 convolve the int8 values in float64 (exact: every partial sum is below
-2^53) and apply the same epilogue in float32 ops.  A wrapper takes them
-only for CPU tensors; a CUDA tensor launches the kernel, and a failed build
-or launch raises.  ``quant_act.launches``, ``bn_quant.launches``,
+2^53) and apply the same epilogue in float32 ops, each rounding a
+``.to(torch.bfloat16)``.  A wrapper takes them only for CPU tensors; a
+CUDA tensor launches the kernel, and a failed build or launch raises.
+``quant_act.launches``, ``bn_quant.launches``,
 ``bias_prelu_quant.launches``, ``conv_fused.launches`` and
-``conv_s8.launches`` count the launches.
+``conv_s8.launches`` count the launches; of them, the bfloat16 kinds also
+add to ``bn_quant.launches_bf16``, ``bias_prelu_quant.launches_bf16`` and
+``conv_fused.launches_bf16_<kind>`` (conv, convT, dense).
 """
 
 from __future__ import annotations
@@ -69,8 +86,11 @@ __all__ = [
 
 KINDS = ("conv", "convT", "dense")
 _BM, _BK = 64, 32
-# epilogue modes of dvt_conv_fused
+# epilogue modes of dvt_conv_fused, and its rounding bits: the layer's
+# dtype bfloat16, the dtype it hands on bfloat16
 _FLOAT, _INT8, _RAW = 0, 1, 2
+_ROUND_EACH, _ROUND_OUT = 64, 128
+_DTYPES = (torch.float32, torch.bfloat16)
 # the per-class table the launcher reads: oy0, ox0, taps, kp, operand offset, 9 dy, 9 dx
 _TABLE_INTS = 23
 _MAX_CLASSES, _MAX_TAPS = 4, 9
@@ -81,8 +101,9 @@ class Int8Layer:
     """One quantized layer: ``qk`` the int8 kernel in the port's layout
     (conv (out, in, kh, kw), convT (in, out, kh, kw), dense (in, out)),
     ``rows`` the same as (Cout, K) rows ordered (ky, kx, ci); ``dqw`` and
-    ``bias`` float32 (Cout,).  ``plans`` caches the kernel's packed
-    operands and launch geometry by input shape."""
+    ``bias`` float32 (Cout,); ``dtype`` and ``out_dtype`` the epilogue's
+    (module docstring).  ``plans`` caches the kernel's packed operands and
+    launch geometry by input shape."""
 
     kind: str
     qk: torch.Tensor
@@ -90,7 +111,15 @@ class Int8Layer:
     dqw: torch.Tensor
     bias: torch.Tensor
     stride: int = 1
+    dtype: torch.dtype = torch.float32
+    out_dtype: torch.dtype = torch.float32
     plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def rounding(self) -> int:
+        """dvt_conv_fused's rounding bits for this layer's epilogue."""
+        return (_ROUND_EACH if self.dtype == torch.bfloat16 else 0) | (
+            _ROUND_OUT if self.out_dtype == torch.bfloat16 else 0)
 
     @property
     def cout(self) -> int:
@@ -181,17 +210,23 @@ def tap_classes(kind: str, ksize: int, stride: int, h: int, w: int) -> tuple:
 
 
 def make_layer(kind: str, qk: torch.Tensor, wscale: torch.Tensor, s_in: torch.Tensor, bias: torch.Tensor,
-               stride: int = 1) -> Int8Layer:
+               stride: int = 1, dtype: torch.dtype = torch.float32, out_dtype: torch.dtype | None = None) -> Int8Layer:
     """The layer's dequantization folded once, as JAX forms it: per-tensor
     ``dqw = s_in * wscale`` in float32; per-channel scales are already in
-    ``wscale`` (``dq = 1``)."""
+    ``wscale`` (``dq = 1``).  ``dtype`` is the epilogue's compute dtype,
+    ``out_dtype`` (by default ``dtype``) the one it hands on, each
+    float32 or bfloat16."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if qk.dtype != torch.int8:
         raise ValueError(f"the kernel must be int8, got {qk.dtype}")
+    out_dtype = dtype if out_dtype is None else out_dtype
+    if dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError(f"the epilogue's dtypes must be float32 or bfloat16, got {dtype} and {out_dtype}")
     wscale = wscale.to(torch.float32)
     dqw = s_in.to(torch.float32) * wscale if s_in.ndim == 0 else wscale.clone()
-    return Int8Layer(kind, qk, pack_kernel(qk, kind), dqw, bias.detach().to(torch.float32).contiguous(), stride)
+    return Int8Layer(kind, qk, pack_kernel(qk, kind), dqw, bias.detach().to(torch.float32).contiguous(), stride,
+                     dtype, out_dtype)
 
 
 def _channels(h: torch.Tensor, scale: torch.Tensor) -> int:
@@ -243,14 +278,14 @@ quant_act.launches = 0
 
 
 # the kinds of dvt_quant_point
-_BN_QUANT, _BIAS_PRELU_QUANT = 0, 1
+_BN_QUANT, _BIAS_PRELU_QUANT, _BN_QUANT_BF16, _BIAS_PRELU_QUANT_BF16 = 0, 1, 2, 3
 
 
-def _check_point(x: torch.Tensor, ndim: int, params: tuple, scale: torch.Tensor) -> int:
+def _check_point(x: torch.Tensor, ndim: int, params: tuple, scale: torch.Tensor, dtypes=(torch.float32,)) -> int:
     """Validate a fused quantization point's operands; returns C, the
     channels (the last dimension of x)."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"activations must be float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise ValueError(f"activations must be {' or '.join(str(d) for d in dtypes)}, got {x.dtype}")
     if x.ndim != ndim or not x.is_contiguous():
         raise ValueError(f"activations must be a contiguous {ndim}-d tensor, channels last, got {tuple(x.shape)} "
                          f"with strides {x.stride()}")
@@ -268,7 +303,7 @@ def _check_point(x: torch.Tensor, ndim: int, params: tuple, scale: torch.Tensor)
 
 
 def _launch_point(kind: int, x: torch.Tensor, p0, p1, p2, scale: torch.Tensor) -> torch.Tensor:
-    if x.data_ptr() % 16:  # a view into another tensor: the kernel reads 16-byte vectors
+    if x.data_ptr() % 16:  # a view into another tensor: the kernel reads 16- or 8-byte vectors
         x = x.clone()
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     p0, p1, scale = (t.detach().to(torch.float32).contiguous() for t in (p0, p1, scale))
@@ -285,54 +320,64 @@ def _launch_point(kind: int, x: torch.Tensor, p0, p1, p2, scale: torch.Tensor) -
 def bn_quant_plain(x: torch.Tensor, bn, scale: torch.Tensor) -> torch.Tensor:
     """quant_act_plain(bn(x.permute(0, 3, 1, 2)), scale): the forward's
     inference BatchNorm on the stamps (N, H, W, C), then the quantizer;
-    (N, H, W, C) int8."""
+    (N, H, W, C) int8.  A bfloat16 ``bn`` takes the stamps rounded to
+    bfloat16 and rounds its float32 result, as the bfloat16 encoder does."""
+    x = x if bn.dtype == torch.float32 else x.to(bn.dtype)
     return quant_act_plain(bn(x.permute(0, 3, 1, 2)), scale)
 
 
 def bn_quant(x: torch.Tensor, bn, scale: torch.Tensor) -> torch.Tensor:
     """enc/Conv_0's int8 input from the stamps x (N, H, W, C) float32,
-    contiguous: the inference BatchNorm ``bn`` (a ``models.layers.BatchNorm``)
-    and the quantizer by ``scale``, (N, H, W, C) int8.  Plain version for
-    CPU tensors; one ``dvt_quant_point`` launch for CUDA tensors, whose mul
-    is formed by the same torch ops as ``BatchNorm.forward``."""
+    contiguous: the inference BatchNorm ``bn`` (a ``models.layers.BatchNorm``,
+    float32 or bfloat16) and the quantizer by ``scale``, (N, H, W, C) int8.
+    Plain version for CPU tensors; one ``dvt_quant_point`` launch for CUDA
+    tensors, whose mul is formed by the same torch ops as
+    ``BatchNorm.forward``."""
     _check_point(x, 4, (bn.mean, bn.var, bn.scale, bn.bias), scale)
+    if bn.dtype not in _DTYPES:
+        raise ValueError(f"the BatchNorm's dtype must be float32 or bfloat16, got {bn.dtype}")
     if x.device.type == "cpu":
         return bn_quant_plain(x, bn, scale)
     with torch.no_grad():
         mul = torch.rsqrt(bn.var + bn.eps) * bn.scale
-    q = _launch_point(_BN_QUANT, x, bn.mean, mul, bn.bias, scale)
+    bf16 = bn.dtype == torch.bfloat16
+    q = _launch_point(_BN_QUANT_BF16 if bf16 else _BN_QUANT, x, bn.mean, mul, bn.bias, scale)
     _bn_quant.launches += 1
+    _bn_quant.launches_bf16 += bf16
     return q
 
 
 _bn_quant = bn_quant
-bn_quant.launches = 0
+bn_quant.launches = bn_quant.launches_bf16 = 0
 
 
 def bias_prelu_quant_plain(mm: torch.Tensor, bias: torch.Tensor, alpha: torch.Tensor,
                            scale: torch.Tensor) -> torch.Tensor:
     """quant_act_plain(prelu(mm + bias, alpha), scale): a dense layer's bias
-    and the PReLU after it on the product mm (N, F), then the quantizer;
-    (N, F) int8."""
-    return quant_act_plain(prelu(mm + bias, alpha), scale)
+    and the PReLU after it on the product mm (N, F), in mm's dtype (the
+    bias cast to it), then the quantizer; (N, F) int8."""
+    return quant_act_plain(prelu(mm + bias.to(mm.dtype), alpha), scale)
 
 
 def bias_prelu_quant(mm: torch.Tensor, bias: torch.Tensor, alpha: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
     """dec/Dense_1's int8 input from dec/Dense_0's product mm (N, F)
-    float32, contiguous: its ``bias``, the PReLU ``alpha`` (F,) and the
-    quantizer by ``scale``, (N, F) int8.  Plain version for CPU tensors;
+    float32 or bfloat16, contiguous: its ``bias``, the PReLU ``alpha`` (F,)
+    and the quantizer by ``scale``, (N, F) int8; a bfloat16 mm adds the
+    bias and runs the PReLU in bfloat16.  Plain version for CPU tensors;
     one ``dvt_quant_point`` launch for CUDA tensors."""
-    _check_point(mm, 2, (bias, alpha), scale)
+    _check_point(mm, 2, (bias, alpha), scale, _DTYPES)
     if mm.device.type == "cpu":
         return bias_prelu_quant_plain(mm, bias, alpha, scale)
-    q = _launch_point(_BIAS_PRELU_QUANT, mm, bias, alpha, None, scale)
+    bf16 = mm.dtype == torch.bfloat16
+    q = _launch_point(_BIAS_PRELU_QUANT_BF16 if bf16 else _BIAS_PRELU_QUANT, mm, bias, alpha, None, scale)
     _bias_prelu_quant.launches += 1
+    _bias_prelu_quant.launches_bf16 += bf16
     return q
 
 
 _bias_prelu_quant = bias_prelu_quant
-bias_prelu_quant.launches = 0
+bias_prelu_quant.launches = bias_prelu_quant.launches_bf16 = 0
 
 
 def _geometry(q: torch.Tensor, layer: Int8Layer) -> tuple:
@@ -391,21 +436,23 @@ def _check_epilogue(shape: tuple, alpha, flat_alpha, next_scale) -> int:
 def conv_fused_plain(q: torch.Tensor, layer: Int8Layer, alpha: torch.Tensor | None = None,
                      flat_alpha: torch.Tensor | None = None, next_scale: torch.Tensor | None = None) -> torch.Tensor:
     """quant_act_plain(prelu(conv_s8_plain(q, layer)), next_scale), laid out
-    as the kernel writes it: the PReLU ``alpha`` on the NCHW output, then
-    the output flattened channels last, the PReLU ``flat_alpha`` and the
-    quantizer with ``next_scale[f % L]`` at flat index f; float32 NCHW when
-    ``next_scale`` is None."""
+    as the kernel writes it: the output rounded to the layer's ``dtype``,
+    the PReLU ``alpha`` on the NCHW output, then the output flattened
+    channels last, the PReLU ``flat_alpha`` (each PReLU in ``dtype``), the
+    cast to ``out_dtype`` and the quantizer with ``next_scale[f % L]`` at
+    flat index f; NCHW in ``out_dtype`` when ``next_scale`` is None."""
     y = conv_s8_plain(q, layer)
     length = _check_epilogue(tuple(y.shape), alpha, flat_alpha, next_scale)
+    y = y.to(layer.dtype)
     if alpha is not None:
         y = prelu(y, alpha)
     if next_scale is None:
-        return y
+        return y.to(layer.out_dtype)
     nhwc = y.permute(0, 2, 3, 1) if y.ndim == 4 else y
     flat = nhwc.reshape(y.shape[0], -1)
     if flat_alpha is not None:
         flat = prelu(flat, flat_alpha)
-    return quant_act_plain(flat.reshape(-1, length), next_scale).reshape(nhwc.shape)
+    return quant_act_plain(flat.to(layer.out_dtype).reshape(-1, length), next_scale).reshape(nhwc.shape)
 
 
 @functools.lru_cache(maxsize=None)
@@ -463,7 +510,8 @@ def _plan(q: torch.Tensor, layer: Int8Layer, sms: int) -> _Plan:
     return plan
 
 
-def _launch(q: torch.Tensor, layer: Int8Layer, mode: int, alpha, flat_alpha, next_scale) -> torch.Tensor:
+def _launch(q: torch.Tensor, layer: Int8Layer, mode: int, alpha, flat_alpha, next_scale,
+            rounding: int = 0) -> torch.Tensor:
     if layer.ksize * layer.ksize * layer.cin * 127 * 127 >= 2**31:
         raise ValueError("K is too large for exact int32 accumulation")
     plan = _plan(q, layer, _sm_count(q.device.index if q.device.index is not None else torch.cuda.current_device()))
@@ -476,7 +524,7 @@ def _launch(q: torch.Tensor, layer: Int8Layer, mode: int, alpha, flat_alpha, nex
         dtype = torch.int8
     else:
         shape = (n, cout) if layer.kind == "dense" else (n, cout, ho, wo)
-        dtype = torch.int32 if mode == _RAW else torch.float32
+        dtype = torch.int32 if mode == _RAW else torch.bfloat16 if rounding & _ROUND_OUT else torch.float32
     out = torch.empty(shape, dtype=dtype, device=dev)
     length = _check_epilogue((n, cout) + (() if layer.kind == "dense" else (ho, wo)), alpha, flat_alpha, next_scale)
     ptrs = []
@@ -490,12 +538,14 @@ def _launch(q: torch.Tensor, layer: Int8Layer, mode: int, alpha, flat_alpha, nex
         ptrs.append(t)
     # split K's partial sums and tile counters, zeroed by the launcher
     ws = torch.empty(plan.ws_ints, dtype=torch.int32, device=dev) if plan.ws_ints else None
-    fn = _build.launcher("int8_conv", "dvt_conv_fused", 10, 16)
+    # the bfloat16 epilogues' instances are csrc/int8_conv_bf16.cu's
+    fn = (_build.launcher("int8_conv_bf16", "dvt_conv_fused_bf16", 10, 17) if rounding else
+          _build.launcher("int8_conv", "dvt_conv_fused", 10, 17))
     status = _build.call(
         fn, dev, q.data_ptr(), plan.operand.data_ptr(), layer.dqw.data_ptr(), layer.bias.data_ptr(),
         *(0 if t is None else t.data_ptr() for t in ptrs), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
         plan.table.ctypes.data,
-        n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, nclass, np_pad, mode, length, plan.splits,
+        n, h, w, cin, ho, wo, cout, hq, wq, istride, ostep, nclass, np_pad, mode, length, plan.splits, rounding,
     )
     _build.check(status, "int8_conv")
     return out
@@ -514,25 +564,31 @@ def conv_fused(q: torch.Tensor, layer: Int8Layer, alpha: torch.Tensor | None = N
                flat_alpha: torch.Tensor | None = None, next_scale: torch.Tensor | None = None) -> torch.Tensor:
     """The layer on int8 channels-last activations with its epilogue fused
     (module docstring): the next layer's int8 input with ``next_scale``,
-    float32 NCHW or (N, Cout) without.  Plain version for CPU tensors; one
-    ``dvt_conv_fused`` launch for CUDA tensors."""
+    NCHW or (N, Cout) in the layer's ``out_dtype`` without.  Plain version
+    for CPU tensors; one ``dvt_conv_fused`` launch for CUDA tensors."""
     _check_operands(q, layer)
     if q.device.type == "cpu":
         return conv_fused_plain(q, layer, alpha, flat_alpha, next_scale)
-    out = _launch(q.contiguous(), layer, _FLOAT if next_scale is None else _INT8, alpha, flat_alpha, next_scale)
+    out = _launch(q.contiguous(), layer, _FLOAT if next_scale is None else _INT8, alpha, flat_alpha, next_scale,
+                  layer.rounding)
     _conv_fused.launches += 1
+    if layer.rounding:
+        name = f"launches_bf16_{layer.kind}"
+        setattr(_conv_fused, name, getattr(_conv_fused, name) + 1)
     return out
 
 
 _conv_fused = conv_fused
-conv_fused.launches = 0
+conv_fused.launches = conv_fused.launches_bf16_conv = conv_fused.launches_bf16_convT = 0
+conv_fused.launches_bf16_dense = 0
 
 
 def conv_s8(q: torch.Tensor, layer: Int8Layer, raw: bool = False) -> torch.Tensor:
     """The layer on int8 channels-last activations: float32 NCHW or (N,
-    Cout), or with ``raw=True`` the int32 accumulators.  Plain version for
-    CPU tensors; ``dvt_conv_fused`` with no PReLU and no quantizer for CUDA
-    tensors."""
+    Cout) (the dequantization and the bias in float32, whatever the
+    layer's dtypes), or with ``raw=True`` the int32 accumulators.  Plain
+    version for CPU tensors; ``dvt_conv_fused`` with no PReLU, no rounding
+    and no quantizer for CUDA tensors."""
     _check_operands(q, layer)
     if q.device.type == "cpu":
         return conv_s8_plain(q, layer, raw)

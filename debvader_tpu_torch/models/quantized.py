@@ -18,7 +18,13 @@ and two large dense layers:
   (``_int8_forward``).
 
 BatchNorm, PReLU, the latent head, the decoder's small dense layer and, by
-default, the final band conv stay float32.  The layer names are the JAX
+default, the final band conv stay float.  Under ``ModelConfig.dtype=
+'bfloat16'`` the route rounds where JAX's does: the stamps and the
+BatchNorm's output, each int8 layer's output after the bias and each
+PReLU in bfloat16 (dec/Dense_1 under ``strict_cast`` in float32, rounded
+once at the decoder's reshape), the float layers as the bfloat16 model
+computes them; the encoder's and the band head's outputs are widened to
+float32.  The layer names are the JAX
 package's ("enc/Conv_0", "enc/Dense_0", "dec/Dense_1",
 "dec/ConvTranspose2DTF_0", "dec/Conv_0"); each int8 kernel is kept in the
 port's layout of its float weight (conv (out, in, kh, kw), transposed conv
@@ -63,12 +69,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from debvader_tpu_torch.config import ModelConfig, _not_ported
+from debvader_tpu_torch.config import ModelConfig
 from debvader_tpu_torch.device import fp32_math, resolve_device
 from debvader_tpu_torch.kernels import int8_conv
 from debvader_tpu_torch.models.distributions import MultivariateNormalTriL, PixelNormal, softplus_tril
-from debvader_tpu_torch.models.layers import Dense
-from debvader_tpu_torch.models.vae import DeblenderVAE
+from debvader_tpu_torch.models.layers import Dense, conv2d_same, conv_transpose2d_tf
+from debvader_tpu_torch.models.vae import DeblenderVAE, _reduced, _widened
 from debvader_tpu_torch.ops.normalize import denormalize_distribution, normalize_non_linear
 from debvader_tpu_torch.training.train import _latent_noise
 
@@ -85,9 +91,6 @@ __all__ = [
 
 # XLA's float32 reciprocal of the constant 127 (a jitted x / 127.0)
 _INV127 = float(np.float32(1.0) / np.float32(127.0))
-# the JAX int8 forward rounds the dequantized output, the bias and the
-# PReLU in the compute dtype; the kernels' epilogues are float32 only
-_BF16_TITLE = "the int8 route in bfloat16"
 
 
 # --------------------------------------------------------------------- utils
@@ -295,7 +298,8 @@ class QuantizedVAE:
 
     def int8_layers(self) -> dict:
         """{name: kernels/int8_conv.Int8Layer} of the quantized layers,
-        packed once for the model's device."""
+        packed once for the model's device; each epilogue computes in its
+        module's dtype and hands on the model's compute dtype."""
         dev = self.device
         if dev not in self._layers:
             layers = {}
@@ -303,7 +307,7 @@ class QuantizedVAE:
                 module = _module(self.model, name)
                 layers[name] = int8_conv.make_layer(
                     _kind(name), qk.to(dev), wscale.to(dev), self.act_scales[name].to(dev), module.bias,
-                    getattr(module, "stride", 1),
+                    getattr(module, "stride", 1), module.dtype, self.cfg.compute_dtype,
                 )
             self._layers[dev] = layers
         return self._layers[dev]
@@ -335,8 +339,9 @@ def params_fingerprint(model: DeblenderVAE) -> str:
 def _quant_point(h, name, module, qw, ascales, collect, fake):
     """One conv, transposed conv or dense layer of the float, calibration
     or QAT forward: float (its module) or, with ``fake`` and ``name`` in
-    ``qw``, the differentiable QAT form on the int8 grid (float
-    accumulation, STE gradients)."""
+    ``qw``, the differentiable QAT form on the int8 grid (float32
+    accumulation and bias, STE gradients), rounded once to the module's
+    dtype as JAX's ``(y + bias).astype(dtype)``."""
     if collect is not None:
         collect[name] = _calib_stat(h, collect.q, collect.per_channel)
     if qw is None or name not in qw:
@@ -344,8 +349,17 @@ def _quant_point(h, name, module, qw, ascales, collect, fake):
     s = ascales[name]
     out_axis, in_axis = _axes(name)
     w = _fake_quant_weight(_weight(module), out_axis, in_axis, s)
-    key = "kernel" if isinstance(module, Dense) else "weight"
-    return torch.func.functional_call(module, {key: w}, (_fake_quant_act(h, s),))
+    x = _fake_quant_act(h, s)
+    if module.dtype == torch.float32:
+        key = "kernel" if isinstance(module, Dense) else "weight"
+        return torch.func.functional_call(module, {key: w}, (x,))
+    if isinstance(module, Dense):
+        y = x @ w
+    else:
+        tf_layer = conv2d_same if _kind(name) == "conv" else conv_transpose2d_tf
+        y = tf_layer(x, w, module.stride)
+    bias = module.bias.view((-1,) + (1,) * (y.ndim - 2))
+    return (y + bias).to(module.dtype)
 
 
 # ------------------------------------------------------------------ forward
@@ -366,14 +380,15 @@ def _latent(h: torch.Tensor, cfg: ModelConfig, z_mode: str, generator, eps):
 
 
 def _head(h: torch.Tensor, cfg: ModelConfig) -> PixelNormal:
-    """The band head's ReLU output, cropped to the stamp, as a PixelNormal."""
+    """The band head's ReLU output, cropped to the stamp and widened to
+    float32, as a PixelNormal."""
     h = F.relu(h)
     crop = h.shape[-1] - cfg.stamp_size
     if crop > 0:
         lo = crop // 2
         hi = h.shape[-1] - (crop - lo)
         h = h[:, :, lo:hi, lo:hi]
-    h = h.permute(0, 2, 3, 1)
+    h = _widened(h.permute(0, 2, 3, 1))
     return PixelNormal(h[..., : cfg.nb_of_bands], cfg.scale_floor + h[..., cfg.nb_of_bands :])
 
 
@@ -390,18 +405,22 @@ def _forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw=None, ascales
     if qw is not None and not fake:
         return _int8_forward(model, x, z_mode, qw, ascales, generator, eps)
     cfg = model.cfg
+    dtype = cfg.compute_dtype
     enc, dec = model.encoder, model.decoder
-    h = enc.bn(x.permute(0, 3, 1, 2))
+    h = enc.bn(_reduced(x, dtype).permute(0, 3, 1, 2))
     for i, act in enumerate(enc.prelus):
         h = act(_quant_point(h, f"enc/Conv_{i}", enc.convs[i], qw, ascales, collect, fake))
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
     h = _quant_point(enc.flat_prelu(h), "enc/Dense_0", enc.dense, qw, ascales, collect, fake)
-    posterior, z = _latent(h, cfg, z_mode, generator, eps)
+    posterior, z = _latent(_widened(h), cfg, z_mode, generator, eps)
 
     # the small dense layer (latent -> 560) always runs in float
-    h = dec.prelu0(_quant_point(dec.prelu_in(z), "dec/Dense_0", dec.dense0, None, None, collect, fake))
+    h = dec.prelu0(_quant_point(dec.prelu_in(_reduced(z, dtype)), "dec/Dense_0", dec.dense0, None, None, collect,
+                                fake))
     h = dec.prelu1(_quant_point(h, "dec/Dense_1", dec.dense1, qw, ascales, collect, fake))
-    h = h.reshape(h.shape[0], dec.width, dec.width, cfg.filters[-1]).permute(0, 3, 1, 2)
+    # the cast at the reshape (a float32 dec/Dense_1 under strict_cast),
+    # which the transposed conv's own input cast repeats in the float path
+    h = h.to(dtype).reshape(h.shape[0], dec.width, dec.width, cfg.filters[-1]).permute(0, 3, 1, 2)
     for j, act in enumerate(dec.prelus):
         h = act(_quant_point(h, f"dec/ConvTranspose2DTF_{j}", dec.convts[j], qw, ascales, collect, fake))
     return _head(_quant_point(h, "dec/Conv_0", dec.head, qw, ascales, collect, fake), cfg), posterior
@@ -457,26 +476,30 @@ def _int8_forward(model: DeblenderVAE, x: torch.Tensor, z_mode: str, qw: dict, a
     (``bias_prelu_quant``, after dec/Dense_0's product); the stand-alone
     quantizer runs only after another float layer."""
     cfg = model.cfg
+    dtype = cfg.compute_dtype
     enc, dec = model.encoder, model.decoder
     if "enc/Conv_0" in qw:
         h = int8_conv.bn_quant(x.contiguous(), enc.bn, ascales["enc/Conv_0"])
     else:
-        h = enc.bn(x.permute(0, 3, 1, 2))
+        h = enc.bn(_reduced(x, dtype).permute(0, 3, 1, 2))
     last = len(enc.convs) - 1
     for i, act in enumerate(enc.prelus):
         h = _int8_step(h, f"enc/Conv_{i}", enc.convs[i], qw, ascales, act, enc.flat_prelu if i == last else None,
                        "enc/Dense_0" if i == last else f"enc/Conv_{i + 1}")
-    posterior, z = _latent(_int8_step(h, "enc/Dense_0", enc.dense, qw, ascales), cfg, z_mode, generator, eps)
+    h = _widened(_int8_step(h, "enc/Dense_0", enc.dense, qw, ascales))
+    posterior, z = _latent(h, cfg, z_mode, generator, eps)
 
-    h = dec.prelu_in(z)
+    h = dec.prelu_in(_reduced(z, dtype))
     if "dec/Dense_1" in qw and dec.dense0.scheme is None:
-        h = int8_conv.bias_prelu_quant((h @ dec.dense0.kernel).contiguous(), dec.dense0.bias, dec.prelu0.alpha,
-                                       ascales["dec/Dense_1"])
+        # dec/Dense_0's product in its dtype, as Dense.forward forms it
+        mm = h.to(dec.dense0.dtype) @ dec.dense0.kernel.to(dec.dense0.dtype)
+        h = int8_conv.bias_prelu_quant(mm.contiguous(), dec.dense0.bias, dec.prelu0.alpha, ascales["dec/Dense_1"])
     else:
         h = dec.prelu0(dec.dense0(h))
     h = _int8_step(h, "dec/Dense_1", dec.dense1, qw, ascales, dec.prelu1, None, "dec/ConvTranspose2DTF_0")
     shape = (h.shape[0], dec.width, dec.width, cfg.filters[-1])
-    h = h.view(shape) if h.dtype == torch.int8 else h.reshape(shape).permute(0, 3, 1, 2)
+    # the cast at the reshape (a float32 dec/Dense_1 under strict_cast)
+    h = h.view(shape) if h.dtype == torch.int8 else h.to(dtype).reshape(shape).permute(0, 3, 1, 2)
     last = len(dec.convts) - 1
     for j, act in enumerate(dec.prelus):
         h = _int8_step(h, f"dec/ConvTranspose2DTF_{j}", dec.convts[j], qw, ascales, act, None,
@@ -529,8 +552,6 @@ def quantize_vae(
     JAX package's measured notes on each option apply
     (debvader_tpu/models/quantized.py)."""
     cfg = model.cfg
-    if cfg.dtype != "float32":
-        _not_ported(f"quantize_vae of a dtype={cfg.dtype!r} model", _BF16_TITLE)
     if cfg.decoder_f32_stages:
         raise ValueError(
             "quantize_vae does not support ModelConfig.decoder_f32_stages: "
@@ -761,13 +782,11 @@ def qat_finetune(
 def _port_cfg(model_cfg: dict) -> ModelConfig:
     """The port's ModelConfig from a meta.json ``model_cfg`` (the JAX
     package's fields, all of which the port's config carries).
-    ``strict_cast``, ``kl_weight`` and ``decoder_subpixel`` change nothing
-    in the float32 int8 forward; a bfloat16 bundle raises."""
+    ``kl_weight`` and ``decoder_subpixel`` change nothing in the int8
+    forward, nor does ``strict_cast`` in float32."""
     kw = dict(model_cfg)
     if kw.get("decoder_f32_stages", 0):
         raise ValueError("a quantized bundle cannot carry ModelConfig.decoder_f32_stages")
-    if kw.get("dtype", "float32") != "float32":
-        _not_ported(f"a quantized bundle with ModelConfig dtype={kw['dtype']!r}", _BF16_TITLE)
     for key in ("filters", "kernels"):
         kw[key] = tuple(kw[key])
     if kw.get("layer_precision") is not None:

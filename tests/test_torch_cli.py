@@ -176,19 +176,36 @@ def test_cli_deblend_model_flags(weights_dir):
     np.testing.assert_array_equal(means, want)
 
 
-def test_cli_quantize_and_serve(weights_dir):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cli_quantize_and_serve(weights_dir, dtype):
+    """quantize (with QAT) then serve --quantized; ``--dtype bfloat16``
+    writes a bfloat16 bundle, which serves the same field as the bundle's
+    own DeblendField(quantized=) does, bit for bit."""
+    import debvader_tpu_torch as dtt
+    from debvader_tpu_torch.models.quantized import load_quantized
+
     root, weights = weights_dir
     field = _field(root)
     np.save(root / "centers_q.npy", np.asarray([[-24.0, -14.0], [26.0, 16.0]], np.float32))
-    bundle = root / "int8_bundle"
-    rc = main(["quantize", *TINY, "--weights", str(weights), "--out", str(bundle), "--calib-n", "8",
-               "--qat-steps", "2", "--qat-batch", "4"])
+    bundle = root / f"int8_bundle_{dtype}"
+    rc = main(["quantize", *TINY, "--dtype", dtype, "--weights", str(weights), "--out", str(bundle), "--calib-n",
+               "8", "--qat-steps", "2", "--qat-batch", "4"])
     assert rc == 0
+    assert json.loads((root / f"int8_bundle_{dtype}.json").read_text())["model_cfg"]["dtype"] == dtype
     rc = main(["serve", *TINY, "--weights", str(weights), "--field", str(field),
-               "--centers", str(root / "centers_q.npy"), "--out-prefix", str(root / "q8"),
+               "--centers", str(root / "centers_q.npy"), "--out-prefix", str(root / f"q8_{dtype}"),
                "--quantized", str(bundle)])
     assert rc == 0
-    assert np.isfinite(np.load(str(root / "q8_residual.npy"))).all()
+    residual = np.load(str(root / f"q8_{dtype}_residual.npy"))
+    assert np.isfinite(residual).all()
+    if dtype == "bfloat16":
+        qv = load_quantized(bundle, device="cpu")
+        assert qv.cfg.dtype == "bfloat16"
+        cfg = dtt.PipelineConfig(cutout_size=23, nb_of_bands=3)
+        _, want = dtt.DeblendField(_net(weights), np.load(field), cutout_size=23, nb_of_bands=3,
+                                   quantized=qv, cfg=cfg, device="cpu").deblend_and_render(
+            np.load(root / "centers_q.npy"))
+        np.testing.assert_array_equal(residual, want)
 
 
 def test_cli_iterative_serve(weights_dir):
@@ -237,9 +254,24 @@ def test_cli_train_on_a_mesh(weights_dir, tmp_path):
 
 
 def test_cli_what_still_raises(weights_dir, tmp_path):
-    root, _ = weights_dir
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: reference checkpoint import"):
-        main(["import-weights", "--ckpt", "model", "--out", str(tmp_path / "w")])
+    """Nothing raises NotImplementedError any more: import-weights, the
+    last command that did, reads a TensorBundle (the packaged sim_demo
+    weights written as one) into a weights file equal to those weights,
+    and a checkpoint that is not there raises FileNotFoundError."""
+    from debvader_tpu_torch.utils.tf_checkpoint import write_bundle
+    from debvader_tpu_torch.utils.weight_import import export_to_tensors
+    from debvader_tpu_torch.weights import load_flax_npz, weights_file
+
+    with pytest.raises(FileNotFoundError):
+        main(["import-weights", "--ckpt", str(tmp_path / "model"), "--out", str(tmp_path / "w")])
+    shipped = load_flax_npz(weights_file("sim_demo"))
+    write_bundle(tmp_path / "ckpt" / "sim_demo.ckpt", export_to_tensors(shipped), shards=2)
+    assert main(["import-weights", "--ckpt", str(tmp_path / "ckpt" / "sim_demo.ckpt"), "--out",
+                 str(tmp_path / "w")]) == 0
+    got = load_flax_npz(tmp_path / "w.npz")
+    assert got.keys() == shipped.keys()
+    for k, v in shipped.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_cli_without_device_raises_without_cuda(weights_dir):

@@ -8,6 +8,7 @@ partial sums); 2e-5 relative to the output's scale is the bound the repo
 already holds single TF-SAME conv layers to (tests/test_torch_parity.py).
 """
 
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -208,6 +209,18 @@ def test_import_pulls_in_no_jax_or_reference_package():
                                device="cpu")
         qdf.deblend_and_render(np.zeros((1, 2), np.float32))
         quantized.load_quantized("sim_demo_int8", device="cpu")
+        bfq = quantized.quantize_vae(dtt.DeblenderVAE(dtt.ModelConfig(stamp_size=23, nb_of_bands=3, latent_dim=4,
+                                                                      filters=(8, 16), kernels=(3, 3),
+                                                                      dtype="bfloat16")),
+                                     np.ones((2, 23, 23, 3), np.float32))
+        quantized.quantized_forward(bfq, np.ones((1, 23, 23, 3), np.float32), z_mode="mean")
+        import tempfile
+        from debvader_tpu_torch import weights
+        from debvader_tpu_torch.utils import parity, tf_checkpoint, weight_import
+        with tempfile.TemporaryDirectory() as tmp:
+            tf_checkpoint.write_bundle(tmp + "/w.ckpt", weight_import.export_to_tensors(
+                weights.flax_from_state_dict(net.state_dict(), net.cfg), net.cfg), shards=2)
+            weight_import.import_reference_checkpoint(tmp + "/w.ckpt", net.cfg)
         from debvader_tpu_torch import cli, compat
         from debvader_tpu_torch.utils import export, flops
         flops.forward_macs(tiny)
@@ -302,8 +315,8 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     )
 
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "label_select", "matched_filter",
-        "parent_race", "registration", "render", "tail_fused",
+        "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "int8_conv_bf16", "label_select",
+        "matched_filter", "parent_race", "registration", "render", "tail_fused",
     ]
 
     def no_build(name):
@@ -328,8 +341,14 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         int8_conv.conv_s8,
         int8_conv.conv_fused,
     )
-    bf16_counters = (render.render_field_kernel, render.place_patches)
-    before = [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters]
+    bf16_counters = (render.render_field_kernel, render.place_patches, int8_conv.bn_quant, int8_conv.bias_prelu_quant)
+    bf16_fused = ("launches_bf16_conv", "launches_bf16_convT", "launches_bf16_dense")
+
+    def count():
+        return ([fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters]
+                + [getattr(int8_conv.conv_fused, k) for k in bf16_fused])
+
+    before = count()
     img = np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32)
     dtt.detect_objects(img, device="cpu")
     dtt.detect_objects(img, dtt.DetectionConfig(use_pallas_filter=True), device="cpu")
@@ -357,4 +376,10 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     int8_conv.conv_fused(q, layer, torch.ones(4, 4, 4), None, torch.tensor(0.25))
     int8_conv.bn_quant(torch.ones(1, 7, 7, 3), dtt.models.layers.BatchNorm(3), torch.tensor(0.5))
     int8_conv.bias_prelu_quant(torch.ones(2, 5), torch.zeros(5), torch.ones(5), torch.tensor(0.5))
-    assert [fn.launches for fn in counters] + [fn.launches_bf16 for fn in bf16_counters] == before
+    # the bfloat16 epilogues and points
+    bf = dataclasses.replace(layer, dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    int8_conv.conv_fused(q, bf, torch.ones(4, 4, 4), None, torch.tensor(0.25))
+    int8_conv.conv_fused(q, bf, torch.ones(4, 4, 4))
+    int8_conv.bn_quant(torch.ones(1, 7, 7, 3), dtt.models.layers.BatchNorm(3, dtype=torch.bfloat16), torch.tensor(0.5))
+    int8_conv.bias_prelu_quant(torch.ones(2, 5, dtype=torch.bfloat16), torch.zeros(5), torch.ones(5), torch.tensor(0.5))
+    assert count() == before

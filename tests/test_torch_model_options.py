@@ -506,8 +506,10 @@ def test_quantized_bundle_options():
     """A float32 bundle whose config says decoder_subpixel=True (and
     strict_cast=False, another kl_weight) serves bit for bit the int8
     forward of the same bundle without them, as JAX's int8 forward reads
-    none of them; a bfloat16 bundle, and quantize_vae of a bfloat16 model,
-    raise under the new title."""
+    none of them; a bfloat16 bundle's config loads, and quantize_vae of a
+    bfloat16 model gives a bundle whose int8 layers round in bfloat16
+    (dec/Dense_1 in float32 under strict_cast) and serves finite
+    outputs."""
     from debvader_tpu.models import quantized as jq
 
     from debvader_tpu_torch.models import quantized as tq
@@ -536,11 +538,16 @@ def test_quantized_bundle_options():
     meta = tq._meta(qv_sub)
     assert meta["model_cfg"]["decoder_subpixel"] is True
     assert tq._port_cfg(meta["model_cfg"]) == cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: the int8 route in bfloat16"):
-        tq._port_cfg(dict(meta["model_cfg"], dtype="bfloat16"))
+    assert tq._port_cfg(dict(meta["model_cfg"], dtype="bfloat16")) == dataclasses.replace(cfg, dtype="bfloat16")
     bf = DeblenderVAE(dataclasses.replace(qv.cfg, dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: the int8 route in bfloat16"):
-        tq.quantize_vae(bf, x)
+    bf.load_state_dict(qv.model.state_dict())
+    qbf = tq.quantize_vae(bf.eval(), x)
+    layers = qbf.int8_layers()
+    assert {n: (l.dtype, l.out_dtype) for n, l in layers.items() if n != "dec/Dense_1"} == dict.fromkeys(
+        set(layers) - {"dec/Dense_1"}, (torch.bfloat16, torch.bfloat16))
+    assert (layers["dec/Dense_1"].dtype, layers["dec/Dense_1"].out_dtype) == (torch.float32, torch.bfloat16)
+    loc = tq.quantized_forward(qbf, x, z_mode="mean")[0].loc
+    assert loc.dtype == torch.float32 and bool(torch.isfinite(loc).all())
 
 
 def _jax_bundle_dir():

@@ -27,6 +27,22 @@ What is exact and what is held to a tolerance:
   the mercy of summation order; see ``_qat_bundles``).  Adam's first step
   is a sign function: the updated parameters equal JAX's within 1e-6 but
   for a counted share of at most ``FLIP_SHARE``.
+- **bfloat16** (``ModelConfig.dtype='bfloat16'``, cases suffixed ``_bf16``,
+  ``_bf16_loose`` for ``strict_cast=False``): each int8 layer's bfloat16
+  epilogue, dec/Dense_1's float32 one rounded once under ``strict_cast``,
+  both float -> int8 points, bfloat16 halfway points and values past the
+  largest bfloat16, bit for bit JAX's eager functions.  The whole forward
+  holds loc and scale within ``BF16_ULPS`` bfloat16 ulps of their scale and
+  the int8 codes that differ to ``FLIP_SHARE``: the float bfloat16 layers
+  between the int8 ones (dec/Dense_0's contraction, the band head) round
+  their own contraction once, within one bfloat16 ulp of JAX's (read: 0
+  codes differing and loc equal on TINY and on sim_demo at full width,
+  scale one ulp off on 1 of 62,658 elements there).  Calibration: JAX's
+  statistics come from its jitted forward, so each scale is held within
+  one bfloat16 ulp of its statistic (``_calib_stat`` of bfloat16
+  activations is a bfloat16 value), the weights bit for bit given JAX's
+  scales.  QAT gradients against JAX's jitted step within
+  ``BF16_GRAD_TOL`` of each leaf's scale.
 """
 
 import dataclasses
@@ -64,27 +80,51 @@ LOC_TOL = 1e-5
 SCALE_RTOL = 1e-4
 FLIP_SHARE = 1e-3
 GRAD_TOL = 1e-3
+BF16_ULPS = 2
+# bfloat16 QAT gradients against JAX's eager step, relative to each leaf's
+# largest magnitude: read 2.7e-2 and 4.7e-2 (distill, per tensor and per
+# channel), 6.3e-3 and 7.4e-3 (ELBO).  The distillation residual
+# (student - teacher, about 1e-3) is a few bfloat16 ulps of the outputs
+# (0.14), and the float bfloat16 layers and one float32 conv summation
+# are within one ulp of JAX's, not bit for bit; JAX's own jitted step is
+# 7e-3 to 1.23 off its eager one.
+BF16_GRAD_TOL = 0.1
 REPO = Path(__file__).resolve().parent.parent
 
 
+def _dtype_case(case: str) -> tuple:
+    """(case, dtype, strict_cast) of a case name: a ``_bf16`` suffix is a
+    bfloat16 model, ``_bf16_loose`` one with strict_cast=False."""
+    if case.endswith("_bf16_loose"):
+        return case[: -len("_bf16_loose")], "bfloat16", False
+    if case.endswith("_bf16"):
+        return case[: -len("_bf16")], "bfloat16", True
+    return case, "float32", True
+
+
 @functools.lru_cache(maxsize=None)
-def _tiny():
+def _tiny(dtype="float32", strict=True):
     """JAX's TINY model of tests/test_quantized.py (init from PRNGKey(0)),
-    the port's on the same variables, and the calibration stamps."""
-    jmodel = JaxVAE(JaxModelConfig(**TINY_KW))
-    # jitted: the same values as eager, without an op-by-op compile
-    variables = jax.jit(lambda key: jax_init_vae(jmodel, key))(jax.random.PRNGKey(0))
-    tmodel = DeblenderVAE(ModelConfig(**TINY_KW))
+    the port's on the same variables, and the calibration stamps; with
+    ``dtype`` and ``strict_cast`` in both configs."""
+    kw = dict(TINY_KW, dtype=dtype, strict_cast=strict)
+    jmodel = JaxVAE(JaxModelConfig(**kw))
+    if dtype == "float32" and strict:
+        # jitted: the same values as eager, without an op-by-op compile
+        variables = jax.jit(lambda key: jax_init_vae(jmodel, key))(jax.random.PRNGKey(0))
+    else:
+        variables = _tiny()[1]
+    tmodel = DeblenderVAE(ModelConfig(**kw))
     tmodel.load_state_dict(state_dict_from_flax(flatten_flax(variables), tmodel.cfg))
     x = np.random.default_rng(0).normal(size=(4, 23, 23, 3)).astype(np.float32)
     return jmodel, variables, tmodel.eval(), x
 
 
 @functools.lru_cache(maxsize=None)
-def _bundles(granularity="per_tensor", normalise=False):
+def _bundles(granularity="per_tensor", normalise=False, dtype="float32", strict=True):
     """A JAX bundle calibrated by JAX and the port's copy of it
     (quantized_from_jax): the same int8 kernels and scales."""
-    jmodel, variables, _, x = _tiny()
+    jmodel, variables, _, x = _tiny(dtype, strict)
     jqv = jq.quantize_vae(jmodel, variables, jnp.asarray(x), rng=jax.random.PRNGKey(1),
                           act_granularity=granularity, normalise=normalise)
     return jqv, tq._from_arrays(*quantized_from_jax(jqv))
@@ -96,6 +136,26 @@ def _stamps(n=6, seed=5):
 
 def _bits(a):
     return np.asarray(a, np.float32).view(np.int32)
+
+
+def _bf16_bits(a) -> np.ndarray:
+    """The 16-bit patterns of a bfloat16 torch tensor or JAX array, every
+    NaN as one pattern (PyTorch and XLA write different NaN payloads)."""
+    bits = a.view(torch.int16).numpy().view(np.uint16) if isinstance(a, torch.Tensor) else np.asarray(a).view(
+        np.uint16)
+    return np.where((bits & 0x7FFF) > 0x7F80, 0x7FC0, bits)
+
+
+def _torch_bf16(a) -> torch.Tensor:
+    """An array of bfloat16 values (a JAX bfloat16 array, or float32 that
+    holds bfloat16 values) as a torch bfloat16 tensor, bit for bit."""
+    b = np.asarray(jnp.asarray(a).astype(jnp.bfloat16))
+    return torch.from_numpy(np.ascontiguousarray(b.view(np.int16))).view(torch.bfloat16)
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    return 2.0 ** (int(np.floor(np.log2(abs(x)))) - 7)
 
 
 # ------------------------------------------------------------ the int8 layers
@@ -110,13 +170,17 @@ _LAYERS = [
 ]
 
 
-@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "per_tensor_bf16", "per_channel_bf16"])
 @pytest.mark.parametrize("kind, stride, dims", _LAYERS, ids=[f"{k}{s}" for k, s, _ in _LAYERS])
 def test_int8_layer_matches_jax(kind, stride, dims, granularity):
     """quant_act and conv_s8's plain versions against JAX's _quant_act and
     its int32 lax contraction and dequantization (quantized.py:340-349,
     :399-409, :447-454): the int8 activations, the int32 accumulators and
-    the float32 outputs bit for bit."""
+    the float32 outputs bit for bit.  ``_bf16``: conv_fused's bfloat16
+    epilogue on bfloat16 activations against JAX's eager layer under a
+    bfloat16 compute dtype, bit for bit (the dense also with a float32
+    epilogue cast once, dec/Dense_1 under strict_cast)."""
+    granularity, dtype, _ = _dtype_case(granularity)
     n, size, cin, cout = dims
     rng = np.random.default_rng([cin, cout, stride, granularity == "per_channel"])
     shape = (n, cin) if kind == "dense" else (n, size, size, cin)
@@ -127,6 +191,9 @@ def test_int8_layer_matches_jax(kind, stride, dims, granularity):
     qk = rng.integers(-127, 128, kshape).astype(np.int8)
     wscale = rng.uniform(1e-3, 1e-2, cout).astype(np.float32)
     bias = rng.normal(size=cout).astype(np.float32)
+    if dtype == "bfloat16":
+        _check_bf16_layer(kind, stride, h, s_in, qk, wscale, bias)
+        return
 
     jqa = jq._quant_act(jnp.asarray(h), jnp.asarray(s_in))
     if kind == "conv":
@@ -153,6 +220,35 @@ def test_int8_layer_matches_jax(kind, stride, dims, granularity):
     np.testing.assert_array_equal(q.numpy(), np.asarray(jqa))
     np.testing.assert_array_equal(int8_conv.conv_s8(q, layer, raw=True).numpy(), acc)
     np.testing.assert_array_equal(_bits(int8_conv.conv_s8(q, layer).numpy()), _bits(want))
+
+
+def _check_bf16_layer(kind, stride, h, s_in, qk, wscale, bias):
+    """JAX's eager _apply_conv / _apply_convT / _apply_dense with a
+    bfloat16 compute dtype on bfloat16 activations (and, for the dense, a
+    float32 one cast to bfloat16 after, dec/Dense_1 under strict_cast)
+    against conv_fused's plain version with the same epilogue dtypes."""
+    name = {"conv": "enc/Conv_0", "convT": "dec/ConvTranspose2DTF_0", "dense": "dec/Dense_1"}[kind]
+    params = {name.split("/")[1]: {"bias": jnp.asarray(bias)}}
+    qw, ascales = {name: (jnp.asarray(qk), jnp.asarray(wscale))}, {name: jnp.asarray(s_in)}
+    hb = jnp.asarray(h).astype(jnp.bfloat16)
+    th = _torch_bf16(hb if kind == "dense" else jnp.moveaxis(hb, -1, 1))
+    q = int8_conv.quant_act(th, torch.from_numpy(s_in))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq._quant_act(hb, jnp.asarray(s_in))))
+    tqk = torch.from_numpy(np.ascontiguousarray(qk if kind == "dense" else np.transpose(qk, (3, 2, 0, 1))))
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),) + (((jnp.float32, torch.float32),) if kind == "dense" else ()):
+        if kind == "conv":
+            want = jq._apply_conv(hb, name, params, (stride, stride), qw, ascales, None, jdt)
+        elif kind == "convT":
+            want = jq._apply_convT(hb, name, params, (stride, stride), qw, ascales, None, jdt)
+        else:
+            want = jq._apply_dense(hb, name, params, qw, ascales, None, jdt)
+        want = want.astype(jnp.bfloat16)
+        layer = int8_conv.make_layer(kind, tqk, torch.from_numpy(wscale), torch.from_numpy(s_in),
+                                     torch.from_numpy(bias), stride, tdt, torch.bfloat16)
+        got = int8_conv.conv_fused(q, layer)
+        assert got.dtype == torch.bfloat16
+        want = want if kind == "dense" else jnp.moveaxis(want, -1, 1)
+        np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
 
 
 def test_int8_layer_extremes_and_packing():
@@ -283,13 +379,20 @@ def _record_int8_inputs(monkeypatch, sink):
 
 
 @pytest.mark.parametrize("z_mode", ["mean", "sample"])
-@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "per_tensor_bf16", "per_channel_bf16",
+                                         "per_tensor_bf16_loose"])
 def test_int8_forward_matches_jax_eager(monkeypatch, granularity, z_mode):
     """The int8 forward against JAX's eager quantized_forward on the same
     bundle and stamps ('sample': JAX's eps injected): the share of int8
     activations that differ at each quantization point, 0 before
-    dec/Dense_1; loc and scale within LOC_TOL of their scale."""
-    jqv, tqv = _bundles(granularity)
+    dec/Dense_1; loc and scale within LOC_TOL of their scale.  ``_bf16``
+    (``_loose``: strict_cast=False): JAX's own bfloat16 bundle loaded into
+    the port; the int8 codes that differ held to FLIP_SHARE at every point
+    (read: 0), loc and scale to BF16_ULPS bfloat16 ulps of their scale
+    (read: equal), the posterior bit for bit."""
+    granularity, dtype, strict = _dtype_case(granularity)
+    jqv, tqv = _bundles(granularity, dtype=dtype, strict=strict)
+    assert tqv.cfg.dtype == dtype and tqv.cfg.strict_cast == strict
     x = _stamps()
     rng = jax.random.PRNGKey(7)
     eps = torch.from_numpy(np.asarray(jax.random.normal(rng, (6, 8)))) if z_mode == "sample" else None
@@ -302,14 +405,19 @@ def test_int8_forward_matches_jax_eager(monkeypatch, granularity, z_mode):
              "dec/ConvTranspose2DTF_0", "dec/ConvTranspose2DTF_1", "dec/ConvTranspose2DTF_2",
              "dec/ConvTranspose2DTF_3"]
     assert len(jacts) == len(tacts) == len(names)
-    shares = {n: float((a != b).mean()) for n, a, b in zip(names, jacts, tacts)}
-    print(f"{granularity} {z_mode}: int8 activations differing from JAX's {shares}")
-    assert all(shares[n] == 0.0 for n in names[:5])
+    shares = {n: float((a != b.reshape(a.shape)).mean()) for n, a, b in zip(names, jacts, tacts)}
+    print(f"{granularity} {dtype} strict_cast={strict} {z_mode}: int8 activations differing from JAX's {shares}")
+    if dtype == "float32":
+        assert all(shares[n] == 0.0 for n in names[:5])
+    else:
+        assert all(share <= FLIP_SHARE for share in shares.values())
     for got, want in ((td.loc, jd.loc), (td.scale, jd.scale)):
         want = np.asarray(want)
         err = float(np.abs(got.numpy() - want).max())
-        print(f"{granularity} {z_mode}: max abs difference {err} of scale {float(np.abs(want).max())}")
-        assert err <= LOC_TOL * float(np.abs(want).max())
+        print(f"{granularity} {dtype} {z_mode}: max abs difference {err} of scale {float(np.abs(want).max())}")
+        tol = LOC_TOL * float(np.abs(want).max()) if dtype == "float32" else BF16_ULPS * _bf16_ulp(
+            float(np.abs(want).max()))
+        assert got.dtype == torch.float32 and err <= tol
     np.testing.assert_array_equal(_bits(tpost.loc.numpy()), _bits(jpost.loc))
 
 
@@ -335,11 +443,48 @@ def test_closure_matches_jax_jitted(granularity, normalise):
 # ------------------------------------------------------------- calibration
 
 
-@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+def _check_bf16_calibration(tqv, jqv, model) -> None:
+    """A bfloat16 calibration against JAX's: the same layers; each
+    statistic within one bfloat16 ulp of JAX's (the abs-max of bfloat16
+    activations is a bfloat16 value; JAX's jitted forward may keep a
+    float32 intermediate), the share that is bit-equal printed; the scales
+    the port forms from its statistics; the int8 weights and their scales
+    bit for bit JAX's when quantized with JAX's activation scales."""
+    assert sorted(tqv.act_scales) == sorted(jqv.act_scales) and list(tqv.qweights) == list(jqv.qweights)
+    equal = total = 0
+    for name, js in jqv.calib_stats.items():
+        js, ts = np.asarray(js, np.float64), np.asarray(tqv.calib_stats[name], np.float64)
+        assert ts.shape == js.shape, name
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(js), 1e-30))) - 7)
+        assert (np.abs(ts - js) <= ulp).all(), name
+        equal, total = equal + int((ts == js).sum()), total + js.size
+    print(f"bfloat16 calibration: {equal} of {total} statistics bit-equal to JAX's, the rest within one ulp")
+    scales = {n: torch.from_numpy(np.asarray(v, np.float32)) for n, v in jqv.act_scales.items()}
+    for name, (qk, ws) in tq._requantize(model, list(jqv.qweights), scales).items():
+        jk, jw = (np.asarray(a) for a in jqv.qweights[name])
+        np.testing.assert_array_equal(qk.numpy(), jk if jk.ndim == 2 else np.transpose(jk, (3, 2, 0, 1)))
+        np.testing.assert_array_equal(_bits(ws.numpy()), _bits(jw))
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "per_tensor_bf16", "per_channel_bf16"])
 def test_quantize_vae_matches_jax(monkeypatch, granularity):
     """quantize_vae with JAX's latent draws replayed: every activation
     scale within SCALE_RTOL of JAX's, the int8 kernels equal but for a
-    counted share of +-1 flips, the same layers, statistics and flags."""
+    counted share of +-1 flips, the same layers, statistics and flags.
+    ``_bf16``: a bfloat16 model's calibration held by
+    _check_bf16_calibration, also with a layer subset."""
+    granularity, dtype, _ = _dtype_case(granularity)
+    if dtype == "bfloat16":
+        jmodel, variables, model, x = _tiny(dtype)
+        eps = torch.from_numpy(np.asarray(jax.random.normal(jax.random.PRNGKey(1), (4, 8))))
+        monkeypatch.setattr(tq, "_latent_noise", lambda generator, shape, like: eps)
+        for layers in (None, ["enc/Conv_0", "enc/Conv_3", "dec/Dense_1", "dec/ConvTranspose2DTF_2"]):
+            jqv = jq.quantize_vae(jmodel, variables, jnp.asarray(x), rng=jax.random.PRNGKey(1),
+                                  act_granularity=granularity, layers=layers)
+            tqv = tq.quantize_vae(model, x, act_granularity=granularity, layers=layers)
+            _check_bf16_calibration(tqv, jqv, model)
+            assert tqv.act_granularity == granularity and tqv.cfg.dtype == "bfloat16"
+        return
     jqv, _ = _bundles(granularity)
     _, _, model, x = _tiny()
     eps = torch.from_numpy(np.asarray(jax.random.normal(jax.random.PRNGKey(1), (4, 8))))
@@ -384,18 +529,31 @@ def test_quantize_vae_layers_and_quantile(monkeypatch):
         np.testing.assert_allclose(tqv.act_scales[name].numpy(), np.asarray(js), rtol=SCALE_RTOL, err_msg=name)
 
 
-@pytest.mark.parametrize("layers", [
-    ["enc/Conv_0", "enc/Conv_1", "enc/Dense_0", "dec/ConvTranspose2DTF_1"],
-    ["enc/Conv_2", "enc/Conv_3", "dec/Dense_1", "dec/ConvTranspose2DTF_3", "dec/Conv_0"],
-], ids=["fused_then_float", "flat_and_head"])
+_SUBSETS = {
+    "fused_then_float": ["enc/Conv_0", "enc/Conv_1", "enc/Dense_0", "dec/ConvTranspose2DTF_1"],
+    "flat_and_head": ["enc/Conv_2", "enc/Conv_3", "dec/Dense_1", "dec/ConvTranspose2DTF_3", "dec/Conv_0"],
+    # a float dec/Dense_1 into an int8 dec/ConvTranspose2DTF_0 (the cast at
+    # the reshape before the quantizer, under strict_cast)
+    "float_dense_into_int8": ["enc/Conv_1", "dec/ConvTranspose2DTF_0", "dec/ConvTranspose2DTF_1"],
+}
+
+
+@pytest.mark.parametrize("layers", ["fused_then_float", "flat_and_head", "fused_then_float_bf16",
+                                    "flat_and_head_bf16", "float_dense_into_int8_bf16",
+                                    "flat_and_head_bf16_loose"])
 def test_int8_forward_with_a_layer_subset_matches_jax(layers):
     """A bundle that quantizes some layers only: each int8 layer fuses its
     PReLU and the next quantizer where the next point is int8 too, writes
     float32 where it is not, and quantizes its input alone after a float
     layer (here: int8 into int8, int8 into float, float into int8 through
     the flatten, the band head int8).  The int8 activations at every point
-    and loc equal JAX's eager quantized_forward (loc within LOC_TOL)."""
-    jmodel, variables, _, x = _tiny()
+    and loc equal JAX's eager quantized_forward (loc within LOC_TOL).
+    ``_bf16`` (``_loose``: strict_cast=False): a bfloat16 model, the int8
+    layers writing bfloat16 where the next point is float, loc within
+    BF16_ULPS bfloat16 ulps of its scale."""
+    layers, dtype, strict = _dtype_case(layers)
+    layers = _SUBSETS[layers]
+    jmodel, variables, _, x = _tiny(dtype, strict)
     jqv = jq.quantize_vae(jmodel, variables, jnp.asarray(x), rng=jax.random.PRNGKey(1), layers=layers)
     tqv = tq._from_arrays(*quantized_from_jax(jqv))
     assert sorted(tqv.qweights) == sorted(layers)
@@ -421,7 +579,12 @@ def test_int8_forward_with_a_layer_subset_matches_jax(layers):
     for a, b in zip(jacts, tacts):
         np.testing.assert_array_equal(b.reshape(a.shape), a)
     want = np.asarray(jd.loc)
-    assert float(np.abs(td.loc.numpy() - want).max()) <= LOC_TOL * float(np.abs(want).max())
+    err = float(np.abs(td.loc.numpy() - want).max())
+    if dtype == "float32":
+        assert err <= LOC_TOL * float(np.abs(want).max())
+    else:
+        print(f"layer subset {layers} in bfloat16 (strict_cast={strict}): loc {err} off JAX's")
+        assert err <= BF16_ULPS * _bf16_ulp(float(np.abs(want).max()))
 
 
 # --------------------------------------------------------------------- QAT
@@ -439,7 +602,7 @@ def _unflatten(flat: dict) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _qat_bundles(granularity):
+def _qat_bundles(granularity, dtype="float32"):
     """JAX's bundle and the port's copy for TINY with non-trivial weights:
     flax's init plus noise (positive BatchNorm variances), as
     tests/test_torch_model.py perturbs them.  At the init itself (zero
@@ -447,7 +610,7 @@ def _qat_bundles(granularity):
     to exact zeros, whose float sign, and with it a ReLU kink, follows the
     summation order: one such pre-activation moved a leaf's gradient by 4%
     of its scale (read on TINY)."""
-    jmodel, variables, _, x = _tiny()
+    jmodel, variables, _, x = _tiny(dtype)
     rng = np.random.default_rng(3)
     flat = {}
     for k, v in flatten_flax(jax.tree_util.tree_map(np.asarray, variables)).items():
@@ -458,9 +621,10 @@ def _qat_bundles(granularity):
     return jqv, tq._from_arrays(*quantized_from_jax(jqv))
 
 
-def _jax_qat_grads(jqv, x, y, loss, key):
-    """JAX's jitted gradients of qat_finetune's loss (its loss_fn,
-    quantized.py:797-829) at the bundle's own weights."""
+def _jax_qat_grads(jqv, x, y, loss, key, jit=True):
+    """JAX's jitted (or, ``jit=False``, eager) gradients of qat_finetune's
+    loss (its loss_fn, quantized.py:797-829) at the bundle's own
+    weights."""
     cfg, stats, params = jqv.cfg, jqv.variables["batch_stats"], jqv.variables["params"]
 
     def loss_fn(p, x, y):
@@ -472,7 +636,8 @@ def _jax_qat_grads(jqv, x, y, loss, key):
             return jnp.mean(jnp.sum(jnp.square(dist.loc - lax.stop_gradient(t.loc)), axis=(1, 2, 3)))
         return jlosses.elbo_terms(dist, post, y, kl_weight=0.01, kl_mode="analytic")["loss"]
 
-    grads = jax.jit(jax.grad(loss_fn))(params, jnp.asarray(x), jnp.asarray(y))
+    grad = jax.grad(loss_fn)
+    grads = (jax.jit(grad) if jit else grad)(params, jnp.asarray(x), jnp.asarray(y))
     return flatten_flax({"params": jax.device_get(grads)})
 
 
@@ -487,17 +652,23 @@ def _worst(a: dict, b: dict) -> float:
 
 
 @pytest.mark.parametrize("loss", ["distill", "elbo"])
-@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "per_tensor_bf16", "per_channel_bf16"])
 def test_qat_gradients_match_jax(monkeypatch, granularity, loss):
     """One QAT step's gradients per leaf (the STE forward through
     ``.detach()``, BatchNorm frozen), JAX's latent draw injected, against
     JAX's jitted step (the step qat_finetune runs): every leaf within
     GRAD_TOL of its largest magnitude (read 1.2e-4 at most; JAX's own eager
-    step reads 1.6e-4 off its jitted one)."""
-    jqv, tqv = _qat_bundles(granularity)
+    step reads 1.6e-4 off its jitted one).  ``_bf16``: the fake-quant
+    forward of a bfloat16 model ((y + bias_f32).astype(bfloat16) at each
+    point, quantized.py:334, :395, :443) against JAX's eager step, which
+    rounds where the port does, within BF16_GRAD_TOL; JAX's jitted step
+    keeps float32 where its eager one rounds and is off that by more (its
+    worst leaf printed)."""
+    granularity, dtype, _ = _dtype_case(granularity)
+    jqv, tqv = _qat_bundles(granularity, dtype)
     x, y = _qat_batch()
     key = jax.random.PRNGKey(3)
-    jit = _jax_qat_grads(jqv, x, y, loss, key)
+    jit = _jax_qat_grads(jqv, x, y, loss, key, jit=dtype == "float32")
     eps = torch.from_numpy(np.asarray(jax.random.normal(key, (8, 8))))
     monkeypatch.setattr(tq, "_latent_noise", lambda generator, shape, like: eps)
     student = tqv.model
@@ -506,35 +677,66 @@ def test_qat_gradients_match_jax(monkeypatch, granularity, loss):
     grads = torch.autograd.grad(value, list(student.parameters()))
     got = flax_from_state_dict(dict(zip([k for k, _ in student.named_parameters()], grads)), student.cfg)
     worst = _worst(got, jit)
-    print(f"QAT {granularity} {loss}: worst leaf {worst} of its scale off JAX's jitted step")
-    assert worst <= GRAD_TOL
+    print(f"QAT {granularity} {dtype} {loss}: worst leaf {worst} of its scale off JAX's "
+          f"{'jitted' if dtype == 'float32' else 'eager'} step")
+    if dtype == "bfloat16":
+        print(f"QAT {granularity} {dtype} {loss}: JAX's jitted step, worst leaf "
+              f"{_worst(_jax_qat_grads(jqv, x, y, loss, key), jit)} off its eager one")
+    assert worst <= (GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL)
 
 
-def test_qat_step_matches_jax():
+def _jax_eager_adam_step(jqv, x, y, lr):
+    """One step of qat_finetune's update, optax's Adam on JAX's eager
+    distillation gradients (its jitted step keeps float32 where a bfloat16
+    eager forward rounds)."""
+    import optax
+
+    grads = _unflatten({k.split("/", 1)[1]: v for k, v in _jax_qat_grads(jqv, x, y, "distill", None,
+                                                                          jit=False).items()})
+    params = jqv.variables["params"]
+    tx = optax.adam(lr)
+    updates, _ = tx.update(grads, tx.init(params), params)
+    return flatten_flax({"params": jax.device_get(optax.apply_updates(params, updates))})
+
+
+# bfloat16: the share of parameters that Adam's first step moves otherwise
+# than JAX's eager step (a gradient of the other sign, BF16_GRAD_TOL above):
+# read 2.5e-3 (219 of 86,120; JAX's jitted qat_finetune moves 6,135 of
+# them otherwise than the port, 7.1%)
+BF16_STEP_SHARE = 5e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qat_step_matches_jax(dtype):
     """qat_finetune for one step on an injected batch, both packages:
     Adam's first step moves each parameter by lr g / (|g| + eps), about
     lr sign(g), so the parameters are held within 1e-6 but for at most
     FLIP_SHARE of them (a sign flip, or a gradient near Adam's eps), each
     within 2 lr (read: 1 of 86,120, by 1.2e-6); the activation scales
     kept, the weights requantized from the new floats, and the teacher's
-    fingerprint JAX's."""
-    jqv, tqv = _qat_bundles("per_channel")
+    fingerprint JAX's.  bfloat16: against optax's Adam on JAX's eager
+    gradients (BF16_STEP_SHARE), JAX's jitted qat_finetune printed beside
+    it."""
+    jqv, tqv = _qat_bundles("per_channel", dtype)
     x, y = _qat_batch()
     lr = 1e-4
     jout = jq.qat_finetune(jqv, steps=1, batch=8, learning_rate=lr, steps_per_dispatch=1,
                            make_batch=lambda key: (jnp.asarray(x), jnp.asarray(y)))
     tout = tq.qat_finetune(tqv, steps=1, batch=8, learning_rate=lr, make_batch=lambda rng: (x, y))
     assert tout.teacher_fingerprint == jout.teacher_fingerprint == jq.params_fingerprint(jqv.variables["params"])
-    want = flatten_flax({"params": jax.device_get(jout.variables["params"])})
+    jitted = flatten_flax({"params": jax.device_get(jout.variables["params"])})
+    want = jitted if dtype == "float32" else _jax_eager_adam_step(jqv, x, y, lr)
     got = {k: v for k, v in flax_from_state_dict(tout.model.state_dict(), tout.cfg).items() if k in want}
-    n_off = n_all = 0
+    n_off = n_all = n_jit = 0
     for k in want:
         d = np.abs(got[k] - want[k])
         n_all += d.size
         n_off += int((d > 1e-6).sum())
+        n_jit += int((np.abs(got[k] - jitted[k]) > 1e-6).sum())
         assert float(d.max()) <= 2.1 * lr, k
-    print(f"QAT step: {n_off} of {n_all} parameters more than 1e-6 off JAX's")
-    assert n_off <= FLIP_SHARE * n_all
+    print(f"QAT step ({dtype}): {n_off} of {n_all} parameters more than 1e-6 off JAX's "
+          f"{'jitted' if dtype == 'float32' else 'eager'} step ({n_jit} off its jitted qat_finetune)")
+    assert n_off <= (FLIP_SHARE if dtype == "float32" else BF16_STEP_SHARE) * n_all
     for name in jqv.act_scales:
         assert torch.equal(tout.act_scales[name], tqv.act_scales[name])
     requant = tq._requantize(tout.model, list(tout.qweights), tout.act_scales)
@@ -571,15 +773,24 @@ def test_qat_elbo_with_recalibration():
 
 
 @functools.lru_cache(maxsize=None)
-def _packaged_layers():
+def _packaged_layers(dtype="float32"):
     """JAX's eager int8 forward of the packaged sim_demo_int8 bundle on 4
-    simulated stamps with every int8 layer's float input and output
-    recorded ({name: (h, y)}, JAX's layouts), and the port's bundle."""
+    simulated stamps (3 in bfloat16, whose eager forward takes 18 s on the
+    CPU) with every int8 layer's float input and output recorded ({name:
+    (h, y)}, JAX's layouts), and the port's bundle.  ``dtype='bfloat16'``
+    serves the same bundle (its weights and scales) with a bfloat16 compute
+    dtype in both packages (JAX's bundle with its model's config replaced,
+    the port's loaded from it through quantized_from_jax); ``seen`` then
+    also holds the int8 activations ("acts") and the output ("dist")."""
     from debvader_tpu.data.simulate import simulate_batch
 
     jqv = jq.load_quantized(REPO / "debvader_tpu" / "data" / "weights" / "sim_demo_int8")
-    tqv = tq.load_quantized("sim_demo_int8", device="cpu")
-    seen = {}
+    if dtype == "float32":
+        tqv = tq.load_quantized("sim_demo_int8", device="cpu")
+    else:
+        jqv = dataclasses.replace(jqv, model=JaxVAE(dataclasses.replace(jqv.cfg, dtype=dtype)))
+        tqv = tq._from_arrays(*quantized_from_jax(jqv))
+    seen = {"acts": []}
 
     def recording(fn):
         def apply(h, name, *args, **kwargs):
@@ -589,13 +800,22 @@ def _packaged_layers():
             return y
         return apply
 
+    def quant(h, scale):
+        out = saved_quant(h, scale)
+        seen["acts"].append(np.asarray(out))
+        return out
+
     saved = jq._apply_conv, jq._apply_convT, jq._apply_dense
+    saved_quant = jq._quant_act
     jq._apply_conv, jq._apply_convT, jq._apply_dense = (recording(f) for f in saved)
+    jq._quant_act = quant
     try:
-        x = np.asarray(simulate_batch(jax.random.PRNGKey(123), 4)[0])
-        jq.quantized_forward(jqv, x, jax.random.PRNGKey(0), z_mode="mean")
+        x = np.asarray(simulate_batch(jax.random.PRNGKey(123), 4)[0])[: 4 if dtype == "float32" else 3]
+        seen["x"] = x
+        seen["dist"] = jq.quantized_forward(jqv, x, jax.random.PRNGKey(0), z_mode="mean")
     finally:
         jq._apply_conv, jq._apply_convT, jq._apply_dense = saved
+        jq._quant_act = saved_quant
     return jqv, tqv, seen
 
 
@@ -614,7 +834,7 @@ _FUSED = {
 }
 
 
-@pytest.mark.parametrize("case", list(_FUSED))
+@pytest.mark.parametrize("case", list(_FUSED) + [f"{c}_bf16" for c in _FUSED] + ["dense_to_convT_bf16_loose"])
 def test_fused_layer_matches_jax(case):
     """conv_fused's plain version, on the packaged bundle's real
     activations, bit for bit JAX's _quant_act(_prelu(<layer>, alpha),
@@ -622,36 +842,94 @@ def test_fused_layer_matches_jax(case):
     quantized input): a conv, a stride-2 transposed conv, dec/Dense_1 into
     the (h, w, c) reshape before dec/ConvTranspose2DTF_0, and enc/Conv_7
     through its PReLU, the flatten and the flat PReLU into enc/Dense_0.
-    The wrapper on CPU tensors is the plain version."""
-    jqv, tqv, seen = _packaged_layers()
+    The wrapper on CPU tensors is the plain version.  ``_bf16``: the bundle
+    served in bfloat16 (dec/Dense_1's float32 epilogue rounded once at the
+    reshape); ``_bf16_loose``: dec/Dense_1 under strict_cast=False, its
+    bfloat16 epilogue against JAX's _apply_dense in bfloat16 on the same
+    input.  The float output (bfloat16 there) bit for bit too."""
+    case, dtype, strict = _dtype_case(case)
+    jqv, tqv, seen = _packaged_layers(dtype)
     name, alphas, nxt = _FUSED[case]
     h, _ = seen[name]
     h_next, _ = seen[nxt]
     layer = tqv.int8_layers()[name]
-    q = int8_conv.quant_act(_nchw(h), tqv.act_scales[name])
+    q = int8_conv.quant_act(_nchw(h) if dtype == "float32" else _torch_bf16(np.moveaxis(h, -1, 1) if h.ndim == 4
+                                                                             else h), tqv.act_scales[name])
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq._quant_act(jnp.asarray(h), jqv.act_scales[name])))
     alpha, flat_alpha = alphas(tqv.model)
+    jalpha = jnp.asarray(np.moveaxis(alpha.detach().numpy(), 0, -1) if alpha.ndim == 3 else alpha.detach().numpy())
+    _, y = seen[name]
+    if not strict:
+        # dec/Dense_1 in bfloat16 (JAX quantized.py:513-517 with dense2_dtype bfloat16)
+        layer = dataclasses.replace(layer, dtype=torch.bfloat16)
+        dec = jax.tree_util.tree_map(jnp.asarray, jqv.variables["params"]["decoder"])
+        y = jq._apply_dense(jnp.asarray(h), name, dec, jqv.qweights, jqv.act_scales, None, jnp.bfloat16)
+        h_next = jq._prelu(y, jalpha).reshape(h_next.shape)
     with torch.no_grad():
         got = int8_conv.conv_fused(q, layer, alpha, flat_alpha, tqv.act_scales[nxt])
     want = np.asarray(jq._quant_act(jnp.asarray(h_next), jqv.act_scales[nxt]))
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy().reshape(want.shape), want)
-    # the same layer's float32 output with its PReLU, before the quantizer
-    _, y = seen[name]
+    # the same layer's float output with its PReLU, before the quantizer
     with torch.no_grad():
-        f32 = int8_conv.conv_fused(q, layer, alpha)
-    want_f = np.asarray(jq._prelu(jnp.asarray(y), jnp.asarray(
-        np.moveaxis(alpha.detach().numpy(), 0, -1) if alpha.ndim == 3 else alpha.detach().numpy())))
-    np.testing.assert_array_equal(_bits(f32.numpy()), _bits(_nchw(want_f).numpy()))
+        out = int8_conv.conv_fused(q, layer, alpha)
+    want_f = jq._prelu(jnp.asarray(y), jalpha)
+    if dtype == "float32":
+        np.testing.assert_array_equal(_bits(out.numpy()), _bits(_nchw(np.asarray(want_f)).numpy()))
+    else:
+        want_f = want_f.astype(jnp.bfloat16)
+        np.testing.assert_array_equal(_bf16_bits(out), _bf16_bits(want_f if want_f.ndim == 2 else
+                                                                   jnp.moveaxis(want_f, -1, 1)))
 
 
-@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+def test_packaged_bundle_in_bf16_matches_jax():
+    """The packaged bundle served in bfloat16 at full width on 3 stamps,
+    z_mode='mean', against JAX's eager quantized_forward of the same
+    bundle: the int8 codes at the 18 points (read: none differ) to
+    FLIP_SHARE, the posterior bit for bit, loc and scale within BF16_ULPS
+    bfloat16 ulps of their scale (the band head's bfloat16 contraction:
+    read, loc equal, scale one ulp off on 1 of 62,658 elements)."""
+    jqv, tqv, seen = _packaged_layers("bfloat16")
+    acts = []
+    saved = int8_conv.conv_fused
+
+    def rec(q, *args):
+        acts.append(np.asarray(q))
+        return saved(q, *args)
+
+    int8_conv.conv_fused = rec
+    try:
+        td, tpost = tq.quantized_forward(tqv, seen["x"], z_mode="mean")
+    finally:
+        int8_conv.conv_fused = saved
+    jd, jpost = seen["dist"]
+    assert len(acts) == len(seen["acts"]) == 18
+    flips = [int(np.count_nonzero(a != b.reshape(a.shape))) for a, b in zip(seen["acts"], acts)]
+    total = sum(a.size for a in acts)
+    print(f"sim_demo_int8 in bfloat16: int8 codes differing from JAX's {flips} of {total}")
+    assert sum(flips) <= FLIP_SHARE * total
+    np.testing.assert_array_equal(_bits(tpost.loc.numpy()), _bits(jpost.loc))
+    for what, got, want in (("loc", td.loc, jd.loc), ("scale", td.scale, jd.scale)):
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        print(f"sim_demo_int8 in bfloat16: {what} max abs difference {err} of scale {float(np.abs(want).max())}, "
+              f"share differing {float((got.numpy() != want).mean())}")
+        assert got.dtype == torch.float32 and err <= BF16_ULPS * _bf16_ulp(float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "per_tensor_bf16", "per_channel_bf16"])
 def test_fused_layer_scales_and_nan(granularity):
     """The fused epilogue with per-tensor and per-channel scales on JAX's
     TINY bundles: bit for bit JAX's _quant_act(_prelu(dequantized layer,
     alpha), next_scale); a NaN (dqw NaN on one channel) gives 0 in the
-    quantized output and stays NaN in the float32 one, as in JAX."""
-    jqv, tqv = _bundles(granularity)
+    quantized output and stays NaN in the float32 one, as in JAX.
+    ``_bf16``: the bfloat16 epilogue ((y + bias).astype(bfloat16), the
+    PReLU in bfloat16) bit for bit JAX's, the float output bfloat16, also
+    on bfloat16 halfway points (dqw 0, bias 1 + 2^-8 and 1 + 3 * 2^-8:
+    ties to the even 1 and 1 + 2^-6) and values past the largest bfloat16
+    (bias +-3.4e38: +-inf)."""
+    granularity, dtype, _ = _dtype_case(granularity)
+    jqv, tqv = _bundles(granularity, dtype=dtype)
     x = _stamps(4, seed=3)
     layer = tqv.int8_layers()["enc/Conv_0"]
     with torch.no_grad():
@@ -660,21 +938,35 @@ def test_fused_layer_scales_and_nan(granularity):
     dqw = layer.dqw.clone()
     dqw[1] = float("nan")
     nan_layer = dataclasses.replace(layer, dqw=dqw)
+    layers = [layer, nan_layer]
+    if dtype == "bfloat16":
+        dqw, bias = layer.dqw.clone(), layer.bias.clone()
+        dqw[2:6] = 0.0
+        bias[2:6] = torch.tensor([1 + 2**-8, 1 + 3 * 2**-8, 3.4e38, -3.4e38])
+        layers.append(dataclasses.replace(layer, dqw=dqw, bias=bias))
     alpha = tqv.model.encoder.prelus[0].alpha.detach()
     s_next = tqv.act_scales["enc/Conv_1"]
-    for lay in (layer, nan_layer):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    for lay in layers:
         acc = int8_conv.conv_s8(q, lay, raw=True).numpy()
         y = jnp.asarray(np.moveaxis(acc, 1, -1)).astype(jnp.float32) * jnp.asarray(lay.dqw.numpy())
-        y = y + jnp.asarray(lay.bias.numpy())
+        y = (y + jnp.asarray(lay.bias.numpy())).astype(jdt)
         y = jq._prelu(y, jnp.asarray(np.moveaxis(alpha.numpy(), 0, -1)))
         want = np.asarray(jq._quant_act(y, jnp.asarray(s_next.numpy())))
         got = int8_conv.conv_fused(q, lay, alpha, None, s_next)
         np.testing.assert_array_equal(got.numpy(), want)
-        f32 = int8_conv.conv_fused(q, lay, alpha).numpy()
-        np.testing.assert_array_equal(np.isnan(f32), np.isnan(np.moveaxis(np.asarray(y), -1, 1)))
+        out = int8_conv.conv_fused(q, lay, alpha)
+        if dtype == "bfloat16":
+            assert out.dtype == torch.bfloat16
+            np.testing.assert_array_equal(_bf16_bits(out), _bf16_bits(jnp.moveaxis(y, -1, 1)))
+            out = out.float()
+        f32 = out.numpy()
+        np.testing.assert_array_equal(np.isnan(f32), np.isnan(np.moveaxis(np.asarray(y, np.float32), -1, 1)))
         if lay is nan_layer:
             assert np.isnan(f32[:, 1]).all() and not np.isnan(f32[:, 0]).any()
             assert (got.numpy()[..., 1] == 0).all()
+        if lay is layers[-1] and dtype == "bfloat16":
+            assert (f32[:, 2] == 1.0).all() and (f32[:, 3] == 1 + 2**-6).all() and np.isposinf(f32[:, 4]).all()
 
 
 @pytest.mark.parametrize("size", [4, 8, 16, 32], ids=lambda s: f"{s}to{2 * s}")
@@ -796,26 +1088,37 @@ def _with_edges(a: np.ndarray, seed: int) -> np.ndarray:
 
 def _jax_bn(x, bn):
     """JAX's eager _batchnorm_inference with the port's BatchNorm's
-    parameters."""
+    parameters, in the BatchNorm's dtype (the stamps cast to it first, as
+    the forward casts them, quantized.py:485)."""
+    dtype = jnp.bfloat16 if bn.dtype == torch.bfloat16 else jnp.float32
     p = {"scale": jnp.asarray(bn.scale.detach().numpy()), "bias": jnp.asarray(bn.bias.detach().numpy())}
     stats = {"mean": jnp.asarray(bn.mean.numpy()), "var": jnp.asarray(bn.var.numpy())}
-    return jq._batchnorm_inference(jnp.asarray(x), p, stats, jnp.float32)
+    return jq._batchnorm_inference(jnp.asarray(x).astype(dtype), p, stats, dtype)
 
 
-def _halves_bn(channels: int):
+# bfloat16 halfway points and values past the largest bfloat16, as a
+# BatchNorm's bias and (less 50) a bias added to 50 (scale 0.5: 50.375 ties
+# to the even 50.5, quotient 101; 50.125 to 50.0, quotient 100)
+_BF16_TIES = [50.375, -50.375, 50.125, -50.125, 3.4e38, -3.4e38]
+
+
+def _halves_bn(channels: int, dtype=torch.float32):
     """A BatchNorm whose output is its bias exactly (scale 0): quotients on
-    .5 (round half to even), saturation at +-127 and a -0 that stays 0."""
+    .5 (round half to even), saturation at +-127 and a -0 that stays 0;
+    in bfloat16, bfloat16 halfway points and overflow (_BF16_TIES)."""
     from debvader_tpu_torch.models.layers import BatchNorm
 
-    bn = BatchNorm(channels)
+    bn = BatchNorm(channels, dtype=dtype)
+    bias = _BF16_TIES if dtype == torch.bfloat16 else [5.0, -2.5, 1.75, 126.5, 127.5, -1e4]
     with torch.no_grad():
         bn.scale.zero_()
-        bn.bias.copy_(torch.tensor([5.0, -2.5, 1.75, 126.5, 127.5, -1e4][:channels]))
+        bn.bias.copy_(torch.tensor(bias[:channels]))
         bn.mean.copy_(torch.linspace(-1.0, 1.0, channels))
     return bn
 
 
-@pytest.mark.parametrize("case", ["packaged", "tiny_per_tensor", "tiny_per_channel", "halves"])
+@pytest.mark.parametrize("case", ["packaged", "tiny_per_tensor", "tiny_per_channel", "halves", "packaged_bf16",
+                                  "tiny_per_tensor_bf16", "tiny_per_channel_bf16", "halves_bf16"])
 def test_bn_quant_matches_jax(case):
     """bn_quant on CPU tensors (its plain version, bn_quant_plain: the
     forward's BatchNorm, then quant_act_plain) bit for bit JAX's eager
@@ -823,17 +1126,19 @@ def test_bn_quant_matches_jax(case):
     real stamps against the BatchNorm output its eager forward computed,
     on TINY's bundles (per tensor, per channel) with phase 19's edge values
     in the stamps, and on a BatchNorm that outputs quotients on .5 and past
-    +-127 (scales 1, then per channel 2 / 1 / 0.5)."""
+    +-127 (scales 1, then per channel 2 / 1 / 0.5).  ``_bf16``: the
+    bfloat16 model's point (the stamps rounded to bfloat16, the BatchNorm
+    in float32, its output rounded), on bfloat16 halfway points and
+    overflow for halves_bf16 (scales 0.5, then per channel)."""
+    case, dtype, _ = _dtype_case(case)
     if case == "packaged":
-        from debvader_tpu.data.simulate import simulate_batch
-
-        jqv, tqv, seen = _packaged_layers()
-        x = np.asarray(simulate_batch(jax.random.PRNGKey(123), 4)[0])
+        jqv, tqv, seen = _packaged_layers(dtype)
+        x = seen["x"]
         bn, scale = tqv.model.encoder.bn, tqv.act_scales["enc/Conv_0"]
         wants = [np.asarray(jq._quant_act(jnp.asarray(seen["enc/Conv_0"][0]), jqv.act_scales["enc/Conv_0"]))]
         scales = [scale]
     elif case.startswith("tiny"):
-        jqv, tqv = _bundles(case.split("_", 1)[1])
+        jqv, tqv = _bundles(case.split("_", 1)[1], dtype=dtype)
         x = _with_edges(_stamps(5, seed=11) * 4.0, seed=1)
         bn = tqv.model.encoder.bn
         scales = [tqv.act_scales["enc/Conv_0"]]
@@ -841,20 +1146,25 @@ def test_bn_quant_matches_jax(case):
     else:
         x = _with_edges(_stamps(3, seed=12)[..., :3], seed=2)
         x = np.concatenate([x, x], -1)
-        bn = _halves_bn(6)
-        scales = [torch.tensor(1.0), torch.tensor([2.0, 1.0, 0.5, 1.0, 1.0, 1.0])]
+        bn = _halves_bn(6, getattr(torch, dtype))
+        scales = [torch.tensor(1.0 if dtype == "float32" else 0.5), torch.tensor([2.0, 1.0, 0.5, 1.0, 1.0, 1.0])]
         wants = [np.asarray(jq._quant_act(_jax_bn(x, bn), jnp.asarray(s.numpy()))) for s in scales]
+    assert bn.dtype == getattr(torch, dtype)
+    rows = []
     for scale, want in zip(scales, wants):
         with torch.no_grad():
             got = int8_conv.bn_quant(torch.from_numpy(np.ascontiguousarray(x)), bn, scale)
         assert got.dtype == torch.int8 and tuple(got.shape) == x.shape
         np.testing.assert_array_equal(got.numpy(), want)
-    if case == "halves":
-        row = got.numpy()[0, 0, 0]
-        np.testing.assert_array_equal(row, [2, -2, 4, 126, 127, -127])  # 2.5, -2.5, 3.5, 126.5, 127.5, -1e4
+        rows.append(got.numpy()[0, 0, 0])
+    if case == "halves" and dtype == "float32":
+        np.testing.assert_array_equal(rows[-1], [2, -2, 4, 126, 127, -127])  # 2.5, -2.5, 3.5, 126.5, 127.5, -1e4
+    elif case == "halves":
+        np.testing.assert_array_equal(rows[0], [101, -101, 100, -100, 127, -127])  # _BF16_TIES / 0.5
 
 
-@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "halves"])
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "halves", "per_tensor_bf16",
+                                         "per_channel_bf16", "halves_bf16"])
 def test_bias_prelu_quant_matches_jax(granularity):
     """bias_prelu_quant on CPU tensors (its plain version,
     bias_prelu_quant_plain: the bias, the PReLU as the forward computes
@@ -863,11 +1173,21 @@ def test_bias_prelu_quant_matches_jax(granularity):
     seeded latents with its bias, PReLU_1 and dec/Dense_1's scale (per
     tensor, and per channel from the scale's own spread), with phase 19's
     edge values in the product; and quotients on .5 and past +-127
-    (bias 0, alphas 1 and 0.5, scale 1)."""
+    (bias 0, alphas 1 and 0.5, scale 1).  ``_bf16``: a bfloat16 product,
+    the bias cast to bfloat16 and added in bfloat16, the PReLU in
+    bfloat16 (quantized.py:509-512); halves_bf16 puts the bias add on
+    bfloat16 halfway points and past the largest bfloat16 (scale 0.5)."""
+    granularity, dtype, _ = _dtype_case(granularity)
     _, tqv, _ = _packaged_layers()
     dec = tqv.model.decoder
     bias, alpha = dec.dense0.bias.detach(), dec.prelu0.alpha.detach()
-    if granularity == "halves":
+    if granularity == "halves" and dtype == "bfloat16":
+        f = bias.shape[0]
+        bias = torch.tensor(_BF16_TIES).repeat(f // 6 + 1)[:f] - 50.0 * torch.sign(torch.tensor(_BF16_TIES)).repeat(
+            f // 6 + 1)[:f]
+        mm = np.tile(np.where(bias.numpy() >= 0, 50.0, -50.0).astype(np.float32), (2, 1))
+        alpha, scale = torch.ones(f), torch.tensor(0.5)
+    elif granularity == "halves":
         f = bias.shape[0]
         mm = np.tile(np.array([2.5, -2.5, 3.5, -3.5, 126.5, 127.5, -127.5, 1e4, -1e4, 0.5], np.float32), (2, f // 10))
         bias, alpha = torch.zeros(f), torch.where(torch.arange(f) % 2 == 0, torch.tensor(1.0), torch.tensor(0.5))
@@ -879,13 +1199,17 @@ def test_bias_prelu_quant_matches_jax(granularity):
         scale = tqv.act_scales["dec/Dense_1"]
         if granularity == "per_channel":
             scale = scale * torch.linspace(0.5, 2.0, mm.shape[1])
-    want = np.asarray(jq._quant_act(jq._prelu(jnp.asarray(mm) + jnp.asarray(bias.numpy()), jnp.asarray(alpha.numpy())),
-                                    jnp.asarray(scale.numpy())))
-    got = int8_conv.bias_prelu_quant(torch.from_numpy(np.ascontiguousarray(mm)), bias, alpha, scale)
+    jmm = jnp.asarray(mm).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    want = np.asarray(jq._quant_act(jq._prelu(jmm + jnp.asarray(bias.numpy()).astype(jmm.dtype),
+                                              jnp.asarray(alpha.numpy())), jnp.asarray(scale.numpy())))
+    tmm = torch.from_numpy(np.ascontiguousarray(mm)) if dtype == "float32" else _torch_bf16(jmm)
+    got = int8_conv.bias_prelu_quant(tmm, bias, alpha, scale)
     assert got.dtype == torch.int8 and tuple(got.shape) == mm.shape
     np.testing.assert_array_equal(got.numpy(), want)
-    if granularity == "halves":
+    if granularity == "halves" and dtype == "float32":
         np.testing.assert_array_equal(got.numpy()[0, :10], [2, -1, 4, -2, 126, 127, -127, 127, -127, 0])
+    elif granularity == "halves":
+        np.testing.assert_array_equal(got.numpy()[0, :6], [101, -101, 100, -100, 127, -127])
 
 
 def test_quant_points_reject_what_they_cannot_take():

@@ -23,8 +23,8 @@ from debvader_tpu_torch.config import ModelConfig
 from debvader_tpu_torch.models import quantized as tq
 from debvader_tpu_torch.models.vae import DeblenderVAE
 from debvader_tpu_torch.weights import default_weights_dir, quantized_from_jax
-from test_torch_quantized import (LOC_TOL, REPO, TINY_KW, _bits, _bundles, _record_int8_inputs, _record_quant_act,
-                                  _stamps, _tiny)
+from test_torch_quantized import (BF16_ULPS, LOC_TOL, REPO, TINY_KW, _bf16_ulp, _bits, _bundles, _dtype_case,
+                                  _record_int8_inputs, _record_quant_act, _stamps, _tiny)
 
 torch.set_num_threads(1)
 
@@ -32,12 +32,15 @@ torch.set_num_threads(1)
 # ------------------------------------------------------- save, load, errors
 
 
-@pytest.mark.parametrize("granularity", ["per_channel", "per_tensor"])
+@pytest.mark.parametrize("granularity", ["per_channel", "per_tensor", "per_channel_bf16", "per_tensor_bf16_loose"])
 def test_save_load_round_trip(tmp_path, granularity):
     """save_quantized / load_quantized keep every array and flag: the
     float model's parameters and buffers, the int8 kernels and their
-    scales, 0-d or per-channel activation scales, and the int8 forward."""
-    _, tqv = _bundles(granularity)
+    scales, 0-d or per-channel activation scales, and the int8 forward;
+    ``_bf16`` (``_loose``: strict_cast=False) a bfloat16 bundle's config
+    too."""
+    granularity, dtype, strict = _dtype_case(granularity)
+    _, tqv = _bundles(granularity, dtype=dtype, strict=strict)
     tqv = dataclasses.replace(tqv, teacher_fingerprint="0123456789abcdef")
     tq.save_quantized(tqv, tmp_path / "bundle")
     meta = json.loads((tmp_path / "bundle.json").read_text())
@@ -51,6 +54,7 @@ def test_save_load_round_trip(tmp_path, granularity):
         assert back.act_scales[name].shape == s.shape and torch.equal(back.act_scales[name], s)
     assert (back.teacher_fingerprint, back.act_granularity, back.normalise) == ("0123456789abcdef", granularity,
                                                                                  False)
+    assert back.cfg == tqv.cfg and (back.cfg.dtype, back.cfg.strict_cast) == (dtype, strict)
     want_sd, got_sd = tqv.model.state_dict(), back.model.state_dict()
     assert set(got_sd) == set(want_sd)
     for k, v in want_sd.items():
@@ -58,6 +62,67 @@ def test_save_load_round_trip(tmp_path, granularity):
     a, _ = tq.quantized_forward(tqv, _stamps(), z_mode="mean")
     b, _ = tq.quantized_forward(back, _stamps(), z_mode="mean")
     np.testing.assert_array_equal(_bits(a.loc.numpy()), _bits(b.loc.numpy()))
+
+
+def _jax_bundle_from_port(arrays: dict, meta: dict):
+    """The JAX package's QuantizedVAE of a port bundle file's arrays and
+    meta.json (the inverse of weights.quantized_from_jax): the float
+    variables as a tree, each int8 kernel back in JAX's layout (conv (out,
+    in, kh, kw) -> HWIO, transposed conv (in, out, kh, kw) -> TF's (kh,
+    kw, out, in), the dense as it is)."""
+    from debvader_tpu.config import ModelConfig as JCfg
+
+    tree, qweights, act_scales = {}, {}, {}
+    for key, a in arrays.items():
+        if key.startswith("qweights/") and key.endswith("/kernel"):
+            tag = key.split("/")[1]
+            kernel = np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a
+            qweights[tag.replace("|", "/")] = (jnp.asarray(kernel), jnp.asarray(arrays[f"qweights/{tag}/scale"]))
+        elif key.startswith("act_scales/"):
+            act_scales[key.split("/", 1)[1].replace("|", "/")] = jnp.asarray(a)
+        elif not key.startswith("qweights/"):
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = jnp.asarray(a)
+    kw = dict(meta["model_cfg"])
+    kw["filters"], kw["kernels"] = tuple(kw["filters"]), tuple(kw["kernels"])
+    return jq.QuantizedVAE(
+        model=JaxVAE(JCfg(**kw)), variables=tree, qweights=qweights, act_scales=act_scales,
+        quantize_dense=meta["quantize_dense"], quantize_final_conv=meta["quantize_final_conv"],
+        calib_stats=meta["calib_stats"], normalise=meta["normalise"],
+        teacher_fingerprint=meta["teacher_fingerprint"], act_granularity=meta["act_granularity"])
+
+
+@pytest.mark.parametrize("strict", [True, False], ids=["strict_cast", "no_strict_cast"])
+def test_bf16_bundles_cross_both_ways(tmp_path, strict):
+    """A bfloat16 bundle both ways: JAX's save_quantized (orbax), read by
+    its load_quantized and written in the port's format
+    (weights.quantized_from_jax, as scripts/convert_sim_demo_int8_to_torch.py
+    does), loads in the port's load_quantized; the port's save_quantized,
+    read back into JAX's QuantizedVAE, goes through JAX's save_quantized and
+    load_quantized.  Each side's int8 forward on the other's bundle bit for
+    bit its own."""
+    jqv, _ = _bundles("per_channel", dtype="bfloat16", strict=strict)
+    x = _stamps(seed=13)
+    jq.save_quantized(jqv, tmp_path / "jax_bundle")
+    arrays, meta = quantized_from_jax(jq.load_quantized(tmp_path / "jax_bundle"))
+    np.savez(tmp_path / "converted.npz", **arrays)
+    (tmp_path / "converted.json").write_text(json.dumps(meta))
+    tqv = tq.load_quantized(tmp_path / "converted", device="cpu")
+    assert (tqv.cfg.dtype, tqv.cfg.strict_cast) == ("bfloat16", strict)
+    jd, _ = jq.quantized_forward(jqv, jnp.asarray(x), jax.random.PRNGKey(0), z_mode="mean")
+    td, _ = tq.quantized_forward(tqv, x, z_mode="mean")
+    np.testing.assert_array_equal(_bits(td.loc.numpy()), _bits(jd.loc))
+    tq.save_quantized(tqv, tmp_path / "port_bundle")
+    with np.load(tmp_path / "port_bundle.npz") as z:
+        back = _jax_bundle_from_port({k: z[k] for k in z.files}, json.loads((tmp_path / "port_bundle.json").read_text()))
+    jq.save_quantized(back, tmp_path / "jax_again")
+    again = jq.load_quantized(tmp_path / "jax_again")
+    assert (again.cfg.dtype, again.cfg.strict_cast) == ("bfloat16", strict)
+    ja, _ = jq.quantized_forward(again, jnp.asarray(x), jax.random.PRNGKey(0), z_mode="mean")
+    np.testing.assert_array_equal(_bits(np.asarray(ja.loc)), _bits(jd.loc))
 
 
 def _raises_both(exc, match, jax_call, torch_call):
@@ -129,18 +194,22 @@ def test_sharded_quantized_forward_matches_jax_and_single_device(normalise):
         assert torch.equal(got, want)
 
 
-def test_deblend_field_quantized_on_a_mesh_matches_single_device():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deblend_field_quantized_on_a_mesh_matches_single_device(dtype):
     """DeblendField(quantized=, mesh=) reproduces the single-device int8
     pipeline (JAX's test_quantized_mesh_composes: rtol 1e-4, atol 1e-5),
-    and JAX's DeblendField(quantized=, mesh=) on its mesh."""
+    and JAX's DeblendField(quantized=, mesh=) on its mesh.  bfloat16: at 2
+    shards and 4, bit for bit the single device (each shard's int8 forward
+    is the same arithmetic on its rows); JAX's jitted bfloat16 route within
+    BF16_ULPS bfloat16 ulps of the field's scale."""
     import debvader_tpu as dt
     from debvader_tpu.config import PipelineConfig as JaxPipelineConfig
     from debvader_tpu.parallel import make_mesh as jax_make_mesh
 
     from debvader_tpu_torch.parallel import make_mesh
 
-    jmodel, variables, model, _ = _tiny()
-    jqv, tqv = _bundles("per_tensor")
+    jmodel, variables, model, _ = _tiny(dtype)
+    jqv, tqv = _bundles("per_tensor", dtype=dtype)
     field, centers = _field()
     kw = dict(cutout_size=23, nb_of_bands=3, z_mode="mean")
     cfg = dtt.PipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1)
@@ -148,11 +217,19 @@ def test_deblend_field_quantized_on_a_mesh_matches_single_device():
     cat, sharded = dtt.DeblendField(model, field, quantized=tqv, device="cpu", cfg=cfg,
                                     mesh=make_mesh(4, devices=["cpu"] * 4), **kw).deblend_and_render(centers)
     np.testing.assert_allclose(sharded, single, rtol=1e-4, atol=1e-5)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(sharded, single)
+        _, two = dtt.DeblendField(model, field, quantized=tqv, device="cpu", cfg=cfg,
+                                  mesh=make_mesh(2, devices=["cpu"] * 2), **kw).deblend_and_render(centers)
+        np.testing.assert_array_equal(two, single)
     jcat, jres = dt.DeblendField((jmodel, variables), field, quantized=jqv, mesh=jax_make_mesh(4),
                                  cfg=JaxPipelineConfig(cutout_size=23, nb_of_bands=3, interp_order=1),
                                  **kw).deblend_and_render(centers)
     np.testing.assert_array_equal(cat.list_idx, jcat.list_idx)
-    assert float(np.abs(sharded - jres).max()) <= 1e-5 * float(np.abs(field).max())
+    err = float(np.abs(sharded - jres).max())
+    print(f"{dtype} int8 on a mesh: residual {err} off JAX's")
+    assert err <= (1e-5 * float(np.abs(field).max()) if dtype == "float32" else
+                   BF16_ULPS * _bf16_ulp(float(np.abs(field).max())))
 
 
 @pytest.mark.parametrize("bundle_normalise", [False, True])
@@ -259,17 +336,21 @@ def _field(size=96, bands=3, seed=4):
     return field[None].astype(np.float32), centers.astype(np.float32)
 
 
-@pytest.mark.parametrize("route", ["record_array", "streaming"])
+@pytest.mark.parametrize("route", ["record_array", "streaming", "record_array_bf16", "streaming_bf16"])
 def test_deblend_field_quantized_matches_jax(route):
     """DeblendField(quantized=) on both routes against JAX's
     DeblendField(quantized=) (TINY model, 23-px stamps, z_mode='mean'):
     the catalogue's rows, and the means and residual within LOC_TOL and
-    1e-5 of their scales."""
+    1e-5 of their scales.  ``_bf16``: JAX's bfloat16 bundle, whose serving
+    closure is jitted (XLA keeps float32 where the eager forward rounds):
+    the means within BF16_ULPS bfloat16 ulps of their scale, the residual
+    within as many of the field's."""
     import debvader_tpu as dt
     from debvader_tpu.config import PipelineConfig as JaxPipelineConfig
 
-    jmodel, variables, model, _ = _tiny()
-    jqv, tqv = _bundles("per_channel")
+    route, dtype, _ = _dtype_case(route)
+    jmodel, variables, model, _ = _tiny(dtype)
+    jqv, tqv = _bundles("per_channel", dtype=dtype)
     field, centers = _field()
     kw = dict(cutout_size=23, nb_of_bands=3, z_mode="mean")
     jdf = dt.DeblendField((jmodel, variables), field, quantized=jqv,
@@ -287,5 +368,11 @@ def test_deblend_field_quantized_matches_jax(route):
         gcat, gres, gmodel = tdf.deblend_and_render(centers, return_model=True)
         np.testing.assert_array_equal(gcat.list_idx, wcat.list_idx)
         wm, gm = np.asarray(wmodel), np.asarray(gmodel)
-    assert float(np.abs(gm - wm).max()) <= LOC_TOL * float(np.abs(wm).max())
-    assert float(np.abs(np.asarray(gres) - np.asarray(wres)).max()) <= 1e-5 * float(np.abs(field).max())
+    err_m, err_r = float(np.abs(gm - wm).max()), float(np.abs(np.asarray(gres) - np.asarray(wres)).max())
+    if dtype == "float32":
+        assert err_m <= LOC_TOL * float(np.abs(wm).max())
+        assert err_r <= 1e-5 * float(np.abs(field).max())
+    else:
+        print(f"bfloat16 int8 {route}: means {err_m} of {float(np.abs(wm).max())}, residual {err_r} off JAX's")
+        assert err_m <= BF16_ULPS * _bf16_ulp(float(np.abs(wm).max()))
+        assert err_r <= BF16_ULPS * _bf16_ulp(float(np.abs(field).max()))
