@@ -221,7 +221,22 @@ without printing its last line):
    TensorBundle, `import-weights` in a process of its own,
    load_deblender of its file on the card, the forward bit for bit the
    shipped weights' (the checkpoint_import line);
-24. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+24. data-parallel training across two processes (parallel/ on
+   torch.distributed): the script starts two worker processes of itself
+   (``--cross-process-worker RANK``), each a rank of a gloo group through a
+   FileStore under chiprun_out/cross_process/, with two shards of cuda:0,
+   so the mesh is [(0, cuda:0)] * 2 + [(1, cuda:0)] * 2; each takes three
+   train steps of the sim_demo model at full width on batch 32 of phase
+   18's seeded pairs, one eval step and one weighted step on a batch of 30
+   (two pad rows), and every term, parameter, BatchNorm statistic and Adam
+   moment (SHA-256 of its bytes) must be bit for bit the single-process
+   ["cuda:0"] * 4 mesh's run in this process, and rank 0's rank 1's; each
+   worker also checks that gloo's all_gather and broadcast take CUDA
+   tensors, as parallel/collectives.py needs, and that DeblendField(mesh=)
+   refuses its mesh; warm step times of both meshes and of the step's gradient
+   reduction alone (the cross_process line).  A
+   worker that fails or outlives its wall limit fails the script;
+25. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 Phase 4's default-threshold detection also times the native segment merge
@@ -4392,6 +4407,182 @@ def run_multi_device(torch, net, big: np.ndarray, centers: np.ndarray, field: np
     return out, records
 
 
+CROSS_DIR = Path("chiprun_out") / "cross_process"
+# phase 24: each worker's wall limit and its process group's timeout
+CROSS_WORKER_TIMEOUT_S = 240
+CROSS_GROUP_TIMEOUT_S = 120
+CROSS_MESH = [(0, "cuda:0")] * 2 + [(1, "cuda:0")] * 2
+CROSS_WARM_STEPS = 5
+
+
+def cross_process_run(torch, mesh, x, y, w, variables) -> dict:
+    """Phase 24's training on ``mesh`` (one process's or each rank's of
+    two): three steps on (x, y), an eval step, a weighted step on the first
+    30 rows; the terms, the SHA-256 of every tensor of the state, and warm
+    step times."""
+    import hashlib
+
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.parallel import collectives, create_sharded_train_state, make_sharded_eval_step
+    from debvader_tpu_torch.parallel import make_sharded_train_step
+
+    cfg = dt.TrainConfig(batch_size=TRAIN_BATCH)
+    state = create_sharded_train_state(dt.DeblenderVAE(), mesh, cfg, variables=variables)
+    step = make_sharded_train_step(mesh, cfg)
+    x, y, w = (torch.as_tensor(a, device="cuda") for a in (x, y, w))
+    terms = {}
+    for k in range(3):
+        state, t = step(state, x, y)
+        terms[f"step{k}"] = {name: float(v) for name, v in t.items()}
+    ev = make_sharded_eval_step(mesh, cfg)(state, x, y, torch.Generator(device="cuda").manual_seed(4))
+    terms["eval"] = {name: float(v) for name, v in ev.items()}
+    state, t = make_sharded_train_step(mesh, cfg, weighted=True)(state, x[:30], y[:30], w)
+    terms["weighted_30"] = {name: float(v) for name, v in t.items()}
+    tensors = {f"module/{k}": v for k, v in state.module.state_dict().items()}
+    tensors.update({f"mu/{k}": v for k, v in state.mu.items()})
+    tensors.update({f"nu/{k}": v for k, v in state.nu.items()})
+    digests = {k: hashlib.sha256(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+               for k, v in sorted(tensors.items())}
+    def seconds(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    secs = seconds(lambda: step(state, x, y), CROSS_WARM_STEPS)
+    # the step's reduction alone: every shard's gradient-sized list of
+    # tensors (the Adam moments stand in for it) summed in shard order
+    moments = list(state.mu.values())
+    psum_secs = seconds(lambda: collectives.psum({i: moments for i in mesh.local_shards}, mesh, mesh.device), 3)
+    return {"terms": terms, "digests": digests, "warm_step_ms": [1e3 * v for v in secs],
+            "median_warm_step_ms": 1e3 * float(np.median(secs)),
+            "gradient_psum_ms": [1e3 * v for v in psum_secs]}
+
+
+def gloo_cuda_probe(torch) -> dict:
+    """Which gloo collectives take CUDA tensors as they are: each tried
+    on a small tensor of the card (every rank tries the same ones)."""
+    import torch.distributed as dist
+
+    out = {}
+    for op in ("all_gather", "broadcast"):
+        t = torch.full((4,), float(dist.get_rank() + 1), device="cuda")
+        try:
+            if op == "all_gather":
+                got = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+                dist.all_gather(got, t)
+                ok = [float(g[0]) for g in got] == [float(r + 1) for r in range(dist.get_world_size())]
+            else:
+                dist.broadcast(t, src=1)
+                ok = float(t[0]) == 2.0
+            out[op] = {"takes_cuda": True, "right": bool(ok)}
+        except RuntimeError as e:
+            out[op] = {"takes_cuda": False, "right": False, "error": str(e)[:300]}
+    return out
+
+
+def cross_process_worker(rank: int) -> int:
+    """One rank of phase 24, started by the script itself."""
+    import torch
+
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.parallel import initialize_distributed, make_mesh
+    from debvader_tpu_torch.weights import flax_from_state_dict
+
+    initialize_distributed(f"file://{(CROSS_DIR / 'store').resolve()}", 2, rank, backend="gloo",
+                           timeout=CROSS_GROUP_TIMEOUT_S)
+    probe = gloo_cuda_probe(torch)
+    mesh = make_mesh(devices=CROSS_MESH)
+    with np.load(CROSS_DIR / "batch.npz") as z:
+        x, y, w = z["x"], z["y"], z["w"]
+    shipped = dt.load_deblender("sim_demo", device="cpu")
+    run = cross_process_run(torch, mesh, x, y, w, flax_from_state_dict(shipped.state_dict(), shipped.cfg))
+    try:
+        dt.DeblendField(shipped, np.zeros((1, 128, 128, 6), np.float32), mesh=mesh, device="cuda")
+    except ValueError as e:
+        run["serving_refused"] = str(e)
+    run.update(rank=rank, gloo_cuda=probe, mesh=repr(mesh), local_shards=mesh.local_shards)
+    (CROSS_DIR / f"rank{rank}.json").write_text(json.dumps(run))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_cross_process(torch) -> dict:
+    """Phase 24 (module docstring)."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import make_dataset
+    from debvader_tpu_torch.parallel import make_mesh
+    from debvader_tpu_torch.weights import flax_from_state_dict
+
+    shutil.rmtree(CROSS_DIR, ignore_errors=True)
+    CROSS_DIR.mkdir(parents=True)
+    (xd, yd), _ = make_dataset(0, n_train=650, n_val=128)["deblender"]
+    x, y = xd[:TRAIN_BATCH], yd[:TRAIN_BATCH]
+    w = np.random.default_rng(7).uniform(0.0, 2.0, size=30).astype(np.float32)
+    w[3] = 0.0
+    np.savez(CROSS_DIR / "batch.npz", x=x, y=y, w=w)
+    shipped = dt.load_deblender("sim_demo", device="cpu")
+    single = cross_process_run(torch, make_mesh(devices=["cuda:0"] * 4), x, y, w,
+                               flax_from_state_dict(shipped.state_dict(), shipped.cfg))
+    t0 = time.perf_counter()
+    procs = []
+    for rank in (0, 1):
+        log = open(CROSS_DIR / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cross-process-worker",
+                                        str(rank)], stdout=log, stderr=subprocess.STDOUT), log))
+    rcs = []
+    try:
+        for proc, _ in procs:
+            rcs.append(proc.wait(timeout=max(CROSS_WORKER_TIMEOUT_S - (time.perf_counter() - t0), 1)))
+    except subprocess.TimeoutExpired:
+        rcs.append(None)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            log.close()
+    workers_s = time.perf_counter() - t0
+    for rank, rc in enumerate(rcs + [None] * (2 - len(rcs))):
+        if rc != 0:
+            tail = (CROSS_DIR / f"rank{rank}.log").read_text()[-3000:]
+            raise AssertionError(f"phase 24: worker {rank} exited {rc} (None: killed at its wall limit):\n{tail}")
+    ranks = [json.loads((CROSS_DIR / f"rank{r}.json").read_text()) for r in (0, 1)]
+    for r in ranks:
+        if r["terms"] != single["terms"]:
+            raise AssertionError(f"phase 24: rank {r['rank']}'s terms differ from the single-process mesh's: "
+                                 f"{r['terms']} against {single['terms']}")
+        off = [k for k in single["digests"] if r["digests"].get(k) != single["digests"][k]]
+        if off or set(r["digests"]) != set(single["digests"]):
+            raise AssertionError(f"phase 24: rank {r['rank']}'s state differs from the single-process mesh's in "
+                                 f"{len(off)} tensors: {off[:8]}")
+        for op, probe in r["gloo_cuda"].items():
+            if not (probe["takes_cuda"] and probe["right"]):
+                raise AssertionError(f"phase 24: gloo's {op} does not take CUDA tensors as collectives.py needs: {probe}")
+        if "reads its results on the host" not in r.get("serving_refused", ""):
+            raise AssertionError("phase 24: DeblendField(mesh=) did not refuse the mesh across processes")
+    out = {
+        "card": nvidia_smi_line(), "mesh": ranks[0]["mesh"], "batch": TRAIN_BATCH, "weighted_batch": 30,
+        "tensors_bit_for_bit": len(single["digests"]), "terms": single["terms"],
+        "single_process_4_shards_warm_step_ms": single["median_warm_step_ms"],
+        "two_processes_warm_step_ms": [r["median_warm_step_ms"] for r in ranks],
+        "warm_steps": {"single": single["warm_step_ms"], "rank0": ranks[0]["warm_step_ms"],
+                       "rank1": ranks[1]["warm_step_ms"]},
+        "gradient_psum_ms": {"single": single["gradient_psum_ms"], "rank0": ranks[0]["gradient_psum_ms"],
+                             "rank1": ranks[1]["gradient_psum_ms"]},
+        "gloo_cuda": ranks[0]["gloo_cuda"], "local_shards": [r["local_shards"] for r in ranks],
+        "serving_refused": ranks[0]["serving_refused"][:160], "workers_s": workers_s,
+    }
+    for name in ("batch.npz", "rank0.json", "rank1.json", "store"):
+        (CROSS_DIR / name).unlink(missing_ok=True)
+    return out
+
+
 def stamp_mask(field_size: int, centers: np.ndarray, size: int = 59) -> np.ndarray:
     """True inside the size x size window of each source, clipped to the field."""
     mask = np.zeros((field_size, field_size), bool)
@@ -4898,6 +5089,15 @@ def main() -> int:
     report["checkpoint_import"] = imported
     print(json.dumps({"checkpoint_import": imported}))
     mark("int8_bf16_import")
+    # phase 24: data-parallel training across two processes of the card
+    cross = run_cross_process(torch)
+    report["cross_process"] = cross
+    print(json.dumps({"cross_process": cross}))
+    print(f"cross-process training step, batch {TRAIN_BATCH} on 4 shards of cuda:0: two processes "
+          f"{cross['two_processes_warm_step_ms'][0]:.2f} / {cross['two_processes_warm_step_ms'][1]:.2f} ms warm "
+          f"(rank 0 / 1), one process {cross['single_process_4_shards_warm_step_ms']:.2f} ms; "
+          f"{cross['tensors_bit_for_bit']} tensors bit for bit; on {cross['card']}")
+    mark("cross_process")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 
@@ -4933,4 +5133,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cross-process-worker"]:
+        sys.exit(cross_process_worker(int(sys.argv[2])))
     sys.exit(main())

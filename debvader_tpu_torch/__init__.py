@@ -28,9 +28,10 @@ int8 tensor cores (``csrc/int8_conv.cu``); the model options of the JAX
 ``torch.export`` (``utils/export.py``, ``DeblendField(artifact=)``), the
 reference-shaped ``compat`` namespace and the command line
 (``python -m debvader_tpu_torch``, cli.py); and multi-device serving and
-training on a single-controller mesh (``parallel/``: ``make_mesh``, the
-``mesh=`` options, ``ShardedFieldDeblender``, the row-band sharded serve
-of pipeline/sharded_field.py).
+training on a device mesh (``parallel/``: ``make_mesh``, the ``mesh=``
+options, ``ShardedFieldDeblender``, the row-band sharded serve of
+pipeline/sharded_field.py), driven by one process, or for training by
+several processes on ``torch.distributed``.
 Public functions keep the JAX package's NHWC layout.  Entry points run on the GPU
 (``device="cuda"``) unless the caller passes ``device="cpu"``; the kernels
 are hand-written CUDA (``csrc/``) built with ``nvcc`` at first use, and

@@ -114,8 +114,10 @@ def _replica_chunks(net, x, n_samples, generator, normalise, max_chunk, eps, mes
         raise ValueError(f"eps must be {(n_samples, n, latent)}, got {tuple(eps.shape)}")
     reps_per_chunk = max(max_chunk // max(n, 1), 1)
     if mesh is not None:
+        from debvader_tpu_torch.parallel.mesh import require_single_process
         from debvader_tpu_torch.parallel.sharded import latent_draw, make_sharded_apply, sharded_forward
 
+        require_single_process(mesh, "the sampling API's mesh=")
         if apply_fn is None:
             apply_fn = make_sharded_apply(net, mesh, z_mode="sample")
         done = 0

@@ -278,9 +278,12 @@ def _cmd_train(args) -> int:
 
     mesh = None
     if args.mesh:
-        from debvader_tpu_torch.parallel import make_mesh
+        from debvader_tpu_torch.parallel import initialize_distributed, make_mesh
 
-        # N cards, or the CPU repeated N times under --device cpu
+        # under torchrun (MASTER_ADDR and the rest set) the mesh spans every
+        # rank's cards; else N cards, or the CPU repeated N times under
+        # --device cpu
+        initialize_distributed()
         mesh = make_mesh(args.mesh, devices=None if args.device == "cuda" else [args.device] * args.mesh)
     x = np.load(args.blended).astype(np.float32)
     y = np.load(args.isolated).astype(np.float32)
@@ -302,6 +305,8 @@ def _cmd_train(args) -> int:
         device=args.device,
         mesh=mesh,
     )
+    if mesh is not None and mesh.spans_processes and mesh.rank != 0:
+        return 0  # rank 0 writes the weights
     out = save_weights(args.out, state.variables())
     print(
         f"wrote {out}  (final val loss: vae={hist_vae['val_loss'][-1]:.4g} "

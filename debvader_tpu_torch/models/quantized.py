@@ -635,7 +635,10 @@ def make_sharded_quantized_forward(qv: QuantizedVAE, mesh, z_mode: str = "sample
     and split with the batch.  Host images go to the mesh's first device,
     as the single-device closure takes them to the bundle's; the outputs
     lie on the images' device."""
+    from debvader_tpu_torch.parallel.mesh import require_single_process
     from debvader_tpu_torch.parallel.sharded import make_sharded_apply, sharded_forward
+
+    require_single_process(mesh, "make_sharded_quantized_forward")
 
     def shard_forward(replica, x, eps):
         with fp32_math():
@@ -644,7 +647,7 @@ def make_sharded_quantized_forward(qv: QuantizedVAE, mesh, z_mode: str = "sample
     apply = make_sharded_apply(qv, mesh, z_mode, shard_forward)
 
     def fwd(images, generator: torch.Generator | None = None, eps: torch.Tensor | None = None):
-        x = images.to(torch.float32) if isinstance(images, torch.Tensor) else _guard(images, mesh.flat[0])
+        x = images.to(torch.float32) if isinstance(images, torch.Tensor) else _guard(images, mesh.device)
         dist = sharded_forward(apply, x, mesh, qv.normalise, generator, eps)
         return dist.loc, dist.scale
 

@@ -622,6 +622,9 @@ def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None,
     stack may lie on any device; the shards' devices are the mesh's."""
     cfg = _normalize_batched_cfg(cfg or DetectionConfig())
     if mesh is not None:
+        from debvader_tpu_torch.parallel.mesh import require_single_process
+
+        require_single_process(mesh, "detect_sources_batched(mesh=)")
         x = tiles if isinstance(tiles, torch.Tensor) else torch.as_tensor(np.asarray(tiles, np.float32))
         x = x.to(torch.float32)
     else:

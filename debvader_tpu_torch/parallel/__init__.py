@@ -1,7 +1,16 @@
-"""Multi-device serving and training on a single-controller mesh
-(parallel/mesh.py): one process drives every shard."""
+"""Multi-device serving and training on a device mesh (parallel/mesh.py):
+one process drives every shard, or several processes each drive their own
+and train data-parallel through torch.distributed."""
 
-from debvader_tpu_torch.parallel.distributed import initialize_distributed, is_multi_host
+from debvader_tpu_torch.parallel.collectives import all_gather, broadcast, psum
+from debvader_tpu_torch.parallel.distributed import (
+    barrier,
+    global_devices,
+    initialize_distributed,
+    is_multi_host,
+    process_count,
+    process_index,
+)
 from debvader_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -11,6 +20,7 @@ from debvader_tpu_torch.parallel.mesh import (
     param_shardings,
     replicate_module,
     replicated,
+    require_single_process,
     shard_variables,
 )
 from debvader_tpu_torch.parallel.sharded import (
@@ -30,6 +40,14 @@ __all__ = [
     "batch_sharding",
     "initialize_distributed",
     "is_multi_host",
+    "process_index",
+    "process_count",
+    "barrier",
+    "global_devices",
+    "all_gather",
+    "psum",
+    "broadcast",
+    "require_single_process",
     "make_mesh",
     "param_shardings",
     "replicate_module",

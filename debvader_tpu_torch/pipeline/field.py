@@ -374,8 +374,10 @@ class DeblendField:
         self.mesh = mesh
         self._sharded_apply = self._sharded_apply_sample = None
         if mesh is not None:
+            from debvader_tpu_torch.parallel.mesh import require_single_process
             from debvader_tpu_torch.parallel.sharded import make_sharded_apply
 
+            require_single_process(mesh, "DeblendField(mesh=)")
             self._sharded_apply = make_sharded_apply(net, mesh, z_mode=z_mode)
             # the epistemic replicas must sample even under z_mode='mean'
             self._sharded_apply_sample = (

@@ -49,7 +49,7 @@ from debvader_tpu_torch.kernels.registration import registration_window
 from debvader_tpu_torch.models.distributions import PixelNormal
 from debvader_tpu_torch.models.quantized import make_quantized_forward
 from debvader_tpu_torch.ops.shift import render_pad
-from debvader_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate_module
+from debvader_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate_module, require_single_process
 from debvader_tpu_torch.pipeline.field import _append_chunk, _check_field_image, _chunk_step, _records, _stream_columns
 from debvader_tpu_torch.utils.profiling import stage_timer
 
@@ -90,9 +90,10 @@ def _fold_strips(canvases: list, strip: int, bh: int) -> None:
 def _band_devices(mesh) -> list:
     """The band axis: every device of a Mesh, row by row, or an explicit
     device sequence (checked as ``make_mesh`` checks it)."""
-    if isinstance(mesh, Mesh):
-        return mesh.flat
-    return make_mesh(devices=list(mesh)).flat
+    if not isinstance(mesh, Mesh):
+        mesh = make_mesh(devices=list(mesh))
+    require_single_process(mesh, "ShardedFieldDeblender")
+    return mesh.flat
 
 
 def _band_seed(seed: int, k: int) -> int:

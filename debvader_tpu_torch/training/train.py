@@ -39,6 +39,12 @@ launches of cuDNN and cuBLAS, not an XLA dispatch).  ``mesh=`` runs the
 steps data-parallel over a parallel.Mesh (parallel/sharded.py): every
 batch, a partial one too, is the single-device step's, split over the
 mesh's 'data' axis, with BatchNorm's statistics over the global batch.
+On a mesh across processes every rank runs ``train_network`` with the
+same data and seed: it reads the same batches in the same shuffled
+order, its steps reduce every shard's sums and gradients in global shard
+order, and it returns the same state and history as every other rank and
+as a single process's mesh of the same shape; rank 0 alone writes the
+checkpoints and the metrics log, the others wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -355,11 +361,13 @@ def train_network(
     per-step results; ``scan_epochs`` checks the JAX package's limits and
     gives the per-epoch results and best-validation checkpoints.
 
-    ``mesh``: a parallel.Mesh; the state is placed on its first device
-    (``parallel.sharded.shard_train_state``) and every training and
-    validation batch runs data-parallel over its 'data' axis, a batch that
-    does not divide it padded with rows of weight 0 (the single-device
-    step's results, to the order of float sums)."""
+    ``mesh``: a parallel.Mesh; the state is placed on this rank's first
+    device of it (``parallel.sharded.shard_train_state``) and every
+    training and validation batch runs data-parallel over its 'data' axis,
+    a batch that does not divide it padded with rows of weight 0 (the
+    single-device step's results, to the order of float sums).  On a mesh
+    across processes every rank calls this with the same arguments; only
+    rank 0 runs ``callbacks``, writes ``metrics_log`` and prints."""
     train_cfg = train_cfg or TrainConfig()
     if model.cfg != state.module.cfg:
         raise ValueError("model is not the architecture of the state's module")
@@ -380,6 +388,10 @@ def train_network(
                 f"({mesh.shape[DATA_AXIS]})"
             )
         state = shard_train_state(state, mesh)
+    # on a mesh across processes rank 0 writes for every rank
+    writer = mesh is None or not mesh.spans_processes or mesh.rank == 0
+    if not writer:
+        callbacks, metrics_log, verbose = None, None, 0
     if isinstance(metrics_log, (str, bytes)) or hasattr(metrics_log, "__fspath__"):
         from debvader_tpu_torch.utils.profiling import MetricsLog
 
@@ -459,6 +471,10 @@ def train_network(
             metrics_log.log(epoch, **logs)
         for cb in callbacks or []:
             cb.on_epoch_end(epoch, logs, state)
+        if mesh is not None and mesh.spans_processes:
+            from debvader_tpu_torch.parallel.distributed import barrier
+
+            barrier()
     return state, history
 
 
@@ -496,13 +512,15 @@ def train_deblender(
     best validation mse and loss of each stage under
     ``<weights_dir>/<survey_name>/<vae|deblender>/<monitor>/ckpt.npz``.
     ``mesh``: both stages data-parallel over a parallel.Mesh (train_network),
-    the states on its first device (``device`` is not read)."""
+    the states on this rank's first device of it (``device`` is not read);
+    on a mesh across processes every rank calls this with the same
+    arguments, and rank 0 writes the checkpoints."""
     from debvader_tpu_torch.training import checkpoint as ckpt
 
     model_cfg = model_cfg or ModelConfig(nb_of_bands=nb_of_bands)
     train_cfg = train_cfg or TrainConfig(batch_size=batch_size)
     if mesh is not None:
-        device = mesh.flat[0]
+        device = mesh.device
     data_axis = -1 if channel_last else 2
     if np.shape(training_data_vae[0])[data_axis] != nb_of_bands:
         raise ValueError("The number of bands in the data does not correspond to the number of filters in the network.")

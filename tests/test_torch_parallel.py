@@ -91,10 +91,17 @@ def test_make_mesh_on_a_card_machine_never_falls_back(monkeypatch):
     assert parallel.make_mesh(4, devices=["cuda"] * 4).flat == [torch.device("cuda", 0)] * 4
 
 
-def test_a_mesh_across_processes_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: cross-process mesh"):
-        parallel.make_mesh(devices=[(1, "cpu")])
-    assert parallel.make_mesh(devices=[(0, "cpu")]).flat == [torch.device("cpu")]
+def test_rank_entries_of_this_process_build_a_mesh():
+    """(rank, device) entries of this process's rank build a mesh of this
+    process; an entry of another rank without an initialised process
+    group raises (tests/test_torch_multiprocess.py runs the group)."""
+    mesh = parallel.make_mesh(devices=[(0, "cpu"), (0, "cpu")])
+    assert mesh.flat == [torch.device("cpu")] * 2 and mesh.ranks.tolist() == [[0], [0]]
+    assert not mesh.spans_processes and mesh.local_shards == mesh.owned_shards == [0, 1]
+    assert mesh.device == torch.device("cpu")
+    parallel.require_single_process(mesh, "a route")
+    with pytest.raises(ValueError, match="entry of rank 1 needs a process group"):
+        parallel.make_mesh(devices=[(0, "cpu"), (1, "cpu")])
 
 
 def test_distributed_is_a_no_op_on_one_process(monkeypatch):
@@ -102,6 +109,32 @@ def test_distributed_is_a_no_op_on_one_process(monkeypatch):
         monkeypatch.delenv(key, raising=False)
     assert distributed.initialize_distributed() is False
     assert distributed.is_multi_host() is False and distributed.process_index() == 0
+    assert distributed.process_count() == 1 and distributed.global_devices() == [(0, torch.device("cpu"))]
+    distributed.barrier()
+
+
+@pytest.mark.parametrize("backend", [None, "gloo", "nccl"])
+def test_initialize_distributed_backend_and_timeout(monkeypatch, backend):
+    """backend= is passed as given (by default NCCL with a card, gloo
+    without one; never a fall-back from one to the other), timeout= as a
+    timedelta, and a 'host:port' coordinator as a tcp:// init method; an
+    unknown backend raises.  (The call is recorded, not made.)"""
+    import datetime
+
+    import torch.distributed as dist
+
+    want = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    calls = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **kw: calls.append((a, kw)))
+    assert distributed.initialize_distributed("localhost:1234", 2, 1, backend=backend, timeout=7.5) is True
+    assert calls == [((want,), {"init_method": "tcp://localhost:1234", "timeout": datetime.timedelta(seconds=7.5),
+                                "world_size": 2, "rank": 1})]
+    distributed.initialize_distributed("file:///tmp/store", 2, 0, backend=backend)
+    assert calls[1][1]["init_method"] == "file:///tmp/store"
+    assert calls[1][1]["timeout"] == datetime.timedelta(seconds=distributed.DEFAULT_TIMEOUT_S)
+    with pytest.raises(ValueError, match="'nccl' or 'gloo'"):
+        distributed.initialize_distributed("localhost:1", 2, 0, backend="mpi")
 
 
 def test_param_shardings_tp_rule_matches_jax():
