@@ -581,6 +581,7 @@ def _detect_stack(x: torch.Tensor, core, cfg: DetectionConfig, timings, want_map
         idx, lab, val = _compact_masked(labels, filt)
     with stage_timer(t, "download", x.device):
         idx, lab, val, grms = (a.cpu().numpy() for a in (idx, lab, val, grms))
+    t["count.masked_px"] = t.get("count.masked_px", 0) + len(idx)
     return _postprocess_stack(idx, lab, val, x.shape[0], x.shape[-1], grms, cfg, t, want_map)
 
 
@@ -608,9 +609,12 @@ def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None,
 
     ``tiles``: a host array, uploaded to ``device``, or a tensor already on
     it (bfloat16 is widened to float32 there).  ``timings``: a dict that
-    accumulates the wall seconds of 'core' (the device core and the
+    accumulates the seconds of 'core' (the device core and the
     compaction, up to its count sync), 'download' (the three COO arrays)
-    and the postprocess stages.  ``want_map=False`` skips each tile's
+    and the host postprocess's 'merge', 'segstats', 'clean' and
+    'reconstruct' (``_postprocess_coo``), and under ``count.masked_px``
+    the masked pixels downloaded, which the merge takes (a count at the
+    same boundary, never a time).  ``want_map=False`` skips each tile's
     dense label map (``labels: None``).
 
     ``mesh`` (parallel/mesh.py): the stack is padded to a multiple of the
@@ -676,6 +680,7 @@ def detect_shards(pieces: list, cfg: DetectionConfig, timings=None, want_map=Tru
     idx = np.concatenate([p[0] + k * per_shard * f * f for k, p in enumerate(parts)])
     lab = np.concatenate([p[1] for p in parts])
     val = np.concatenate([p[2] for p in parts])
+    t["count.masked_px"] = t.get("count.masked_px", 0) + len(idx)
     return _postprocess_stack(idx, lab, val, n, f, grms, cfg, t, want_map)
 
 

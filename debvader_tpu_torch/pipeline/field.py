@@ -64,7 +64,7 @@ from debvader_tpu_torch.ops.extraction import extract_cutouts, extract_cutouts_n
 from debvader_tpu_torch.ops.measure import measure_batch
 from debvader_tpu_torch.ops.registration import position_optimization_batch_windowed
 from debvader_tpu_torch.ops.shift import render_field, render_pad
-from debvader_tpu_torch.utils.profiling import stage_timer
+from debvader_tpu_torch.utils.profiling import settle_spans, stage_timer
 
 __all__ = ["DeblendField"]
 
@@ -142,7 +142,8 @@ def _stream_columns(measure: bool) -> dict:
 
 
 def _chunk_step(raw, dets, forward, canvases: dict, canvas_size, cfg: PipelineConfig, band: int, measure: bool,
-                epistemic=None, reg_band=None, row_bounds=None, canvas_dtype=torch.float32) -> dict:
+                epistemic=None, reg_band=None, row_bounds=None, canvas_dtype=torch.float32, *, timings: dict,
+                pending: list) -> dict:
     """One stream chunk of m sources on their device, shared by the
     single-device and the row-band routes: ``forward(raw)`` (a
     PixelNormal) of the raw cutouts (m, S, S, B), the mse cut's centre
@@ -153,10 +154,14 @@ def _chunk_step(raw, dets, forward, canvases: dict, canvas_size, cfg: PipelineCo
     ({'mean' / 'std' / 'epi': padded canvas, or None before the first
     chunk}, updated in place) of ``canvas_size`` (F or (H, W)), the stamps
     cast to ``canvas_dtype``.  Returns the per-source scalars on the
-    device; nothing here waits for the device."""
-    dist = forward(raw)
-    means = dist.mean()
-    std = dist.stddev() if ("std" in canvases or measure) else None
+    device; nothing here waits for the device: the 'forward' (the forward,
+    its means and stddevs) and 'render' (the canvases' renders) spans
+    record events into ``pending`` for ``settle_spans`` to add to
+    ``timings`` (the wall clock's seconds at once on the CPU)."""
+    with stage_timer(timings, "forward", raw.device, pending):
+        dist = forward(raw)
+        means = dist.mean()
+        std = dist.stddev() if ("std" in canvases or measure) else None
     c0 = raw.shape[1] // 2 - cfg.mse_window
     c1 = raw.shape[1] // 2 + cfg.mse_window
     scalars = {"mse_center": torch.mean(torch.square(raw[:, c0:c1, c0:c1] - means[:, c0:c1, c0:c1]), dim=(1, 2, 3))}
@@ -177,9 +182,10 @@ def _chunk_step(raw, dets, forward, canvases: dict, canvas_size, cfg: PipelineCo
     # the stddev canvas adds the sources' stddevs: the reference's
     # predicted-field convention
     stamps = {"mean": means, "std": std, "epi": epi}
-    for name, canvas in canvases.items():
-        canvases[name] = render_field(stamps[name].to(canvas_dtype), offs, canvas_size, order=cfg.interp_order,
-                                      canvas=canvas, crop=False)
+    with stage_timer(timings, "render", raw.device, pending):
+        for name, canvas in canvases.items():
+            canvases[name] = render_field(stamps[name].to(canvas_dtype), offs, canvas_size,
+                                          order=cfg.interp_order, canvas=canvas, crop=False)
     if measure:
         m = measure_batch(means, std)
         scalars.update({k: m[k] for k in _MEASURE_COLUMNS})
@@ -399,8 +405,11 @@ class DeblendField:
                 from debvader_tpu_torch.utils.export import artifact_forward
 
                 self._artifact_fwd = artifact_forward(artifact, normalise=normalise, device=self.device)
-        self.field_image = np.array(field_image, dtype=np.float32)
-        _check_field_image(self.field_image)
+        # the construction's one stage, added to the first entry call's dict
+        self._held_timings: dict = {}
+        with stage_timer(self._held_timings, "field_copy"):
+            self.field_image = np.array(field_image, dtype=np.float32)
+            _check_field_image(self.field_image)
         self.field_size = self.field_image.shape[1]
         self.cutout_size = cutout_size
         self.nb_of_bands = nb_of_bands
@@ -424,6 +433,15 @@ class DeblendField:
         self._dev_field = None
         self._render_cache = None
 
+    def _timings(self, timings) -> dict:
+        """An entry call's stage dict: ``timings``, or a new one; the first
+        such dict also takes the construction's 'field_copy' seconds."""
+        t = timings if timings is not None else {}
+        for k, v in self._held_timings.items():
+            t[k] = t.get(k, 0.0) + v
+        self._held_timings.clear()
+        return t
+
     # ------------------------------------------------------ device residency
 
     @staticmethod
@@ -438,7 +456,7 @@ class DeblendField:
         nan_mask = np.isnan(flat)
         return _weighted_sums(np.where(nan_mask, 0.0, flat)) + (int(np.count_nonzero(nan_mask)),)
 
-    def _device_field(self, field_np: np.ndarray) -> torch.Tensor:
+    def _device_field(self, field_np: np.ndarray, timings=None) -> torch.Tensor:
         """Device copy of the field, memoized on array identity, shape,
         dtype, the two reduced dtypes and the content checksum, so an
         in-place edit of the same ndarray (``df.field_image[0] += ...``),
@@ -446,23 +464,29 @@ class DeblendField:
         device contents.  The checksum is one pass over the host array.
         A reduced dtype is cast on the host (half the bytes to upload);
         ``device_dtype`` keeps it on the device, ``upload_dtype`` alone
-        widens it back to float32 there."""
+        widens it back to float32 there.  ``timings`` takes the
+        'field_checksum' seconds of every call and, when the memo misses,
+        the 'upload' (host cast, copy and widening, the device
+        synchronised)."""
+        t = timings if timings is not None else {}
         key = (id(field_np), field_np.shape, str(field_np.dtype), self.upload_dtype, self.device_dtype)
-        key += self._field_checksum(field_np)
+        with stage_timer(t, "field_checksum"):
+            key += self._field_checksum(field_np)
         if self._dev_field_key != key:
-            host = np.asarray(field_np, np.float32)
-            reduced = self.device_dtype or self.upload_dtype
-            if reduced == "bfloat16":
-                t = _bfloat16_host(host)
-            elif reduced == "float16":
-                t = torch.from_numpy(host.astype(np.float16))
-            else:
-                t = torch.from_numpy(host)
-            # from_numpy shares the ndarray's memory; the memo must not
-            # follow in-place edits
-            dev = t.to(self.device, copy=True)
-            if reduced is not None and self.device_dtype is None:
-                dev = dev.to(torch.float32)
+            with stage_timer(t, "upload", self.device):
+                host = np.asarray(field_np, np.float32)
+                reduced = self.device_dtype or self.upload_dtype
+                if reduced == "bfloat16":
+                    up = _bfloat16_host(host)
+                elif reduced == "float16":
+                    up = torch.from_numpy(host.astype(np.float16))
+                else:
+                    up = torch.from_numpy(host)
+                # from_numpy shares the ndarray's memory; the memo must not
+                # follow in-place edits
+                dev = up.to(self.device, copy=True)
+                if reduced is not None and self.device_dtype is None:
+                    dev = dev.to(torch.float32)
             self._dev_field = dev
             self._dev_field_key = key
         return self._dev_field
@@ -753,16 +777,26 @@ class DeblendField:
         stamp images, plus mse_center and epistemic_norm; it is None, and
         the residual the field, when no source survives extraction.
 
-        ``timings``: a dict that accumulates wall seconds per stage
-        ('upload', 'deblend_render', 'field_download'), also kept as
-        ``self.serving_timings``.  ``transfer_dtype``: 'bfloat16' or
-        'float16' casts the fields on the device before the download and
-        widens them on the host; None transfers float32."""
+        ``timings``: a dict that accumulates the seconds of each stage,
+        also kept as ``self.serving_timings``.  Top-level stages, in call
+        order: 'field_copy' (the constructor's float32 copy and check of
+        the field, in the first entry call's dict only), 'field_checksum'
+        (the memo's content checksum), 'upload' (the field's host-to-device
+        copy, only when the memo misses), 'deblend_render' (the chunk
+        loop), 'field_download' (the residual's subtract and download),
+        'catalog' (the record array), 'residual_copy' (the host residual
+        field).  Nested in 'deblend_render', the device seconds of each
+        chunk's 'cutouts' (extraction and the gather of valid rows),
+        'forward' and 'render', read from CUDA events once
+        'deblend_render' has synchronised (wall seconds on the CPU); the
+        other stages end with the card synchronised.  ``transfer_dtype``:
+        'bfloat16' or 'float16' casts the fields on the device before the
+        download and widens them on the host; None transfers float32."""
         transfer_dtype = _check_reduced_dtype("transfer_dtype", transfer_dtype)
-        t = timings if timings is not None else {}
+        t = self._timings(timings)
         self.serving_timings = t
-        with stage_timer(t, "upload", self.device):
-            field_dev = self._device_field(self.field_image)
+        pending: list = []
+        field_dev = self._device_field(self.field_image, t)
         with stage_timer(t, "deblend_render", self.device):
             cols, canvases, n_deblended = self._stream_deblend(
                 field_dev,
@@ -771,7 +805,10 @@ class DeblendField:
                 epistemic_criterion=epistemic_criterion,
                 mse_criterion=mse_criterion,
                 measure=measure,
+                timings=t,
+                pending=pending,
             )
+        settle_spans(t, pending)
 
         if n_deblended == 0:
             print("No galaxy deblended. End of the iterative procedure.")
@@ -788,9 +825,11 @@ class DeblendField:
                 residual, model = (self._fetch_field(x) for x in finished)
             else:
                 residual = self._fetch_field(finished)
-        catalog = _records(cols)
-        residual_field = self.field_image.copy()
-        residual_field[0] = residual
+        with stage_timer(t, "catalog"):
+            catalog = _records(cols)
+        with stage_timer(t, "residual_copy"):
+            residual_field = self.field_image.copy()
+            residual_field[0] = residual
         if return_model:
             return catalog, residual_field, model
         return catalog, residual_field
@@ -817,13 +856,14 @@ class DeblendField:
         built with ``epistemic_uncertainty_estimation=True``).  The catalog
         is None and the predictions zero when no source survives
         extraction.  ``timings`` / ``transfer_dtype`` as in
-        ``deblend_and_render``."""
+        ``deblend_and_render``, whose stages these are ('field_download'
+        takes the four fields' downloads)."""
         transfer_dtype = _check_reduced_dtype("transfer_dtype", transfer_dtype)
         want_epi = self.epistemic_uncertainty_estimation
-        t = timings if timings is not None else {}
+        t = self._timings(timings)
         self.serving_timings = t
-        with stage_timer(t, "upload", self.device):
-            field_dev = self._device_field(self.field_image)
+        pending: list = []
+        field_dev = self._device_field(self.field_image, t)
         with stage_timer(t, "deblend_render", self.device):
             cols, canvases, n_deblended = self._stream_deblend(
                 field_dev,
@@ -836,7 +876,10 @@ class DeblendField:
                 render_epistemic=want_epi,
                 # field + mean canvas + std canvas (+ epistemic canvas)
                 resident_fields=3 + int(want_epi),
+                timings=t,
+                pending=pending,
             )
+        settle_spans(t, pending)
 
         f = self.field_size
         if n_deblended == 0:
@@ -861,9 +904,11 @@ class DeblendField:
             residual = self._fetch_field(
                 _render_finish(field_dev, canvases["mean"], pad, transfer_dtype)
             )
-        catalog = _records(cols)
-        residual_field = self.field_image.copy()
-        residual_field[0] = residual
+        with stage_timer(t, "catalog"):
+            catalog = _records(cols)
+        with stage_timer(t, "residual_copy"):
+            residual_field = self.field_image.copy()
+            residual_field[0] = residual
         return catalog, {
             "residual_field": residual_field,
             "predicted_mean_field": mean,
@@ -903,6 +948,8 @@ class DeblendField:
         resident_fields: int = 2,
         render_std: bool = False,
         render_epistemic: bool = False,
+        timings=None,
+        pending=None,
     ):
         """Streaming core of the serving entry points: chunks of sources
         run extract -> forward -> incremental canvas render against the
@@ -918,7 +965,9 @@ class DeblendField:
         once for the whole stream, and renders every source at its detected
         offset plus its shift.  Under ``device_dtype`` the cutouts are cast
         to float32 for the chunk's work and the stamps to the canvases'
-        bfloat16 for the renders."""
+        bfloat16 for the renders.  Each chunk's 'cutouts', 'forward' and
+        'render' spans go into ``timings`` through ``pending``
+        (``_chunk_step``)."""
         if render_epistemic and not self.epistemic_uncertainty_estimation:
             raise ValueError(
                 "render_epistemic=True requires the pipeline to run with "
@@ -944,23 +993,27 @@ class DeblendField:
         # one stream chunk of decodes at a time
         epistemic = (lambda x: self._epistemic(x, chunk)) if self.epistemic_uncertainty_estimation else None
         n_deblended = 0
+        t = timings if timings is not None else {}
+        pending = pending if pending is not None else []
 
         for s0 in range(0, len(centers), chunk):
             part = centers[s0 : s0 + chunk]
-            all_cutouts, valid = extract_cutouts(field_dev, part, self.cutout_size)
-            valid = valid.cpu().numpy()
-            if not valid.any():
-                continue
-            list_idx = np.flatnonzero(valid)
-            # the forward zero-fills non-finite pixels (chip gaps) itself,
-            # so no NaN reaches the rendered model; the mse cut uses the raw
-            # cutouts, so a NaN in its window fails the cut as on
-            # deblend_field's host path
-            raw_cutouts = all_cutouts[torch.as_tensor(list_idx, device=self.device)].to(torch.float32)
+            with stage_timer(t, "cutouts", self.device, pending):
+                all_cutouts, valid = extract_cutouts(field_dev, part, self.cutout_size)
+                valid = valid.cpu().numpy()
+                if not valid.any():
+                    continue
+                list_idx = np.flatnonzero(valid)
+                # the forward zero-fills non-finite pixels (chip gaps)
+                # itself, so no NaN reaches the rendered model; the mse cut
+                # uses the raw cutouts, so a NaN in its window fails the cut
+                # as on deblend_field's host path
+                raw_cutouts = all_cutouts[torch.as_tensor(list_idx, device=self.device)].to(torch.float32)
             dets = part[list_idx]
             scalars = _chunk_step(
                 raw_cutouts, torch.as_tensor(dets, device=self.device), self._deblend, canvases, field_size,
-                self.cfg, band, measure, epistemic=epistemic, reg_band=reg_band, canvas_dtype=cdt,
+                self.cfg, band, measure, epistemic=epistemic, reg_band=reg_band, canvas_dtype=cdt, timings=t,
+                pending=pending,
             )
             # per-source scalars only: a few KB a chunk to the host
             got = {k: v.cpu().numpy() for k, v in scalars.items()}

@@ -51,7 +51,7 @@ from debvader_tpu_torch.models.quantized import make_quantized_forward
 from debvader_tpu_torch.ops.shift import render_pad
 from debvader_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate_module, require_single_process
 from debvader_tpu_torch.pipeline.field import _append_chunk, _check_field_image, _chunk_step, _records, _stream_columns
-from debvader_tpu_torch.utils.profiling import stage_timer
+from debvader_tpu_torch.utils.profiling import settle_spans, stage_timer
 
 __all__ = ["ShardedFieldDeblender", "band_halo"]
 
@@ -270,19 +270,22 @@ class ShardedFieldDeblender:
     # -------------------------------------------------------------- chunks
 
     def _band_chunk(self, k: int, band: torch.Tensor, reg_band, starts: np.ndarray, dets: np.ndarray,
-                    canvases: dict, measure: bool) -> dict:
+                    canvases: dict, measure: bool, timings: dict, pending: list) -> dict:
         """One chunk of band k's sources on its device: the cutouts gathered
         from the haloed band at ``starts`` (band-local rows), then the
         single-device route's chunk step (``field._chunk_step``) with the
         band's forward, generator and canvases, the offsets re-based to the
         band and the registration windows kept inside the true field's
-        rows.  Returns the per-source scalars, on the device."""
+        rows.  Returns the per-source scalars, on the device.  The
+        gather is the chunk's 'cutouts' span, the chunk step's the others
+        (``timings`` through ``pending``, as on the single-device route)."""
         dev = self.devices[k]
         cs, f, bh, halo = self.cutout_size, self.field_size, self.band_h, self.halo
         gen = self._generators[k]
-        st = torch.as_tensor(starts, device=dev)
-        ar = torch.arange(cs, device=dev)
-        raw = band[(st[:, 0, None] + ar)[:, :, None], (st[:, 1, None] + ar)[:, None, :]]  # (m, S, S, B)
+        with stage_timer(timings, "cutouts", dev, pending):
+            st = torch.as_tensor(starts, device=dev)
+            ar = torch.arange(cs, device=dev)
+            raw = band[(st[:, 0, None] + ar)[:, :, None], (st[:, 1, None] + ar)[:, None, :]]  # (m, S, S, B)
 
         def forward(x):
             if self._quant_fwds is not None:
@@ -307,7 +310,7 @@ class ShardedFieldDeblender:
             raw, torch.as_tensor(dets, device=dev) + delta, forward, local, (self.h_pad, f), self.cfg,
             2 if self.nb_of_bands > 2 else 0, measure,
             epistemic=epistemic if self.epistemic_uncertainty_estimation else None,
-            reg_band=reg_band, row_bounds=row_bounds,
+            reg_band=reg_band, row_bounds=row_bounds, timings=timings, pending=pending,
         )
         for name, c in local.items():
             canvases[name][k] = c
@@ -325,10 +328,16 @@ class ShardedFieldDeblender:
         measure: bool = False,
         render_std: bool = False,
         render_epi: bool = False,
+        timings=None,
+        pending=None,
     ):
         """Chunk-streamed extract -> forward -> register -> render against
         the given haloed shards.  Returns (catalogue columns sorted by
-        list_idx, {name: per-band padded canvases} or None, n_deblended)."""
+        list_idx, {name: per-band padded canvases} or None, n_deblended).
+        Each chunk's 'cutouts', 'forward' and 'render' spans go into
+        ``timings`` through ``pending`` (``_band_chunk``)."""
+        t = timings if timings is not None else {}
+        pending = pending if pending is not None else []
         if render_epi and not self.epistemic_uncertainty_estimation:
             raise ValueError("render_epi=True requires epistemic_uncertainty_estimation")
         d, bh, halo = self.n_bands_mesh, self.band_h, self.halo
@@ -353,7 +362,7 @@ class ShardedFieldDeblender:
         reg_bands = [s[:, :, det_band].contiguous() if optimise_positions else None for s in shards]
 
         # every band's chunks are queued before any scalar is read back
-        pending = []
+        queued = []
         for s0 in range(0, max_len, m):
             for k in range(d):
                 take = per_band[k][s0 : s0 + m]
@@ -361,9 +370,10 @@ class ShardedFieldDeblender:
                     continue
                 st = starts_g[take].copy()
                 st[:, 0] -= k * bh - halo  # rows local to the haloed band
-                scalars = self._band_chunk(k, shards[k], reg_bands[k], st, centers[take], canvases, measure)
-                pending.append((take, scalars))
-        for take, scalars in pending:
+                scalars = self._band_chunk(k, shards[k], reg_bands[k], st, centers[take], canvases, measure, t,
+                                           pending)
+                queued.append((take, scalars))
+        for take, scalars in queued:
             got = {key: v.cpu().numpy() for key, v in scalars.items()}
             _append_chunk(cols, got, take, centers[take], mse_criterion, epistemic_criterion)
         order = np.argsort(np.asarray(cols["list_idx"], np.int64), kind="stable")
@@ -408,10 +418,13 @@ class ShardedFieldDeblender:
         forward, registration and render a source; the band loop changes
         only the order of float sums.  ``source_chunk_per_band`` caps the
         sources a band takes a chunk (``cfg.source_chunk`` by default).
-        ``timings`` accumulates 'upload', 'deblend_render' and
-        'field_download' seconds."""
+        ``timings`` accumulates the seconds of 'upload' (the bands' first
+        upload), 'deblend_render' (with each chunk's 'cutouts', 'forward'
+        and 'render' device seconds nested in it), 'field_download',
+        'catalog' and 'residual_copy', as on the single-device route."""
         t = timings if timings is not None else {}
         self.serving_timings = t
+        pending: list = []
         f, b = self.field_size, self.nb_of_bands
         centers = np.asarray(galaxy_distances_to_center, np.float32).reshape(-1, 2)
         with stage_timer(t, "upload", self._distinct):
@@ -419,8 +432,9 @@ class ShardedFieldDeblender:
         with stage_timer(t, "deblend_render", self._distinct):
             cols, canvases, n_deblended = self._stream(
                 shards, centers, optimise_positions, mse_criterion, source_chunk_per_band,
-                epistemic_criterion=epistemic_criterion, measure=measure,
+                epistemic_criterion=epistemic_criterion, measure=measure, timings=t, pending=pending,
             )
+        settle_spans(t, pending)
         if n_deblended == 0:
             print("No galaxy deblended. End of the iterative procedure.")
             if return_model:
@@ -428,9 +442,11 @@ class ShardedFieldDeblender:
             return None, self.field_image.copy()
         with stage_timer(t, "field_download", self._distinct):
             resid, model = self._finish(shards, canvases["mean"], return_model)
-        catalog = _records(cols)
-        residual_field = self.field_image.copy()
-        residual_field[0] = resid
+        with stage_timer(t, "catalog"):
+            catalog = _records(cols)
+        with stage_timer(t, "residual_copy"):
+            residual_field = self.field_image.copy()
+            residual_field[0] = resid
         if return_model:
             return catalog, residual_field, model
         return catalog, residual_field
@@ -449,10 +465,12 @@ class ShardedFieldDeblender:
         ``epistemic_uncertainty_estimation=True``) epistemic canvases
         accumulate band by band in one stream; each field folds its strips
         and downloads band by band.  Returns (catalogue, fields) with the
-        single-device dict's keys."""
+        single-device dict's keys; ``timings`` as in
+        ``deblend_and_render``."""
         want_epi = self.epistemic_uncertainty_estimation
         t = timings if timings is not None else {}
         self.serving_timings = t
+        pending: list = []
         f, b = self.field_size, self.nb_of_bands
         centers = np.asarray(galaxy_distances_to_center, np.float32).reshape(-1, 2)
         with stage_timer(t, "upload", self._distinct):
@@ -460,8 +478,9 @@ class ShardedFieldDeblender:
         with stage_timer(t, "deblend_render", self._distinct):
             cols, canvases, n_deblended = self._stream(
                 shards, centers, optimise_positions, mse_criterion, None, epistemic_criterion=epistemic_criterion,
-                measure=measure, render_std=True, render_epi=want_epi,
+                measure=measure, render_std=True, render_epi=want_epi, timings=t, pending=pending,
             )
+        settle_spans(t, pending)
         if n_deblended == 0:
             print("No galaxy deblended. End of the iterative procedure.")
             zero = np.zeros((f, f, b), np.float32)
@@ -475,9 +494,12 @@ class ShardedFieldDeblender:
             std_f = self._crop(canvases.pop("std"))
             epi_f = self._crop(canvases.pop("epi")) if want_epi else None
             resid, mean_f = self._finish(shards, canvases["mean"], True)
-        residual_field = self.field_image.copy()
-        residual_field[0] = resid
-        return _records(cols), {
+        with stage_timer(t, "catalog"):
+            catalog = _records(cols)
+        with stage_timer(t, "residual_copy"):
+            residual_field = self.field_image.copy()
+            residual_field[0] = resid
+        return catalog, {
             "residual_field": residual_field,
             "predicted_mean_field": mean_f,
             "predicted_stddev_field": std_f,

@@ -92,23 +92,28 @@ def detect_objects_tiled(
     stack through ``detect_sources_batched`` (a field no larger than one
     tile as a stack of one); each tile's detections are kept only inside
     its core, so every source is reported once.  ``timings`` accumulates
-    the batched detection's stage seconds plus 'tile_select'.  ``mesh``
-    splits the tile stack over the mesh's 'data' axis
+    the seconds of 'tile_stack' (the detection band and the tile stack
+    gathered on the device, synchronised), the batched detection's stages
+    and its ``count.masked_px`` (``detect_sources_batched``), then
+    'tile_select' (each tile's core kept, on the host).  ``mesh`` splits
+    the tile stack over the mesh's 'data' axis
     (``detect_sources_batched``)."""
     det_cfg = det_cfg or DetectionConfig()
     dev = resolve_device(device)
-    band = _detection_band(field_image, det_cfg, dev)
-    f = band.shape[0]
+    t = timings if timings is not None else {}
+    with stage_timer(t, "tile_stack", dev):
+        band = _detection_band(field_image, det_cfg, dev)
+        f = band.shape[0]
+        origins = tile_origins(f, tile, overlap)
+        size = min(tile, f)
+        subs = _tile_stack(band, origins, size)
     half = int(f / 2)
-    origins = tile_origins(f, tile, overlap)
-    size = min(tile, f)
-    subs = _tile_stack(band, origins, size)
     # catalog only: no tile's dense label map is rebuilt
-    objs = detect_sources_batched(subs, det_cfg, mesh=mesh, timings=timings, want_map=False, device=dev)
+    objs = detect_sources_batched(subs, det_cfg, mesh=mesh, timings=t, want_map=False, device=dev)
     cores = _core_bounds(origins, size, f)
     tiles = [(oy, yb, ox, xb) for oy, yb in zip(origins, cores) for ox, xb in zip(origins, cores)]
     out = []
-    with stage_timer(timings if timings is not None else {}, "tile_select"):
+    with stage_timer(t, "tile_select"):
         for obj, (oy, (y_lo, y_hi), ox, (x_lo, x_hi)) in zip(objs, tiles):
             gy = obj["y"] + oy
             gx = obj["x"] + ox
@@ -132,10 +137,14 @@ class TiledDeblendField(DeblendField):
 
     def detect(self, timings=None, field=None) -> np.ndarray:
         """Tiled detection at ``cfg.tile_size`` / ``cfg.tile_overlap``;
-        stage seconds land in ``timings`` (or ``self.detect_timings``).
+        stage seconds land in ``timings`` (or a new dict), kept as
+        ``self.detect_timings``: 'tile_stack', 'core', 'download', 'merge',
+        'segstats', 'clean', 'tile_select' and the count
+        ``count.masked_px`` (``detect_objects_tiled``); the first entry
+        call's dict also takes the constructor's 'field_copy'.
         ``field``: a device-resident field to detect on instead of
         uploading the detection band of ``self.field_image``."""
-        t = timings if timings is not None else {}
+        t = self._timings(timings)
         centers = detect_objects_tiled(
             self.field_image if field is None else field,
             self.det_cfg,
@@ -156,13 +165,21 @@ class TiledDeblendField(DeblendField):
             return None
         return self.deblend_field(centers, **kwargs)
 
-    def detect_deblend_render(self, **kwargs):
+    def detect_deblend_render(self, timings=None, **kwargs):
         """Survey serving: tiled detection on the memoized device field (the
         streaming route's own input, so detection uploads nothing), then
-        ``deblend_and_render`` at the detected centres."""
-        centers = self.detect(field=self._device_field(self.field_image))
+        ``deblend_and_render`` at the detected centres.
+
+        One stage dict, ``timings`` or a new one, takes the whole call and
+        is both ``self.detect_timings`` and ``self.serving_timings``:
+        'field_copy' (first entry call only), 'field_checksum' (each of the
+        memo's two look-ups), 'upload' (when the memo misses), detection's
+        stages (``detect``), then ``deblend_and_render``'s."""
+        t = self._timings(timings)
+        self.serving_timings = t
+        centers = self.detect(timings=t, field=self._device_field(self.field_image, t))
         if len(centers) == 0:
             if kwargs.get("return_model"):
                 return None, self.field_image.copy(), np.zeros_like(self.field_image[0])
             return None, self.field_image.copy()
-        return self.deblend_and_render(centers, **kwargs)
+        return self.deblend_and_render(centers, timings=t, **kwargs)

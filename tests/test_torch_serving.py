@@ -204,17 +204,25 @@ def test_transfer_dtype_is_validated(nets):
 
 
 def test_serving_timings_accumulate_per_stage(nets):
+    """Every serving stage once in the dict, the chunk loop's three spans
+    inside 'deblend_render'; 'field_copy' goes into the first entry call's
+    dict only and 'upload' only where the field's memo misses, while every
+    other stage grows with each call."""
     field, centers = _blob_field(seed=4)
     _, tdf = _pair(nets, field, 1)
     timings = {}
     tdf.deblend_and_render(centers, timings=timings)
-    assert set(timings) == {"upload", "deblend_render", "field_download"}
+    assert set(timings) == {"field_copy", "field_checksum", "upload", "deblend_render", "cutouts", "forward",
+                            "render", "field_download", "catalog", "residual_copy"}
     assert tdf.serving_timings is timings
+    assert timings["cutouts"] + timings["forward"] + timings["render"] <= timings["deblend_render"]
     first = dict(timings)
     tdf.deblend_and_predict(centers, timings=timings)
-    assert all(timings[k] > first[k] for k in first)
+    once = {"field_copy", "upload"}
+    assert all(timings[k] == first[k] for k in once)
+    assert all(timings[k] > first[k] for k in set(first) - once)
     tdf.deblend_and_render(centers)  # its own dict when none is passed
-    assert tdf.serving_timings is not timings and "deblend_render" in tdf.serving_timings
+    assert tdf.serving_timings is not timings and set(tdf.serving_timings) == set(first) - once
 
 
 def test_empty_field_returns(nets):

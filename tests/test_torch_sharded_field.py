@@ -344,7 +344,9 @@ def test_sharded_timings_instrumented():
     _, tsf = _pair(field, z_mode="mean")
     t = {}
     assert tsf.deblend_and_render(centers, timings=t)[0] is not None
-    assert set(t) == {"upload", "deblend_render", "field_download"} and min(t.values()) >= 0
+    assert set(t) == {"upload", "deblend_render", "cutouts", "forward", "render", "field_download", "catalog",
+                      "residual_copy"} and min(t.values()) >= 0
+    assert t["cutouts"] + t["forward"] + t["render"] <= t["deblend_render"]
     assert tsf.serving_timings is t
 
 

@@ -168,8 +168,9 @@ def test_a_tile_of_the_stack_is_detected_as_one_field(kw):
 def test_detect_sources_batched_times_its_stages():
     t = {}
     out = td.detect_sources_batched(_stack(), DetectionConfig(), timings=t, device="cpu")
-    assert set(t) == {"core", "download", "merge", "segstats", "clean", "reconstruct"}
+    assert set(t) == {"core", "download", "merge", "segstats", "clean", "reconstruct", "count.masked_px"}
     assert all(v >= 0 for v in t.values())
+    assert t["count.masked_px"] == sum(int((o["labels"] >= 0).sum()) for o in out)
     t = {}
     td.detect_sources_batched(_stack(), DetectionConfig(), timings=t, want_map=False, device="cpu")
     assert "reconstruct" not in t and out[0]["labels"].shape == (128, 128)
