@@ -18,11 +18,14 @@ for a stack of same-size tiles (``detect_sources_batched``):
      ``filter_size``), then the parent race (kernels/parent_race.py).
    Either way label resolution follows over the row-flattened stack
    (kernels/label_select.py).
-3. On the host, over the masked pixels only (one device compaction of the
-   whole stack, then one download): the quantized multi-threshold merge of
-   watershed segments (deblend_nthresh, deblend_cont) or the Lutz tree
-   (``deblend_algo='lutz'``), both in the native library
-   (kernels/segmerge.py), then minarea, flux-weighted centroids and CLEAN.
+3. On the device, for the watershed merge, the saddle edges between
+   touching segments from the dense label map (``_dense_saddle_edges``).
+4. On the host, over the masked pixels only (one device compaction of the
+   whole stack, then one download with the edges): the quantized
+   multi-threshold merge of watershed segments (deblend_nthresh,
+   deblend_cont) or the Lutz tree (``deblend_algo='lutz'``), both in the
+   native library (kernels/segmerge.py), then minarea, flux-weighted
+   centroids and CLEAN.
 
 ``detect_objects`` returns the reference's (N, 2) offsets from the field
 centre, round(-int(F/2) + y).
@@ -292,6 +295,51 @@ def _compact_masked(labels: torch.Tensor, filt: torch.Tensor):
     return idx, flat[idx], filt.reshape(-1)[idx]
 
 
+# E, S, SE, SW: each undirected 8-neighbour adjacency once
+_EDGE_DIRECTIONS = ((0, 1), (1, 0), (1, 1), (1, -1))
+
+
+def _split_edge_keys(keys, f: int):
+    """(t, lo, hi) of ``_dense_saddle_edges``'s keys (a tensor or an int64
+    numpy array)."""
+    plane = f * f
+    return keys // (plane * plane), keys // plane % plane, keys % plane
+
+
+def _dense_saddle_edges(labels: torch.Tensor, filt: torch.Tensor):
+    """The watershed merge's saddle edges over the (T, F, F) stack, on its
+    device, from the dense maps before the compaction: (keys int64 (E,),
+    heights float32 (E,), pairs int64 0-d tensor).
+
+    A boundary pair is two 8-neighbour pixels of one field, both masked
+    (``labels`` >= 0, a segment's per-field flat root index), with
+    different labels; shifted views of the maps give the pairs of each
+    direction, so none leaves its field.  An edge is a distinct touching
+    pair lo < hi, keyed ``(t * F^2 + lo) * F^2 + hi`` (ascending keys are
+    in (t, lo, hi) order, the order of the merge's own ``unique``), its
+    height the highest over the pair's boundary pairs of the smaller
+    filtered value; ``pairs`` counts the boundary pairs.  Max is exact and
+    independent of order: the edges equal those the JAX package builds on
+    the host from the COO (``_distinct_saddles_coo``) bit for bit."""
+    t, f, _ = labels.shape
+    plane = f * f
+    if t * plane * plane >= 2**63:
+        raise ValueError(f"a ({t}, {f}, {f}) stack overflows the int64 edge keys")
+    field = torch.arange(t, dtype=torch.int64, device=labels.device).view(t, 1, 1)
+    keys, heights = [], []
+    for dy, dx in _EDGE_DIRECTIONS:
+        x0, x1 = max(0, -dx), f - max(0, dx)
+        a, b = labels[:, : f - dy, x0:x1], labels[:, dy:, x0 + dx : x1 + dx]
+        pair = (a >= 0) & (b >= 0) & (a != b)
+        a, b = a[pair].long(), b[pair].long()
+        keys.append((field.expand(pair.shape)[pair] * plane + torch.minimum(a, b)) * plane + torch.maximum(a, b))
+        heights.append(torch.minimum(filt[:, : f - dy, x0:x1][pair], filt[:, dy:, x0 + dx : x1 + dx][pair]))
+    keys, heights = torch.cat(keys), torch.cat(heights)
+    ukey, inv = torch.unique(keys, sorted=True, return_inverse=True)
+    best = torch.full(ukey.shape, float("-inf"), dtype=heights.dtype, device=heights.device)
+    return ukey, best.scatter_reduce_(0, inv, heights, "amax"), torch.tensor(len(keys), device=labels.device)
+
+
 # ----------------------------------------------------------- host postprocess
 
 
@@ -321,6 +369,21 @@ def _saddle_edges_coo(idx, lab, val, f):
     if not lo_parts:
         return None, None, None
     return np.concatenate(lo_parts), np.concatenate(hi_parts), np.concatenate(h_parts)
+
+
+def _distinct_saddles_coo(idx, lab, val, f):
+    """The merge's edges from the COO alone: the distinct touching pairs
+    (lo, hi) of ``_saddle_edges_coo`` in ascending order, each with its
+    highest saddle (float64), as ``_dense_saddle_edges`` gives them from
+    the dense maps."""
+    lo, hi, h = _saddle_edges_coo(idx, lab, val, f)
+    if lo is None:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0)
+    plane = f * f
+    key, inv = np.unique(lo * plane + hi, return_inverse=True)
+    eh = np.full(len(key), -np.inf)
+    np.maximum.at(eh, inv, h)
+    return key // plane, key % plane, eh
 
 
 def _merge_segments_py(ea, eb, eh, peak, flux, order, nthr, thr, cont):
@@ -386,25 +449,23 @@ def _merge_segments_py(ea, eb, eh, peak, flux, order, nthr, thr, cont):
     return np.fromiter((find(i) for i in range(L)), np.int64, L)
 
 
-def _merge_labels_coo(idx, lab, val, f, threshold, cfg: DetectionConfig):
+def _merge_labels_coo(idx, lab, val, f, threshold, cfg: DetectionConfig, edges=None):
     """SExtractor's quantized deblending criterion on the watershed
     segments of the masked-pixel COO: merges back the splits sep's
-    64-level multi-threshold tree would not have made.  Returns the
-    relabelled per-pixel labels."""
+    64-level multi-threshold tree would not have made.  ``edges``: the
+    field's distinct saddle edges (lo, hi, height) in ascending (lo, hi)
+    order, as detection builds them on the device; from the COO when
+    None.  Returns the relabelled per-pixel labels."""
     if len(idx) == 0:
         return lab
-    lo, hi, h = _saddle_edges_coo(idx, lab, val, f)
-    if lo is None:
+    lo, hi, h = _distinct_saddles_coo(idx, lab, val, f) if edges is None else edges
+    if len(lo) == 0:
         return lab
     labs = np.unique(lab)
     L = len(labs)
-    ia = np.searchsorted(labs, lo)
-    ib = np.searchsorted(labs, hi)
-    ukey, inv = np.unique(ia * L + ib, return_inverse=True)
-    eh = np.full(len(ukey), -np.inf)
-    np.maximum.at(eh, inv, h)
-    ea = ukey // L
-    eb = ukey % L
+    ea = np.searchsorted(labs, lo)
+    eb = np.searchsorted(labs, hi)
+    eh = np.asarray(h, np.float64)
     cid = np.searchsorted(labs, lab)
     flux = np.bincount(cid, weights=np.maximum(val, 0.0), minlength=L)
     peak = val[np.searchsorted(idx, labs)].astype(np.float64)
@@ -486,14 +547,15 @@ def _clean_pass(ys, xs, peaks, cfg: DetectionConfig) -> np.ndarray:
     return peaks > cfg.clean_param * contrib
 
 
-def _postprocess_coo(idx, lab, val, f, globalrms, cfg: DetectionConfig, timings=None, want_map=True):
+def _postprocess_coo(idx, lab, val, f, globalrms, cfg: DetectionConfig, timings=None, want_map=True, edges=None):
     """Merge (or the Lutz tree), minarea, centroids and CLEAN over the
     masked-pixel COO (ascending per-field flat ``idx``, per-pixel watershed
     labels, filtered values).
 
     ``timings``: a dict that accumulates the wall seconds of the stages
     'merge', 'segstats', 'clean' and 'reconstruct' (the dense label map).
-    ``want_map=False`` skips that map and returns ``labels: None``."""
+    ``want_map=False`` skips that map and returns ``labels: None``.
+    ``edges``: the merge's saddle edges (``_merge_labels_coo``)."""
     t = timings if timings is not None else {}
     idx = np.asarray(idx, np.int64)
     lab = np.asarray(lab, np.int64)
@@ -503,7 +565,7 @@ def _postprocess_coo(idx, lab, val, f, globalrms, cfg: DetectionConfig, timings=
         if cfg.deblend_algo == "lutz":
             lab = _lutz_labels_coo(idx, val, f, thr_val, cfg)
         else:
-            lab = _merge_labels_coo(idx, lab, val, f, thr_val, cfg)
+            lab = _merge_labels_coo(idx, lab, val, f, thr_val, cfg, edges)
 
     with stage_timer(t, "segstats"):
         w_sel = np.maximum(val, 0.0)
@@ -558,14 +620,36 @@ def _on_device(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
 
-def _postprocess_stack(idx, lab, val, n, f, grms, cfg: DetectionConfig, timings, want_map) -> list[dict]:
+def _count(t: dict, name: str, n: int) -> None:
+    t[f"count.{name}"] = t.get(f"count.{name}", 0) + int(n)
+
+
+def _stack_edges(labels: torch.Tensor, filt: torch.Tensor, cfg: DetectionConfig):
+    """The watershed merge's saddle edges over the stack, on its device
+    (``_dense_saddle_edges``: keys, heights, boundary pairs); None under
+    ``deblend_algo='lutz'``, which takes no edges."""
+    return None if cfg.deblend_algo == "lutz" else _dense_saddle_edges(labels, filt)
+
+
+def _postprocess_stack(idx, lab, val, n, f, grms, cfg: DetectionConfig, timings, want_map, edges=None) -> list[dict]:
     """The host postprocess tile by tile of a stack's COO (global flat
-    ``idx``, split per tile by ``searchsorted``)."""
+    ``idx``, split per tile by ``searchsorted``) and of its saddle edges
+    (``edges``: ascending keys and heights, split per tile the same way;
+    their count under ``count.segment_edges``)."""
     per_tile = f * f
     bounds = np.searchsorted(idx, np.arange(n + 1) * per_tile)
+    tile_edges = [None] * n
+    if edges is not None:
+        keys, heights = edges
+        cuts = np.searchsorted(keys, np.arange(n + 1) * per_tile * per_tile)
+        _count(timings, "segment_edges", cuts[-1])
+        for i, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
+            _, lo, hi = _split_edge_keys(keys[s:e], f)
+            tile_edges[i] = (lo, hi, heights[s:e])
     return [
         _postprocess_coo(
-            idx[s:e] - i * per_tile, lab[s:e], val[s:e], f, float(grms[i]), cfg, timings=timings, want_map=want_map
+            idx[s:e] - i * per_tile, lab[s:e], val[s:e], f, float(grms[i]), cfg, timings=timings, want_map=want_map,
+            edges=tile_edges[i],
         )
         for i, (s, e) in enumerate(zip(bounds[:-1], bounds[1:]))
     ]
@@ -573,16 +657,20 @@ def _postprocess_stack(idx, lab, val, n, f, grms, cfg: DetectionConfig, timings,
 
 def _detect_stack(x: torch.Tensor, core, cfg: DetectionConfig, timings, want_map) -> list[dict]:
     """``core`` over the (T, F, F) stack, one compaction of its masked
-    pixels, one download of the three COO arrays, then the host
-    postprocess tile by tile."""
+    pixels and the saddle edges on the device, one download of the three
+    COO arrays and the edges, then the host postprocess tile by tile."""
     t = timings if timings is not None else {}
     with stage_timer(t, "core", x.device):
         labels, filt, grms = core(x, cfg)
         idx, lab, val = _compact_masked(labels, filt)
+        edges = _stack_edges(labels, filt, cfg)
     with stage_timer(t, "download", x.device):
         idx, lab, val, grms = (a.cpu().numpy() for a in (idx, lab, val, grms))
-    t["count.masked_px"] = t.get("count.masked_px", 0) + len(idx)
-    return _postprocess_stack(idx, lab, val, x.shape[0], x.shape[-1], grms, cfg, t, want_map)
+        edges = None if edges is None else [a.cpu().numpy() for a in edges]
+    _count(t, "masked_px", len(idx))
+    if edges is not None:
+        _count(t, "saddle_pairs", edges.pop())
+    return _postprocess_stack(idx, lab, val, x.shape[0], x.shape[-1], grms, cfg, t, want_map, edges)
 
 
 def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda", timings=None, want_map=True):
@@ -609,21 +697,25 @@ def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None,
 
     ``tiles``: a host array, uploaded to ``device``, or a tensor already on
     it (bfloat16 is widened to float32 there).  ``timings``: a dict that
-    accumulates the seconds of 'core' (the device core and the
-    compaction, up to its count sync), 'download' (the three COO arrays)
-    and the host postprocess's 'merge', 'segstats', 'clean' and
-    'reconstruct' (``_postprocess_coo``), and under ``count.masked_px``
-    the masked pixels downloaded, which the merge takes (a count at the
-    same boundary, never a time).  ``want_map=False`` skips each tile's
-    dense label map (``labels: None``).
+    accumulates the seconds of 'core' (the device core, the compaction and
+    the saddle edges, up to their count syncs), 'download' (the three COO
+    arrays and the edges) and the host postprocess's 'merge', 'segstats',
+    'clean' and 'reconstruct' (``_postprocess_coo``), and counts at the
+    same boundaries, never times: ``count.masked_px`` the masked pixels
+    downloaded, which the merge takes; for the watershed merge (not
+    ``'lutz'``) ``count.saddle_pairs`` the boundary pixel pairs the device
+    found and ``count.segment_edges`` the distinct edges the merge
+    received.  ``want_map=False`` skips each tile's dense label map
+    (``labels: None``).
 
     ``mesh`` (parallel/mesh.py): the stack is padded to a multiple of the
     mesh's 'data' axis (a cyclic repeat of its tiles) and split over it;
     each shard's device runs the core on its slab (every stage is per
     tile: no collective), all shards queued before any compaction syncs;
-    then each shard's masked pixels are compacted and downloaded, and the
-    host postprocess runs on the real tiles as without a mesh.  A tensor
-    stack may lie on any device; the shards' devices are the mesh's."""
+    then each shard's masked pixels are compacted, its saddle edges built,
+    both downloaded, and the host postprocess runs on the real tiles as
+    without a mesh.  A tensor stack may lie on any device; the shards'
+    devices are the mesh's."""
     cfg = _normalize_batched_cfg(cfg or DetectionConfig())
     if mesh is not None:
         from debvader_tpu_torch.parallel.mesh import require_single_process
@@ -661,11 +753,11 @@ def detect_shards(pieces: list, cfg: DetectionConfig, timings=None, want_map=Tru
     """Detection over a tile stack already split into equal (T/D, F, F)
     pieces, each on its shard's device: the core of every piece is queued
     first (every stage is per tile: no collective), then each piece's
-    masked pixels are compacted and downloaded (the compaction syncs), the
-    indices offset to the whole stack's flat order, and the host
-    postprocess runs tile by tile on the first ``n`` tiles (all of them by
-    default).  ``cfg`` is normalised here as ``detect_sources_batched``
-    normalises it."""
+    masked pixels are compacted (the compaction syncs) and its saddle edges
+    built, both downloaded, the indices and edge keys offset to the whole
+    stack's order, and the host postprocess runs tile by tile on the first
+    ``n`` tiles (all of them by default).  ``cfg`` is normalised here as
+    ``detect_sources_batched`` normalises it."""
     cfg = _normalize_batched_cfg(cfg)
     t = timings if timings is not None else {}
     per_shard, f = pieces[0].shape[0], pieces[0].shape[-1]
@@ -674,14 +766,25 @@ def detect_shards(pieces: list, cfg: DetectionConfig, timings=None, want_map=Tru
     with stage_timer(t, "core", devices):
         cores = [_batched_core(p.to(torch.float32), cfg) for p in pieces]
         coos = [_compact_masked(labels, filt) for labels, filt, _ in cores]
+        edges = [_stack_edges(labels, filt, cfg) for labels, filt, _ in cores]
     with stage_timer(t, "download"):
         parts = [[a.cpu().numpy() for a in coo] for coo in coos]
         grms = np.concatenate([g.cpu().numpy() for _, _, g in cores])
+        edge_parts = [[a.cpu().numpy() for a in e] for e in edges if e is not None]
     idx = np.concatenate([p[0] + k * per_shard * f * f for k, p in enumerate(parts)])
     lab = np.concatenate([p[1] for p in parts])
     val = np.concatenate([p[2] for p in parts])
-    t["count.masked_px"] = t.get("count.masked_px", 0) + len(idx)
-    return _postprocess_stack(idx, lab, val, n, f, grms, cfg, t, want_map)
+    _count(t, "masked_px", len(idx))
+    stack_edges = None
+    if edge_parts:
+        # each shard's keys number its own tiles: offset them as idx is
+        span = per_shard * (f * f) ** 2
+        if span * len(pieces) >= 2**63:
+            raise ValueError(f"{per_shard * len(pieces)} tiles of {f}^2 overflow the int64 edge keys")
+        stack_edges = (np.concatenate([e[0] + k * span for k, e in enumerate(edge_parts)]),
+                       np.concatenate([e[1] for e in edge_parts]))
+        _count(t, "saddle_pairs", sum(int(e[2]) for e in edge_parts))
+    return _postprocess_stack(idx, lab, val, n, f, grms, cfg, t, want_map, stack_edges)
 
 
 def detect_objects(field_image, cfg: DetectionConfig | None = None, device="cuda") -> np.ndarray:

@@ -202,6 +202,103 @@ def test_merge_roots_equal_jax_merge_segments_py():
     assert L > 3
 
 
+# ------------------------------------------------- saddle edges from the dense maps
+
+
+def _random_segments(t, f, seed):
+    """(labels, filt) of t fields: random segments whose roots are masked
+    pixels labelled with themselves, columns 0 and f-1 filled with
+    alternating segments (a row's last pixel is flat-adjacent to the next
+    row's first), the seam rows of neighbouring fields masked with other
+    segments, and filtered values on a coarse grid (ties in the max)."""
+    rng = np.random.default_rng(seed)
+    labels = np.full((t, f, f), -1, np.int32)
+    for k in range(t):
+        roots = rng.choice(f * f, 8, replace=False)
+        lab = labels[k].reshape(-1)
+        masked = np.flatnonzero(rng.random(f * f) < 0.6)
+        lab[masked] = rng.choice(roots, len(masked))
+        labels[k][:, 0] = roots[np.arange(f) % 2]
+        labels[k][:, -1] = roots[2 + np.arange(f) % 2]
+        labels[k][0] = roots[4]
+        labels[k][-1] = roots[5 + k % 2]
+        lab[roots] = roots
+    return labels, (rng.integers(1, 48, (t, f, f)) / 8).astype(np.float32)
+
+
+def _isolated_segments():
+    """Two fields whose segments never touch: two blocks a field, and the
+    last row of field 0 and the first of field 1, which would pair only
+    across the seam."""
+    labels = np.full((2, 16, 16), -1, np.int32)
+    for k in range(2):
+        labels[k, 3:6, 3:6] = 4 * 16 + 4
+        labels[k, 9:13, 9:12] = 10 * 16 + 10
+    labels[0, 15] = 15 * 16 + 7
+    labels[1, 0] = 7
+    filt = np.linspace(1.0, 2.0, labels.size, dtype=np.float32).reshape(labels.shape)
+    return labels, filt
+
+
+def _detected_stack():
+    from test_torch_tiles import _stack
+
+    labels, filt, _ = td._batched_core(torch.from_numpy(_stack()), td._normalize_batched_cfg(DetectionConfig()))
+    return labels.numpy(), filt.numpy()
+
+
+_EDGE_CASES = {
+    "random_edges_and_seams": lambda: _random_segments(3, 24, 0),
+    "isolated": _isolated_segments,
+    "one_field": lambda: _random_segments(1, 33, 1),
+    "detection": _detected_stack,
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_CASES))
+def test_dense_saddle_edges_equal_the_coo_merge_edges(case):
+    """Detection's dense-map saddle edges (``_dense_saddle_edges``, run on
+    the stack's device) against what the merge built from each field's COO
+    before: the edges of _saddle_edges_coo, deduplicated by unique /
+    maximum.at over the segments' ranks; keys and heights bit for bit, the boundary pairs
+    counted.  _postprocess_coo given those edges returns the same dict as
+    without them (the COO route)."""
+    labels, filt = _EDGE_CASES[case]()
+    t, f, _ = labels.shape
+    keys, heights, pairs = td._dense_saddle_edges(torch.from_numpy(labels), torch.from_numpy(filt))
+    keys, heights = keys.numpy(), heights.numpy()
+    field, lo, hi = td._split_edge_keys(keys, f)
+    assert np.all(np.diff(keys) > 0) and np.all(lo < hi)
+    want_pairs = 0
+    for k in range(t):
+        flat = labels[k].ravel()
+        idx = np.flatnonzero(flat >= 0)
+        lab, val = flat[idx].astype(np.int64), filt[k].ravel()[idx]
+        mine = field == k
+        edges = (lo[mine], hi[mine], heights[mine])
+        wlo, whi, wh = td._saddle_edges_coo(idx, lab, val, f)
+        if wlo is None:
+            assert not mine.any()
+        else:
+            want_pairs += len(wlo)
+            labs = np.unique(lab)
+            n = len(labs)
+            ukey, inv = np.unique(np.searchsorted(labs, wlo) * n + np.searchsorted(labs, whi), return_inverse=True)
+            eh = np.full(len(ukey), -np.inf)
+            np.maximum.at(eh, inv, wh)
+            np.testing.assert_array_equal(edges[0], labs[ukey // n])
+            np.testing.assert_array_equal(edges[1], labs[ukey % n])
+            np.testing.assert_array_equal(edges[2].astype(np.float64).view(np.int64), eh.view(np.int64))
+        cfg = DetectionConfig()
+        got = td._postprocess_coo(idx, lab, val, f, 0.05, cfg, edges=edges)
+        want = td._postprocess_coo(idx, lab, val, f, 0.05, cfg)
+        assert got.keys() == want.keys()
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
+    assert int(pairs) == want_pairs
+    assert (want_pairs > 0) == (case != "isolated")
+
+
 # ------------------------------------------- single-field detection backends
 
 _BACKENDS = {

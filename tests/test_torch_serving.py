@@ -223,6 +223,15 @@ def test_serving_timings_accumulate_per_stage(nets):
     assert all(timings[k] > first[k] for k in set(first) - once)
     tdf.deblend_and_render(centers)  # its own dict when none is passed
     assert tdf.serving_timings is not timings and set(tdf.serving_timings) == set(first) - once
+    # serving detects nothing, so detection's counters stay out of its
+    # dict; the field's own detection records them, the watershed merge's
+    # two only where it builds saddle edges (not under 'lutz')
+    assert not any(k.startswith("count.") for k in timings)
+    counters = {"count.masked_px", "count.saddle_pairs", "count.segment_edges"}
+    for algo, want in (("watershed", counters), ("lutz", {"count.masked_px"})):
+        found = {}
+        dtt.detect_sources(field[0, :, :, 2], dtt.DetectionConfig(deblend_algo=algo), device="cpu", timings=found)
+        assert {k for k in found if k.startswith("count.")} == want and all(found[k] > 0 for k in want)
 
 
 def test_empty_field_returns(nets):

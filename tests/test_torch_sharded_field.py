@@ -348,6 +348,13 @@ def test_sharded_timings_instrumented():
                       "residual_copy"} and min(t.values()) >= 0
     assert t["cutouts"] + t["forward"] + t["render"] <= t["deblend_render"]
     assert tsf.serving_timings is t
+    # the bands' detection counts its masked pixels and, for the watershed
+    # merge, the saddle edges built on each band's device (not under 'lutz')
+    counters = {"count.masked_px", "count.saddle_pairs", "count.segment_edges"}
+    for algo, want in (("watershed", counters), ("lutz", {"count.masked_px"})):
+        found = {}
+        tsf.detect_objects(dtt.DetectionConfig(deblend_algo=algo), tile=48, overlap=16, timings=found)
+        assert {k for k in found if k.startswith("count.")} == want and all(found[k] > 0 for k in want)
 
 
 def test_sharded_one_band_is_the_four_band_catalogue():

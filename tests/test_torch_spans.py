@@ -22,6 +22,9 @@ from debvader_tpu_torch.utils.profiling import settle_spans, stage_timer
 FIELD_STAGES = {"field_copy", "field_checksum", "upload", "tile_stack", "core", "download", "merge", "segstats",
                 "clean", "tile_select", "deblend_render", "field_download", "catalog", "residual_copy"}
 CHUNK_STAGES = {"cutouts", "forward", "render"}  # nested in 'deblend_render'
+# detection's counts: the masked-pixel COO, and the watershed merge's
+# boundary pixel pairs and distinct saddle edges
+COUNTERS = {"count.masked_px", "count.saddle_pairs", "count.segment_edges"}
 
 
 def _annotations(prof, tmp_path) -> list[dict]:
@@ -126,9 +129,11 @@ def test_survey_field_records_every_stage_once(net, monkeypatch, tmp_path):
     the benchmark's merge of the two drops nothing; every top-level stage
     in it, the chunk spans inside 'deblend_render', 'field_checksum' once
     for each of the memo's look-ups (two: detection's and the serve's),
-    'upload' on its miss only, and ``count.masked_px`` the length of the
-    masked-pixel COO that detection downloaded.  A second call on the
-    same object hits the memo: no 'upload', no 'field_copy'."""
+    'upload' on its miss only, ``count.masked_px`` the length of the
+    masked-pixel COO that detection downloaded, and the watershed merge's
+    ``count.saddle_pairs`` and ``count.segment_edges``, fewer than it.  A
+    second call on the same object hits the memo: no 'upload', no
+    'field_copy'."""
     coo, lookups = [], []
     compact = detection._compact_masked
 
@@ -152,12 +157,12 @@ def test_survey_field_records_every_stage_once(net, monkeypatch, tmp_path):
     t = df.serving_timings
     assert df.detect_timings is t
     merged = dict(df.detect_timings, **df.serving_timings)
-    assert set(merged) == FIELD_STAGES | CHUNK_STAGES | {"count.masked_px"}
+    assert set(merged) == FIELD_STAGES | CHUNK_STAGES | COUNTERS
     assert all(v > 0 for v in merged.values())
     assert all(t[k] <= t["deblend_render"] for k in CHUNK_STAGES)
     assert sum(t[k] for k in CHUNK_STAGES) <= t["deblend_render"]
     assert len(lookups) == 2 and all(d is t for d in lookups)
-    assert t["count.masked_px"] == sum(coo) > 0
+    assert t["count.masked_px"] == sum(coo) > t["count.saddle_pairs"] >= t["count.segment_edges"] > 0
     names = [e["name"] for e in _annotations(prof, tmp_path)]
     assert names.count("dvt.field_checksum") == 2 and names.count("dvt.upload") == 1
     assert names.count("dvt.field_copy") == 0  # the constructor ran before the profiler
@@ -168,7 +173,7 @@ def test_survey_field_records_every_stage_once(net, monkeypatch, tmp_path):
     again = df.detect_deblend_render()[0]
     np.testing.assert_array_equal(again.list_idx, catalog.list_idx)
     assert set(df.serving_timings) == set(merged) - {"upload", "field_copy"}
-    assert df.serving_timings["count.masked_px"] == t["count.masked_px"]
+    assert all(df.serving_timings[k] == t[k] for k in COUNTERS)
 
 
 def test_first_entry_call_takes_the_field_copy(net):
@@ -179,7 +184,7 @@ def test_first_entry_call_takes_the_field_copy(net):
     df.detect(timings=first)
     df.detect(timings=later)
     assert first["field_copy"] > 0 and "field_copy" not in later
-    assert {"tile_stack", "core", "download", "tile_select", "count.masked_px"} <= set(later)
+    assert {"tile_stack", "core", "download", "tile_select"} | COUNTERS <= set(later)
 
 
 class _RecordedEvent:

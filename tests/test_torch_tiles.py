@@ -166,14 +166,23 @@ def test_a_tile_of_the_stack_is_detected_as_one_field(kw):
 
 
 def test_detect_sources_batched_times_its_stages():
+    """Every stage and counter once; the watershed merge's counters show
+    its saddle edges engaging (touching segments on every tile: more
+    boundary pixel pairs than distinct edges), and the Lutz tree, which
+    takes no edges, records neither."""
     t = {}
     out = td.detect_sources_batched(_stack(), DetectionConfig(), timings=t, device="cpu")
-    assert set(t) == {"core", "download", "merge", "segstats", "clean", "reconstruct", "count.masked_px"}
+    assert set(t) == {"core", "download", "merge", "segstats", "clean", "reconstruct", "count.masked_px",
+                      "count.saddle_pairs", "count.segment_edges"}
     assert all(v >= 0 for v in t.values())
     assert t["count.masked_px"] == sum(int((o["labels"] >= 0).sum()) for o in out)
+    assert t["count.masked_px"] > t["count.saddle_pairs"] > t["count.segment_edges"] > 0
     t = {}
     td.detect_sources_batched(_stack(), DetectionConfig(), timings=t, want_map=False, device="cpu")
     assert "reconstruct" not in t and out[0]["labels"].shape == (128, 128)
+    t = {}
+    td.detect_sources_batched(_stack(), DetectionConfig(deblend_algo="lutz"), timings=t, device="cpu")
+    assert t["count.masked_px"] > 0 and not {"count.saddle_pairs", "count.segment_edges"} & set(t)
 
 
 def test_batched_detection_validates_its_arguments():
