@@ -236,7 +236,22 @@ without printing its last line):
    refuses its mesh; warm step times of both meshes and of the step's gradient
    reduction alone (the cross_process line).  A
    worker that fails or outlives its wall limit fails the script;
-25. one {"kernels": [...]} line, the nvidia-smi line, and the last line
+25. the one-pass bias and PReLU (csrc/bias_prelu.cu) bit for bit, NaN as
+   a class, against its plain version (the layers' ops) at the 16 conv
+   layers' and the two biased dense layers' shapes at batch 4,096, float32
+   and bfloat16, on inputs seeded with NaN, signed zeros, infinities,
+   subnormals and exact cancellations of the bias, the transposed convs'
+   crop views and their contiguous copies, each layer timed with its
+   bound and the plain version; the stamp forward of the float32,
+   bfloat16, sub-pixel and f32-stages models on a 4,096-stamp batch of the
+   record-array route's real stamps through api.deblend_tensor (18
+   launches a forward) torch.equal to the plain composition, the same
+   forward recorded by autograd, which launches none; the kernel route
+   timed, one profiled call each; an artifact exported on the card bit for
+   bit the live model (the bias_prelu line).  The record-array (phase 4),
+   streaming (6), tiled (16) and bfloat16-model (20) paths each require
+   the kernel's 18 launches a forward chunk;
+26. one {"kernels": [...]} line, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
 Phase 4's default-threshold detection also times the native segment merge
@@ -2275,6 +2290,9 @@ def run_tiled(torch, net, big: np.ndarray, reset_counts, read_counts) -> tuple[d
     if launches["detect_fused"] != 1 or launches["label_select"] != 1 or launches["clipped_stats"] != 1:
         raise AssertionError(f"tiled detection of {n_tiles} tiles launched {launches}: expected the detect core, "
                              "the labels and the clipped statistics once each")
+    if launches["bias_prelu"] < 18 or launches["bias_prelu"] % 18:
+        raise AssertionError(f"tiled serving launched the bias and PReLU {launches['bias_prelu']} times: expected "
+                             "18 a forward chunk")
     first_timings = dict(tdf.detect_timings)
     centers = tdf.detect(field=tdf._device_field(tdf.field_image))
     if catalog is None or len(catalog) == 0 or len(centers) != tdf.nb_of_detected_objects[-1]:
@@ -3881,8 +3899,13 @@ def run_model_options(torch, net, field: np.ndarray, centers: np.ndarray, cutout
     found = dt.detect_objects(field, dt.DetectionConfig(**DETECTION), device="cuda")
     dfb = dt.DeblendField(bf, field, z_mode="mean", cfg=serving_cfg(), device="cuda")
     cat_b, resid_b, model_b = dfb.deblend_and_render(found, return_model=True)
+    # the bias and PReLU of each forward chunk: in bfloat16, and in float32
+    # after the layers that compute in it (dec/Dense_1 under strict_cast)
+    wide = sum(layer.dtype == torch.float32 for _, layer, _, _ in bias_prelu_layers(bf))
+    chunks = -(-len(found) // serving_cfg().source_chunk)
     launches = read_counts("bfloat16 model", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1,
-                                             "render": 1})
+                                             "render": 1, "bias_prelu_bf16": (18 - wide) * chunks,
+                                             "bias_prelu": wide * chunks})
     again = dt.DeblendField(bf, field, z_mode="mean", cfg=serving_cfg(), device="cuda").deblend_and_render(found)[1]
     if not np.array_equal(again.view(np.int32), resid_b.view(np.int32)):
         raise AssertionError("model options: two bf16 serving runs differ")
@@ -4583,6 +4606,208 @@ def run_cross_process(torch) -> dict:
     return out
 
 
+def bias_prelu_inputs(torch, shape, dtype, gen, batch: int):
+    """(y, bias, alpha) on the card at one layer's shape: y normal with
+    NaN, signed zeros, infinities and subnormals seeded in, and the first
+    element of each channel of stamp 0 the negated bias (t exactly 0)."""
+    c = shape[0]
+    y = torch.randn((batch, *shape), generator=gen, device="cuda") * 0.7
+    bias = torch.randn(c, generator=gen, device="cuda") * 0.3
+    alpha = torch.randn(shape, generator=gen, device="cuda") * 0.4
+    specials = torch.tensor([float("nan"), 0.0, -0.0, float("inf"), -float("inf"), 1e-40, -1e-40, 3e-39, -7e-41],
+                            device="cuda")
+    flat = y.view(-1)
+    idx = torch.randint(0, flat.numel(), (4096,), generator=gen, device="cuda")
+    flat[idx] = specials[torch.arange(4096, device="cuda") % len(specials)]
+    y = y.to(dtype)
+    y[0].view(c, -1)[:, 0] = -bias.to(dtype)
+    return y, bias, alpha
+
+
+def bias_prelu_layers(net) -> list:
+    """(name, layer, PReLU, crop) of the 18 layers the forward sends
+    through the kernel; crop is the (lo, extra) of a transposed conv's
+    output view (stride 2: the last row and column cut, stride 1: a
+    one-pixel ring), None for a contiguous output."""
+    enc, dec = net.encoder, net.decoder
+    out = [(f"enc/Conv_{i}", c, a, None) for i, (c, a) in enumerate(zip(enc.convs, enc.prelus))]
+    out += [("dec/Dense_0", dec.dense0, dec.prelu0, None), ("dec/Dense_1", dec.dense1, dec.prelu1, None)]
+    out += [(f"dec/ConvT_{j}", c, a, (0, 1) if c.stride == 2 else (1, 2))
+            for j, (c, a) in enumerate(zip(dec.convts, dec.prelus))]
+    return out
+
+
+def check_bias_prelu_layers(torch, bp, net, batch: int = 4096) -> dict:
+    """Phase 25: the kernel against its plain version at each layer's
+    shape, in both layouts (NCHW, and channels-last as the forward's
+    convolutions write it) and, for the transposed convs, as the crop view
+    of either, bit for bit (NaN as a class) and in the plain result's
+    layout; each layer timed on the forward's own layout (channels-last,
+    cropped for a transposed conv) with its bound (bytes: y read and the
+    result written once, alpha and the bias read once) and its plain
+    version."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows, totals = [], {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, layer, act, crop in bias_prelu_layers(net):
+        shape = tuple(act.alpha.shape)
+        # the layer's compute dtype: a bfloat16 model's dec/Dense_1 computes
+        # in float32 under strict_cast
+        ydt = layer.dtype
+        y, bias, alpha = bias_prelu_inputs(torch, shape, ydt, gen, batch)
+        cases = {"contiguous": y}
+        if y.ndim == 4:
+            cases["channels_last"] = y.contiguous(memory_format=torch.channels_last)
+        if crop is not None:
+            lo, extra = crop
+            for fmt, tag in ((torch.contiguous_format, "crop_view_nchw"), (torch.channels_last, "crop_view")):
+                full = torch.randn((batch, shape[0], shape[1] + extra, shape[2] + extra), generator=gen,
+                                   device="cuda").to(ydt).contiguous(memory_format=fmt)
+                full[:, :, lo: lo + shape[1], lo: lo + shape[2]] = y
+                cases[tag] = full[:, :, lo: lo + shape[1], lo: lo + shape[2]]
+        before = bp.bias_prelu.launches + bp.bias_prelu.launches_bf16
+        for case, inp in cases.items():
+            want = bp.bias_prelu_plain(inp, bias, alpha)
+            dense = bp.output_like(inp) is inp
+            got = bp.bias_prelu(inp.clone(memory_format=torch.preserve_format) if dense else inp, bias, alpha)
+            torch.cuda.synchronize()
+            if got.stride() != want.stride() or not bits_equal(torch, got, want):
+                nan = torch.isnan(want)
+                diff = int(((got != want) & ~nan).sum()) + int((torch.isnan(got) != nan).sum())
+                raise AssertionError(f"bias_prelu {name} {ydt} {case}: {diff} elements differ from the plain "
+                                     f"version (strides {got.stride()} and {want.stride()})")
+            del want, got
+        launched = bp.bias_prelu.launches + bp.bias_prelu.launches_bf16 - before
+        if launched != len(cases):
+            raise AssertionError(f"bias_prelu {name}: {launched} launches for {len(cases)}")
+        x = cases.get("crop_view", cases.get("channels_last", y))
+        nbytes = 2 * y.numel() * y.element_size() + 4 * alpha.numel() + 4 * bias.numel()
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ms = cuda_ms(torch, lambda: bp.bias_prelu(x, bias, alpha))
+        device_ms = profiled_device_ms(torch, lambda: bp.bias_prelu(x, bias, alpha), "bias_prelu")
+        plain_ms = cuda_ms(torch, lambda: bp.bias_prelu_plain(x, bias, alpha), reps=5, warmup=1)
+        rows.append({"layer": name, "shape": [batch, *shape], "dtype": str(ydt).split(".")[-1],
+                     "input": "crop_view" if crop is not None else ("channels_last" if y.ndim == 4 else "dense"),
+                     "cases": list(cases), "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bytes": nbytes,
+                     "roofline_share": bound_ms / device_ms if device_ms else None})
+        totals["ms"] += ms
+        totals["device_ms"] += device_ms or float("nan")
+        totals["plain_ms"] += plain_ms
+        totals["bound_ms"] += bound_ms
+        del y, cases, x
+    torch.cuda.empty_cache()
+    return {"layers": rows, "batch": batch, **totals}
+
+
+def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
+    """Phase 25: the kernel at every layer's shape (check_bias_prelu_layers),
+    then the stamp forward of four models on a 4,096-stamp batch built from
+    the real stamps (each tiled with fresh noise) through
+    ``api.deblend_tensor`` under no_grad, the benchmark's entry, its
+    launches counted (18 a forward), torch.equal to the plain composition:
+    the same forward recorded by autograd (the input requiring a gradient,
+    as in training), which launches none, calibrated as deblend_tensor
+    calibrates; the kernel route timed and profiled once; an artifact
+    exported on the card bit for bit the live model on the batch's first
+    295 stamps."""
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.api import _guard, deblend_tensor
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.kernels import bias_prelu as bp
+    from debvader_tpu_torch.models.distributions import PixelNormal
+    from debvader_tpu_torch.utils import export as ex
+    from debvader_tpu_torch.utils.flux_cal import apply_flux_calibration
+
+    nets = {
+        "float32": dt.load_deblender("sim_demo", device="cuda"),
+        "bfloat16": dt.load_deblender("sim_demo", device="cuda", dtype="bfloat16"),
+        "float32_subpixel": dt.load_deblender("sim_demo", device="cuda", cfg=dt.ModelConfig(decoder_subpixel=True)),
+        "bfloat16_f32_stages_2": dt.load_deblender("sim_demo", device="cuda", dtype="bfloat16",
+                                                   decoder_f32_stages=2),
+    }
+    layers = {"float32": check_bias_prelu_layers(torch, bp, nets["float32"]),
+              "bfloat16": check_bias_prelu_layers(torch, bp, nets["bfloat16"])}
+
+    rng = np.random.default_rng(25)
+    pick = rng.integers(0, len(cutouts), 4096)
+    x = torch.as_tensor(cutouts[pick] + rng.normal(0, 0.02, (4096, *cutouts.shape[1:])).astype(np.float32),
+                        device="cuda")
+
+    def launched():
+        return bp.bias_prelu.launches + bp.bias_prelu.launches_bf16
+
+    def served(net, stamps=x):
+        def run():
+            with torch.no_grad():
+                return deblend_tensor(net, stamps, z_mode="mean")
+        return run
+
+    def recorded(net, stamps=x):
+        """The layers' ops: the forward that autograd records (the stamps
+        guarded as deblend_tensor guards them), detached."""
+        before = launched()
+        with torch.enable_grad(), fp32_math():
+            dist, _ = net(_guard(stamps, False).detach().requires_grad_(), z_mode="mean")
+            dist = PixelNormal(dist.loc.detach(), dist.scale.detach())
+        if launched() != before:
+            raise AssertionError("bias_prelu: a forward that autograd records launched the kernel")
+        return apply_flux_calibration(dist, net)
+
+    forward_rows = {}
+    for name, net in nets.items():
+        before = launched()
+        got = served(net)()
+        torch.cuda.synchronize()
+        launches = launched() - before
+        if launches != 18:
+            raise AssertionError(f"bias_prelu route, {name}: {launches} launches a forward, 18 expected")
+        torch.cuda.empty_cache()
+        want = recorded(net)
+        torch.cuda.empty_cache()
+        equal = {"loc": bool(torch.equal(got.loc, want.loc)), "scale": bool(torch.equal(got.scale, want.scale))}
+        if not all(equal.values()):
+            d = float((got.loc - want.loc).abs().max())
+            raise AssertionError(f"bias_prelu route, {name}: the forward differs from the plain composition "
+                                 f"({equal}, loc by {d})")
+        del got, want
+        ms = [cuda_ms(torch, served(net), reps=5, warmup=1) for _ in range(2)]
+        prof = profile_run(torch, served(net))
+        forward_rows[name] = {
+            "stamps": int(x.shape[0]), "launches": launches, "equal": equal,
+            "ms": float(np.median(ms)), "ms_runs": ms, "device_kernels": prof["device_kernels"],
+            "device_busy_ms": prof["device_busy_ms"], "top_device_events": prof["top_device_events"][:8],
+        }
+
+    # an artifact exported on the card traces the ops and runs them: held
+    # to the live model as phase 21 holds it, and read against the plain
+    # composition too
+    net = nets["float32"]
+    blob = ex.export_deblender(net, z_mode="mean")
+    call = ex.load_exported(blob)
+    x295 = x[:295].clone()
+    eps = torch.zeros((295, net.cfg.latent_dim), device="cuda")
+    with torch.no_grad(), fp32_math():
+        art = call(x295, eps)
+    live, plain = served(net, x295)(), recorded(net, x295)
+    artifact = {"loc": artifact_equal(art[0], live.loc), "scale": artifact_equal(art[1], live.scale),
+                "bit_equal": bool(torch.equal(art[0], live.loc) and torch.equal(art[1], live.scale)),
+                "live_bit_equal_plain": bool(torch.equal(live.loc, plain.loc) and torch.equal(live.scale, plain.scale)),
+                "plain_bit_equal_artifact": bool(torch.equal(art[0], plain.loc) and torch.equal(art[1], plain.scale))}
+    if not artifact["live_bit_equal_plain"] or any(
+            artifact[k]["max_abs_err"] > ARTIFACT_TOL * artifact[k]["scale"] for k in ("loc", "scale")):
+        raise AssertionError(f"bias_prelu: the artifact against the live model: {artifact}")
+
+    records = []
+    for dtype, rec in layers.items():
+        records.append({
+            "name": "bias_prelu" + ("_bf16" if dtype == "bfloat16" else ""), "route": "stamp forward",
+            "source": "csrc/bias_prelu.cu", "replaces": "none: XLA fuses the bias and PReLU into the convolutions",
+            "launches": None, "max_abs_err": 0.0, "ms": rec["ms"], "device_ms": rec["device_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        })
+    return records, {"layers": layers, "forward": forward_rows, "artifact": artifact}
+
+
 def stamp_mask(field_size: int, centers: np.ndarray, size: int = 59) -> np.ndarray:
     """True inside the size x size window of each source, clipped to the field."""
     mask = np.zeros((field_size, field_size), bool)
@@ -4601,6 +4826,7 @@ def main() -> int:
         return 1
     import debvader_tpu_torch  # noqa: F401  (fails outside the repo)
     from debvader_tpu_torch.kernels import _build
+    from debvader_tpu_torch.kernels import bias_prelu as bp
     from debvader_tpu_torch.kernels import clipped_stats as cs
     from debvader_tpu_torch.kernels import detect_fused as df
     from debvader_tpu_torch.kernels import int8_conv as ic
@@ -4687,6 +4913,8 @@ def main() -> int:
         "int8_conv_bf16_convT": (ic.conv_fused, "launches_bf16_convT"),
         "int8_bn_quant_bf16": (ic.bn_quant, "launches_bf16"),
         "int8_bias_prelu_quant_bf16": (ic.bias_prelu_quant, "launches_bf16"),
+        "bias_prelu": (bp.bias_prelu, "launches"),
+        "bias_prelu_bf16": (bp.bias_prelu, "launches_bf16"),
     }
 
     def reset_counts():
@@ -4704,7 +4932,11 @@ def main() -> int:
 
     reset_counts()
     centers, res, residual, times = run_main_path(torch, net, field, "cuda")
-    launches = read_counts("record-array", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1, "place": 1})
+    # the stamp forward: the one-pass bias and PReLU after each of its 18
+    # layers, once a forward chunk
+    forwards = -(-len(centers) // dt.PipelineConfig().source_chunk)
+    launches = read_counts("record-array", {"clipped_stats": 1, "detect_fused": 1, "label_select": 1, "place": 1,
+                                            "bias_prelu": 18 * forwards})
     if not (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32):
         raise AssertionError("the main path changed the caller's TF32 flags")
     print(f"tf32 outside the port: cudnn {torch.backends.cudnn.allow_tf32} "
@@ -4772,7 +5004,8 @@ def main() -> int:
     reset_counts()
     dfield, s_centers, catalog, s_residual, s_model, s_fields, s_times = run_serving_path(torch, net, field, "cuda")
     serving_launches = read_counts(
-        "streaming", {"clipped_stats": 1, "label_select": 1, "matched_filter": 1, "parent_race": 1, "render": 3}
+        "streaming", {"clipped_stats": 1, "label_select": 1, "matched_filter": 1, "parent_race": 1, "render": 3,
+                      "bias_prelu": 18 * -(-len(s_centers) // 128)}
     )
     if not np.array_equal(s_centers, centers):
         raise AssertionError("detection with the stand-alone filter kernel differs from the fused core")
@@ -5102,6 +5335,21 @@ def main() -> int:
           f"(rank 0 / 1), one process {cross['single_process_4_shards_warm_step_ms']:.2f} ms; "
           f"{cross['tensors_bit_for_bit']} tensors bit for bit; on {cross['card']}")
     mark("cross_process")
+    # phase 25: the one-pass bias and PReLU of the stamp forward
+    bp_recs, bias_prelu = run_bias_prelu(torch, main_cutouts)
+    records += bp_recs
+    report["bias_prelu"] = bias_prelu
+    print(json.dumps({"bias_prelu": {"forward": bias_prelu["forward"], "artifact": bias_prelu["artifact"]}}))
+    for dtype, rec in bias_prelu["layers"].items():
+        print(f"bias_prelu {dtype}, batch {rec['batch']}: {rec['ms']:.3f} ms a forward's 18 launches (device "
+              f"{rec['device_ms']:.3f} ms), bound {rec['bound_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, on {smi}")
+        for r in rec["layers"]:
+            print(f"  {r['layer']:12s} {str(r['shape']):24s} {r['input']:10s} {r['ms']:.4f} ms (device "
+                  f"{r['device_ms']}), bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms")
+    for name, r in bias_prelu["forward"].items():
+        print(f"stamp forward {name}, {r['stamps']} stamps through deblend_tensor: {r['ms']:.2f} ms "
+              f"({r['device_kernels']} kernels), equal to the recorded forward {r['equal']}")
+    mark("bias_prelu")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 
@@ -5111,6 +5359,8 @@ def main() -> int:
     counted_on = dict.fromkeys(("clipped_stats", "detect_fused", "label_select", "place"), launches)
     counted_on.update(dict.fromkeys(("matched_filter", "parent_race", "render"), serving_launches))
     counted_on["registration"] = reg_launches
+    counted_on["bias_prelu"] = launches
+    counted_on["bias_prelu_bf16"] = options["serving"]["launches"]
     counted_on.update(dict.fromkeys(("render_bf16", "place_bf16"), low_launches))
     counted_on.update(dict.fromkeys(("int8_conv", "int8_quant_act", "int8_bn_quant", "int8_bias_prelu_quant"),
                                     int8_launches))

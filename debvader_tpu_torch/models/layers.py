@@ -25,7 +25,9 @@ the parameters' own dtype, so a model cast with ``.double()`` computes in
 float64).  In float32 the bias joins the contraction.  In bfloat16 the input and the weight are cast to bfloat16,
 the contraction's bfloat16 result (rounded once from a float32
 accumulation) and the bias cast to bfloat16 are added in bfloat16: two
-roundings, where ``F.conv2d(bias=...)`` would round once.  ``PReLU``
+roundings, where ``F.conv2d(bias=...)`` would round once.  A forward
+called with ``bias=False`` leaves the bias out, for models/vae.py's
+one-pass bias and PReLU (kernels/bias_prelu.py).  ``PReLU``
 computes in its input's dtype, its alpha cast to it; ``BatchNorm``
 computes in float32 and casts its output to its ``dtype`` (flax promotes a
 bfloat16 input against the float32 statistics).
@@ -75,13 +77,14 @@ def _compute_in(x: torch.Tensor, dtype: torch.dtype, param: torch.Tensor) -> tor
     return x.to(param.dtype if dtype == torch.float32 else dtype)
 
 
-def _contract(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype, fn):
+def _contract(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype, fn):
     """fn(x, weight, bias) in ``dtype``: float32 folds the bias into the
-    contraction; bfloat16 adds it to the bfloat16 result after."""
+    contraction; bfloat16 adds it to the bfloat16 result after.  A None
+    bias is left out."""
     if dtype == torch.float32:
         return fn(_compute_in(x, dtype, weight), weight, bias)
     y = fn(x.to(dtype), weight.to(dtype), None)
-    return y + bias.to(dtype).view((-1,) + (1,) * (y.ndim - 2))
+    return y if bias is None else y + bias.to(dtype).view((-1,) + (1,) * (y.ndim - 2))
 
 
 def tf_same_pads(in_size: int, k: int, s: int) -> tuple[int, int]:
@@ -125,15 +128,15 @@ class Conv2dSame(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+        return conv2d_same(x, w, self.stride, b)
+
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        b = self.bias if bias else None
         if self.scheme is None:
-            return _contract(x, self.weight, self.bias, self.dtype,
-                             lambda xx, w, b: conv2d_same(xx, w, self.stride, b))
-        y = apply_scheme(
-            x, self.weight, self.scheme, 0,
-            lambda xl, wl: conv2d_same(xl, wl, self.stride), out_axis=1,
-        )
-        return y + self.bias.view(1, -1, 1, 1)
+            return _contract(x, self.weight, b, self.dtype, self._conv)
+        y = apply_scheme(x, self.weight, self.scheme, 0, self._conv, out_axis=1)
+        return y if b is None else y + b.view(1, -1, 1, 1)
 
 
 class ConvTranspose2dTF(nn.Module):
@@ -171,24 +174,24 @@ class ConvTranspose2dTF(nn.Module):
             return fn
         return None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+        return conv_transpose2d_tf(x, w, self.stride, b)
+
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        b = self.bias if bias else None
         if self.scheme is None:
             sub = self._subpixel_fn(x)
-            if sub is not None:
-                # the packed contraction leaves the bias out in float32 too,
-                # as the JAX layer adds it after the depth-to-space
-                w = _compute_in(self.weight, self.dtype, self.weight)
-                y = sub(_compute_in(x, self.dtype, self.weight), w, None)
-                return y + self.bias.to(w.dtype).view(1, -1, 1, 1)
-            return _contract(x, self.weight, self.bias, self.dtype,
-                             lambda xx, w, b: conv_transpose2d_tf(xx, w, self.stride, b))
+            if sub is None:
+                return _contract(x, self.weight, b, self.dtype, self._conv)
+            # the packed contraction leaves the bias out in float32 too,
+            # as the JAX layer adds it after the depth-to-space
+            w = _compute_in(self.weight, self.dtype, self.weight)
+            y = sub(_compute_in(x, self.dtype, self.weight), w, None)
+            return y if b is None else y + b.to(w.dtype).view(1, -1, 1, 1)
         # the bias joins after the limb terms are summed: inside the
         # contraction it would be added once a term
-        y = apply_scheme(
-            x, self.weight, self.scheme, 1,
-            lambda xl, wl: conv_transpose2d_tf(xl, wl, self.stride), out_axis=1,
-        )
-        return y + self.bias.view(1, -1, 1, 1)
+        y = apply_scheme(x, self.weight, self.scheme, 1, self._conv, out_axis=1)
+        return y if b is None else y + b.view(1, -1, 1, 1)
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -272,12 +275,15 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(fin, fout))
         self.bias = nn.Parameter(torch.zeros(fout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.scheme is None:
-            if self.dtype == torch.float32:
-                return _compute_in(x, self.dtype, self.kernel) @ self.kernel + self.bias
-            return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
-        return apply_scheme(x, self.kernel, self.scheme, 1, torch.matmul) + self.bias
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        if self.scheme is not None:
+            y = apply_scheme(x, self.kernel, self.scheme, 1, torch.matmul)
+            return y + self.bias if bias else y
+        if self.dtype == torch.float32:
+            y = _compute_in(x, self.dtype, self.kernel) @ self.kernel
+            return y + self.bias if bias else y
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y + self.bias.to(self.dtype) if bias else y
 
 
 # ------------------------------------------------------------ sub-pixel

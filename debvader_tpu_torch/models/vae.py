@@ -30,6 +30,12 @@ Every conv, transposed conv and dense layer gets its precision scheme from
 'dec/Conv_0'); without a scheme a layer is the plain float32 one.  The
 parameters do not depend on the configuration.
 
+On a card, outside autograd and tracing, each scheme-less conv, transposed
+conv and biased dense layer that a PReLU follows runs without its bias, and
+kernels/bias_prelu.py adds the bias and applies the PReLU in one pass, bit
+for bit the layers' own ops (``_layer_prelu``); CPU tensors, a forward that
+autograd records (training) and ``torch.export``'s tracing run the ops.
+
 The compute dtype (``cfg.dtype``) follows the flax graph's rounding points:
 the input is cast to it before the encoder's BatchNorm (computed in
 float32, its output cast back); every conv, transposed conv and dense
@@ -55,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from debvader_tpu_torch.config import ModelConfig
+from debvader_tpu_torch.kernels.bias_prelu import bias_prelu
 from debvader_tpu_torch.models.distributions import (
     MultivariateNormalTriL,
     PixelNormal,
@@ -93,6 +100,32 @@ def _widened(h: torch.Tensor) -> torch.Tensor:
     return h.to(torch.float32) if h.dtype == torch.bfloat16 else h
 
 
+def _fusable(x: torch.Tensor, layer: nn.Module, act: PReLU) -> bool:
+    """Whether ``act(layer(x))`` may run as the layer without its bias,
+    then the bias and the PReLU in one pass: a plain tensor (``torch.export``
+    traces subclasses), a scheme-less layer, and nothing that autograd
+    records (training keeps the ops and their backward)."""
+    if type(x) is not torch.Tensor or layer.scheme is not None:
+        return False
+    params = (*layer.parameters(), act.alpha)
+    return not (torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)))
+
+
+def _one_pass(x: torch.Tensor, layer: nn.Module, act: PReLU) -> bool:
+    """Whether ``act(layer(x))`` launches the kernel: a CUDA tensor that
+    ``_fusable`` lets through.  CPU tensors run the ops."""
+    return x.is_cuda and _fusable(x, layer, act)
+
+
+def _layer_prelu(layer: nn.Module, act: PReLU, x: torch.Tensor) -> torch.Tensor:
+    """``act(layer(x))``; where ``_one_pass`` allows, the layer's forward
+    without its bias (its hooks run, the PReLU module's do not), then the
+    bias and the PReLU in one kernel."""
+    if _one_pass(x, layer, act):
+        return bias_prelu(layer(x, bias=False), layer.bias, act.alpha)
+    return act(layer(x))
+
+
 class Encoder(nn.Module):
     """x (N, S, S, B) -> flat MVN params (N, latent + tril)."""
 
@@ -121,7 +154,7 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = self.bn(_reduced(x, self.dtype).permute(0, 3, 1, 2), train=train)
         for conv, act in zip(self.convs, self.prelus):
-            h = act(conv(h))
+            h = _layer_prelu(conv, act, h)
         # row-major (H, W, C) flatten == Keras Flatten on channels-last
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         return _widened(self.dense(self.flat_prelu(h)))
@@ -170,14 +203,14 @@ class Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor) -> PixelNormal:
         cfg = self.cfg
-        h = self.prelu0(self.dense0(self.prelu_in(_reduced(z, self.dtype))))
+        h = _layer_prelu(self.dense0, self.prelu0, self.prelu_in(_reduced(z, self.dtype)))
         # each layer casts its input to its own dtype: dec/Dense_1 to
         # float32 under strict_cast, the first transposed conv back
-        h = self.prelu1(self.dense1(h))
+        h = _layer_prelu(self.dense1, self.prelu1, h)
         h = h.reshape(h.shape[0], self.width, self.width, cfg.filters[-1])
         h = h.permute(0, 3, 1, 2)
         for convt, act in zip(self.convts, self.prelus):
-            h = act(convt(h))
+            h = _layer_prelu(convt, act, h)
         h = F.relu(self.head(h))
         # odd crops take the extra pixel at the end (Keras Cropping2D)
         crop = h.shape[-1] - cfg.stamp_size

@@ -417,10 +417,12 @@ def test_fmad_is_a_per_source_flag_in_the_library_hash():
     assert not any(f.startswith("-fmad") for f in _build.NVCC_FLAGS)
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert sources == [
-        "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "int8_conv_bf16", "label_select",
+        "bias_prelu", "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "int8_conv_bf16", "label_select",
         "matched_filter", "parent_race", "registration", "render", "tail_fused",
     ]
     assert "-fmad=false" in _build._flags("parent_race")
+    # the bias and PReLU are held bit for bit to the layers' ops
+    assert "-fmad=false" in _build._flags("bias_prelu")
     # the int8 epilogue is held bit for bit: float(acc) * dqw, then + bias;
     # its bfloat16 instances are int8_conv.cu compiled again, so the file
     # it includes enters its hash

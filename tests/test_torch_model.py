@@ -302,6 +302,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     kernels/_build.py or a launch counter."""
     from debvader_tpu_torch.kernels import (
         _build,
+        bias_prelu,
         clipped_stats,
         decoder_tail,
         detect_fused,
@@ -315,7 +316,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     )
 
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "int8_conv_bf16", "label_select",
+        "bias_prelu", "clipped_stats", "decoder_tail", "detect_fused", "int8_conv", "int8_conv_bf16", "label_select",
         "matched_filter", "parent_race", "registration", "render", "tail_fused",
     ]
 
@@ -324,6 +325,7 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     counters = (
+        bias_prelu.bias_prelu,
         clipped_stats.sigma_clipped_stats,
         detect_fused.matched_filter_parents,
         label_select.label_fixpoint,
@@ -341,7 +343,8 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
         int8_conv.conv_s8,
         int8_conv.conv_fused,
     )
-    bf16_counters = (render.render_field_kernel, render.place_patches, int8_conv.bn_quant, int8_conv.bias_prelu_quant)
+    bf16_counters = (render.render_field_kernel, render.place_patches, int8_conv.bn_quant, int8_conv.bias_prelu_quant,
+                     bias_prelu.bias_prelu)
     bf16_fused = ("launches_bf16_conv", "launches_bf16_convT", "launches_bf16_dense")
 
     def count():
@@ -376,6 +379,8 @@ def test_cpu_tensors_take_the_plain_versions_and_never_build(monkeypatch):
     int8_conv.conv_fused(q, layer, torch.ones(4, 4, 4), None, torch.tensor(0.25))
     int8_conv.bn_quant(torch.ones(1, 7, 7, 3), dtt.models.layers.BatchNorm(3), torch.tensor(0.5))
     int8_conv.bias_prelu_quant(torch.ones(2, 5), torch.zeros(5), torch.ones(5), torch.tensor(0.5))
+    for dtype in (torch.float32, torch.bfloat16):
+        bias_prelu.bias_prelu(torch.ones(2, 3, 4, 4, dtype=dtype), torch.zeros(3), torch.ones(3, 4, 4))
     # the bfloat16 epilogues and points
     bf = dataclasses.replace(layer, dtype=torch.bfloat16, out_dtype=torch.bfloat16)
     int8_conv.conv_fused(q, bf, torch.ones(4, 4, 4), None, torch.tensor(0.25))
