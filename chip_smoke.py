@@ -245,8 +245,11 @@ without printing its last line):
    bound and the plain version; the stamp forward of the float32,
    bfloat16, sub-pixel and f32-stages models on a 4,096-stamp batch of the
    record-array route's real stamps through api.deblend_tensor (18
-   launches a forward) torch.equal to the plain composition, the same
-   forward recorded by autograd, which launches none; the kernel route
+   launches a forward; models/layers.py conv2d_same's TF-SAME pads 7
+   inside the convolution, 6 with the sub-pixel head, and 2 copied)
+   torch.equal to the plain composition, the same forward recorded by
+   autograd, which launches none, and set beside the same forward with
+   every pad copied (the pad_route_gap, reported); the kernel route
    timed, one profiled call each; an artifact exported on the card bit for
    bit the live model (the bias_prelu line).  The record-array (phase 4),
    streaming (6), tiled (16) and bfloat16-model (20) paths each require
@@ -4709,11 +4712,15 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
     as in training), which launches none, calibrated as deblend_tensor
     calibrates; the kernel route timed and profiled once; an artifact
     exported on the card bit for bit the live model on the batch's first
-    295 stamps."""
+    295 stamps.  Each forward also counts conv2d_same's TF-SAME pads by
+    route and is set beside the same forward with every pad copied."""
+    import torch.nn.functional as F
+
     import debvader_tpu_torch as dt
     from debvader_tpu_torch.api import _guard, deblend_tensor
     from debvader_tpu_torch.device import fp32_math
     from debvader_tpu_torch.kernels import bias_prelu as bp
+    from debvader_tpu_torch.models import layers as model_layers
     from debvader_tpu_torch.models.distributions import PixelNormal
     from debvader_tpu_torch.utils import export as ex
     from debvader_tpu_torch.utils.flux_cal import apply_flux_calibration
@@ -4736,6 +4743,25 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
     def launched():
         return bp.bias_prelu.launches + bp.bias_prelu.launches_bf16
 
+    def padded():
+        return model_layers.conv2d_same.in_conv, model_layers.conv2d_same.pad_copies
+
+    def explicit_pad(xx, w, stride, b=None):
+        """conv2d_same as it was: every SAME pad materialised with F.pad."""
+        k = w.shape[-1]
+        lo_h, hi_h = model_layers.tf_same_pads(xx.shape[-2], k, stride)
+        lo_w, hi_w = model_layers.tf_same_pads(xx.shape[-1], k, stride)
+        return F.conv2d(F.pad(xx, (lo_w, hi_w, lo_h, hi_h)), w, b, stride=stride)
+
+    def explicit_pad_served(net):
+        """The served forward with conv2d_same patched back to explicit_pad."""
+        kept = model_layers.conv2d_same
+        model_layers.conv2d_same = explicit_pad
+        try:
+            return served(net)()
+        finally:
+            model_layers.conv2d_same = kept
+
     def served(net, stamps=x):
         def run():
             with torch.no_grad():
@@ -4755,12 +4781,26 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
 
     forward_rows = {}
     for name, net in nets.items():
-        before = launched()
+        before, pads_before = launched(), padded()
         got = served(net)()
         torch.cuda.synchronize()
         launches = launched() - before
         if launches != 18:
             raise AssertionError(f"bias_prelu route, {name}: {launches} launches a forward, 18 expected")
+        # the SAME pads: seven symmetric ones inside the convolution (six
+        # where the sub-pixel head packs its own), enc/Conv_3's and
+        # enc/Conv_7's (0, 1) copied
+        pads = dict(zip(("in_conv", "pad_copies"), (a - b for a, b in zip(padded(), pads_before))))
+        want_pads = {"in_conv": 6 if net.cfg.decoder_subpixel else 7, "pad_copies": 2}
+        if pads != want_pads:
+            raise AssertionError(f"conv2d_same, {name}: {pads} a forward, {want_pads} expected")
+        # the same forward with every pad materialised, as before the
+        # padding went inside the convolution: reported, not held (cuDNN
+        # may choose another algorithm for the unpadded shapes)
+        old = explicit_pad_served(net)
+        pad_route_gap = {"loc": artifact_equal(got.loc, old.loc), "scale": artifact_equal(got.scale, old.scale),
+                         "bit_equal": bool(torch.equal(got.loc, old.loc) and torch.equal(got.scale, old.scale))}
+        del old
         torch.cuda.empty_cache()
         want = recorded(net)
         torch.cuda.empty_cache()
@@ -4773,7 +4813,8 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
         ms = [cuda_ms(torch, served(net), reps=5, warmup=1) for _ in range(2)]
         prof = profile_run(torch, served(net))
         forward_rows[name] = {
-            "stamps": int(x.shape[0]), "launches": launches, "equal": equal,
+            "stamps": int(x.shape[0]), "launches": launches, "equal": equal, "same_pads": pads,
+            "pad_route_gap": pad_route_gap,
             "ms": float(np.median(ms)), "ms_runs": ms, "device_kernels": prof["device_kernels"],
             "device_busy_ms": prof["device_busy_ms"], "top_device_events": prof["top_device_events"][:8],
         }
@@ -5348,7 +5389,10 @@ def main() -> int:
                   f"{r['device_ms']}), bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms")
     for name, r in bias_prelu["forward"].items():
         print(f"stamp forward {name}, {r['stamps']} stamps through deblend_tensor: {r['ms']:.2f} ms "
-              f"({r['device_kernels']} kernels), equal to the recorded forward {r['equal']}")
+              f"({r['device_kernels']} kernels), equal to the recorded forward {r['equal']}; SAME pads "
+              f"{r['same_pads']}; against every pad materialised: bit for bit {r['pad_route_gap']['bit_equal']}, "
+              f"loc off by {r['pad_route_gap']['loc']['max_abs_err']:.3g} of "
+              f"{r['pad_route_gap']['loc']['scale']:.3g}")
     mark("bias_prelu")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))

@@ -1,8 +1,9 @@
 """Layers with exact Keras/TF semantics, in PyTorch (NCHW inside the model).
 
-- ``Conv2dSame``: TF 'SAME' padding.  It is asymmetric for stride 2
-  (59 -> 30 -> 15 -> 8 -> 4: the extra pixel goes bottom/right), which
-  torch's ``padding='same'`` does not offer.
+- ``Conv2dSame``: TF 'SAME' padding.  It is asymmetric for stride 2 on
+  an even input (30 -> 15, 8 -> 4: the extra pixel goes bottom/right),
+  which torch's ``padding='same'`` does not offer; ``conv2d_same`` copies
+  the input padded there, and elsewhere lets the convolution pad.
 - ``ConvTranspose2dTF``: TF ``Conv2DTranspose(padding='same')``, the
   gradient of a SAME conv: full transposed conv, then crop ``pad_lo``
   from the top/left to ``in * stride``.
@@ -95,11 +96,26 @@ def tf_same_pads(in_size: int, k: int, s: int) -> tuple[int, int]:
 
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int, bias: torch.Tensor | None = None) -> torch.Tensor:
-    """``F.conv2d`` with TF 'SAME' padding; weight (out, in, kh, kw)."""
+    """``F.conv2d`` with TF 'SAME' padding; weight (out, in, kh, kw).
+
+    Where the pads are symmetric on both axes (every stride-1 conv, and
+    stride 2 on an odd input) the convolution pads inside its own loads
+    and no padded copy is made (counted in ``conv2d_same.in_conv``); the
+    (0, 1) pads of stride 2 on an even input are materialised with
+    ``F.pad`` first (``conv2d_same.pad_copies``).  Both sum the same
+    products: only the zeros differ in where they come from."""
     k = weight.shape[-1]
     lo_h, hi_h = tf_same_pads(x.shape[-2], k, stride)
     lo_w, hi_w = tf_same_pads(x.shape[-1], k, stride)
+    if lo_h == hi_h and lo_w == hi_w:
+        conv2d_same.in_conv += 1
+        return F.conv2d(x, weight, bias, stride=stride, padding=(lo_h, lo_w))
+    conv2d_same.pad_copies += 1
     return F.conv2d(F.pad(x, (lo_w, hi_w, lo_h, hi_h)), weight, bias, stride=stride)
+
+
+conv2d_same.in_conv = 0
+conv2d_same.pad_copies = 0
 
 
 def conv_transpose2d_tf(x: torch.Tensor, weight: torch.Tensor, stride: int,
