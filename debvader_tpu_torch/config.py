@@ -24,12 +24,6 @@ __all__ = [
 ]
 
 
-def _not_ported(option: str, title: str):
-    """Raise for an option whose ROADMAP.md Queue 1 item, named by its
-    title, is still to come."""
-    raise NotImplementedError(f"{option} is not ported to the PyTorch package yet (ROADMAP.md Queue 1: {title})")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture of the convolutional VAE (59x59xB input, latent 32,

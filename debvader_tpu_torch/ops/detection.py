@@ -316,15 +316,15 @@ def _dense_saddle_edges(labels: torch.Tensor, filt: torch.Tensor):
     different labels; shifted views of the maps give the pairs of each
     direction, so none leaves its field.  An edge is a distinct touching
     pair lo < hi, keyed ``(t * F^2 + lo) * F^2 + hi`` (ascending keys are
-    in (t, lo, hi) order, the order of the merge's own ``unique``), its
+    in (t, lo, hi) order, the order of the merge's own ``unique``; the
+    detection route guards their int64 range for the whole stack), its
     height the highest over the pair's boundary pairs of the smaller
     filtered value; ``pairs`` counts the boundary pairs.  Max is exact and
-    independent of order: the edges equal those the JAX package builds on
-    the host from the COO (``_distinct_saddles_coo``) bit for bit."""
+    independent of order: the edges equal, bit for bit, those the JAX
+    package builds on the host from the COO (its ``_saddle_edges_coo``,
+    deduplicated in its ``_merge_labels_coo``)."""
     t, f, _ = labels.shape
     plane = f * f
-    if t * plane * plane >= 2**63:
-        raise ValueError(f"a ({t}, {f}, {f}) stack overflows the int64 edge keys")
     field = torch.arange(t, dtype=torch.int64, device=labels.device).view(t, 1, 1)
     keys, heights = [], []
     for dy, dx in _EDGE_DIRECTIONS:
@@ -341,49 +341,6 @@ def _dense_saddle_edges(labels: torch.Tensor, filt: torch.Tensor):
 
 
 # ----------------------------------------------------------- host postprocess
-
-
-def _saddle_edges_coo(idx, lab, val, f):
-    """Saddle triples (lo, hi, h) between touching segments of the masked
-    pixels (ascending flat ``idx``): for the E, S, SE and SW directions a
-    pair exists where idx + d is masked too with another label; the saddle
-    height is the smaller filtered value.  (None, None, None) when no
-    segments touch."""
-    col = idx % f
-    lo_parts, hi_parts, h_parts = [], [], []
-    for d, ok in ((1, col < f - 1), (f, None), (f + 1, col < f - 1), (f - 1, col > 0)):
-        src = np.flatnonzero(ok) if ok is not None else np.arange(len(idx))
-        cand = idx[src] + d
-        pos = np.searchsorted(idx, cand)
-        m = np.flatnonzero(pos < len(idx))
-        m = m[idx[pos[m]] == cand[m]]
-        i_src, i_dst = src[m], pos[m]
-        t = lab[i_src] != lab[i_dst]
-        if not t.any():
-            continue
-        la = lab[i_src[t]].astype(np.int64)
-        lb = lab[i_dst[t]].astype(np.int64)
-        lo_parts.append(np.minimum(la, lb))
-        hi_parts.append(np.maximum(la, lb))
-        h_parts.append(np.minimum(val[i_src[t]], val[i_dst[t]]).astype(np.float64))
-    if not lo_parts:
-        return None, None, None
-    return np.concatenate(lo_parts), np.concatenate(hi_parts), np.concatenate(h_parts)
-
-
-def _distinct_saddles_coo(idx, lab, val, f):
-    """The merge's edges from the COO alone: the distinct touching pairs
-    (lo, hi) of ``_saddle_edges_coo`` in ascending order, each with its
-    highest saddle (float64), as ``_dense_saddle_edges`` gives them from
-    the dense maps."""
-    lo, hi, h = _saddle_edges_coo(idx, lab, val, f)
-    if lo is None:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0)
-    plane = f * f
-    key, inv = np.unique(lo * plane + hi, return_inverse=True)
-    eh = np.full(len(key), -np.inf)
-    np.maximum.at(eh, inv, h)
-    return key // plane, key % plane, eh
 
 
 def _merge_segments_py(ea, eb, eh, peak, flux, order, nthr, thr, cont):
@@ -449,16 +406,16 @@ def _merge_segments_py(ea, eb, eh, peak, flux, order, nthr, thr, cont):
     return np.fromiter((find(i) for i in range(L)), np.int64, L)
 
 
-def _merge_labels_coo(idx, lab, val, f, threshold, cfg: DetectionConfig, edges=None):
+def _merge_labels_coo(idx, lab, val, threshold, cfg: DetectionConfig, edges):
     """SExtractor's quantized deblending criterion on the watershed
     segments of the masked-pixel COO: merges back the splits sep's
     64-level multi-threshold tree would not have made.  ``edges``: the
     field's distinct saddle edges (lo, hi, height) in ascending (lo, hi)
-    order, as detection builds them on the device; from the COO when
-    None.  Returns the relabelled per-pixel labels."""
+    order, as detection builds them on the device
+    (``_dense_saddle_edges``).  Returns the relabelled per-pixel labels."""
     if len(idx) == 0:
         return lab
-    lo, hi, h = _distinct_saddles_coo(idx, lab, val, f) if edges is None else edges
+    lo, hi, h = edges
     if len(lo) == 0:
         return lab
     labs = np.unique(lab)
@@ -555,7 +512,8 @@ def _postprocess_coo(idx, lab, val, f, globalrms, cfg: DetectionConfig, timings=
     ``timings``: a dict that accumulates the wall seconds of the stages
     'merge', 'segstats', 'clean' and 'reconstruct' (the dense label map).
     ``want_map=False`` skips that map and returns ``labels: None``.
-    ``edges``: the merge's saddle edges (``_merge_labels_coo``)."""
+    ``edges``: the merge's saddle edges (``_merge_labels_coo``); None
+    under ``deblend_algo='lutz'``, which takes none."""
     t = timings if timings is not None else {}
     idx = np.asarray(idx, np.int64)
     lab = np.asarray(lab, np.int64)
@@ -565,7 +523,7 @@ def _postprocess_coo(idx, lab, val, f, globalrms, cfg: DetectionConfig, timings=
         if cfg.deblend_algo == "lutz":
             lab = _lutz_labels_coo(idx, val, f, thr_val, cfg)
         else:
-            lab = _merge_labels_coo(idx, lab, val, f, thr_val, cfg, edges)
+            lab = _merge_labels_coo(idx, lab, val, thr_val, cfg, edges)
 
     with stage_timer(t, "segstats"):
         w_sel = np.maximum(val, 0.0)
@@ -655,22 +613,49 @@ def _postprocess_stack(idx, lab, val, n, f, grms, cfg: DetectionConfig, timings,
     ]
 
 
-def _detect_stack(x: torch.Tensor, core, cfg: DetectionConfig, timings, want_map) -> list[dict]:
-    """``core`` over the (T, F, F) stack, one compaction of its masked
-    pixels and the saddle edges on the device, one download of the three
-    COO arrays and the edges, then the host postprocess tile by tile."""
+def _joined(parts: list, step: int = 0) -> np.ndarray:
+    """The pieces' host arrays end to end, piece k's values offset by k *
+    ``step``; one piece's array as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    return np.concatenate([p + k * step for k, p in enumerate(parts)])
+
+
+def _detect_pieces(pieces: list, core, cfg: DetectionConfig, timings, want_map, n: int | None = None) -> list[dict]:
+    """Detection's one device route: ``core`` over a tile stack split into
+    equal (T_i, F, F) pieces, each on its device (one piece on one
+    device).  The core of every piece is queued first (every stage is per
+    tile: no collective), then each piece's masked pixels are compacted
+    (the compaction syncs) and its saddle edges built, all downloaded, the
+    indices and edge keys offset to the whole stack's order, and the host
+    postprocess runs tile by tile on the first ``n`` tiles (all of them by
+    default).  The 'core' stage ends with the pieces' devices
+    synchronised; 'download' and the counters follow
+    (``detect_sources_batched``)."""
     t = timings if timings is not None else {}
-    with stage_timer(t, "core", x.device):
-        labels, filt, grms = core(x, cfg)
-        idx, lab, val = _compact_masked(labels, filt)
-        edges = _stack_edges(labels, filt, cfg)
-    with stage_timer(t, "download", x.device):
-        idx, lab, val, grms = (a.cpu().numpy() for a in (idx, lab, val, grms))
-        edges = None if edges is None else [a.cpu().numpy() for a in edges]
+    per_piece, f = pieces[0].shape[0], pieces[0].shape[-1]
+    n = per_piece * len(pieces) if n is None else n
+    devices = list(dict.fromkeys(p.device for p in pieces))
+    with stage_timer(t, "core", devices):
+        cores = [core(p.to(torch.float32), cfg) for p in pieces]
+        coos = [_compact_masked(labels, filt) for labels, filt, _ in cores]
+        edges = [_stack_edges(labels, filt, cfg) for labels, filt, _ in cores]
+    with stage_timer(t, "download", devices):
+        coos = [[a.cpu().numpy() for a in coo] for coo in coos]
+        grms = _joined([g.cpu().numpy() for _, _, g in cores])
+        edges = [None if e is None else [a.cpu().numpy() for a in e] for e in edges]
+    span = per_piece * f * f
+    idx = _joined([c[0] for c in coos], span)
+    lab, val = _joined([c[1] for c in coos]), _joined([c[2] for c in coos])
     _count(t, "masked_px", len(idx))
-    if edges is not None:
-        _count(t, "saddle_pairs", edges.pop())
-    return _postprocess_stack(idx, lab, val, x.shape[0], x.shape[-1], grms, cfg, t, want_map, edges)
+    stack_edges = None
+    if edges[0] is not None:
+        # each piece's keys number its own tiles: offset them as idx is
+        if span * f * f * len(pieces) >= 2**63:
+            raise ValueError(f"{per_piece * len(pieces)} tiles of {f}^2 overflow the int64 edge keys")
+        stack_edges = (_joined([e[0] for e in edges], span * f * f), _joined([e[1] for e in edges]))
+        _count(t, "saddle_pairs", sum(int(e[2]) for e in edges))
+    return _postprocess_stack(idx, lab, val, n, f, grms, cfg, t, want_map, stack_edges)
 
 
 def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda", timings=None, want_map=True):
@@ -685,7 +670,7 @@ def detect_sources(image_2d, cfg: DetectionConfig | None = None, device="cuda", 
             f"detection requires a square 2D field (got {tuple(image.shape)}); "
             f"the centre-offset convention is single-axis"
         )
-    return _detect_stack(image[None], _core, cfg, timings, want_map)[0]
+    return _detect_pieces([image[None]], _core, cfg, timings, want_map)[0]
 
 
 def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None, timings=None, want_map=True,
@@ -718,7 +703,7 @@ def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None,
     devices are the mesh's."""
     cfg = _normalize_batched_cfg(cfg or DetectionConfig())
     if mesh is not None:
-        from debvader_tpu_torch.parallel.mesh import require_single_process
+        from debvader_tpu_torch.parallel.mesh import DATA_AXIS, batch_sharding, require_single_process
 
         require_single_process(mesh, "detect_sources_batched(mesh=)")
         x = tiles if isinstance(tiles, torch.Tensor) else torch.as_tensor(np.asarray(tiles, np.float32))
@@ -730,61 +715,23 @@ def detect_sources_batched(tiles, cfg: DetectionConfig | None = None, mesh=None,
             f"detection tiles must be a (T, F, F) square stack (got {tuple(x.shape)}); "
             f"see detect_sources for the square-field contract"
         )
-    if mesh is None:
-        return _detect_stack(x, _batched_core, cfg, timings, want_map)
-    return _detect_stack_sharded(x, mesh, cfg, timings, want_map)
-
-
-def _detect_stack_sharded(x: torch.Tensor, mesh, cfg: DetectionConfig, timings, want_map) -> list[dict]:
-    """``_detect_stack`` over the mesh's 'data' shards: the stack padded
-    to a multiple of the axis by a cyclic repeat of its tiles (the pad can
-    exceed the stack: 3 tiles on 8 shards), split, and handed to
-    :func:`detect_shards`."""
-    from debvader_tpu_torch.parallel.mesh import DATA_AXIS, batch_sharding
-
     n = x.shape[0]
-    pad = (-n) % mesh.shape[DATA_AXIS]
-    if pad:
-        x = torch.cat([x, x[torch.arange(pad, device=x.device) % n]])
-    return detect_shards(batch_sharding(x, mesh), cfg, timings, want_map, n=n)
+    pieces = [x]
+    if mesh is not None:
+        # the pad can exceed the stack: 3 tiles on 8 shards
+        pad = (-n) % mesh.shape[DATA_AXIS]
+        if pad:
+            x = torch.cat([x, x[torch.arange(pad, device=x.device) % n]])
+        pieces = batch_sharding(x, mesh)
+    return _detect_pieces(pieces, _batched_core, cfg, timings, want_map, n)
 
 
 def detect_shards(pieces: list, cfg: DetectionConfig, timings=None, want_map=True, n: int | None = None) -> list[dict]:
     """Detection over a tile stack already split into equal (T/D, F, F)
-    pieces, each on its shard's device: the core of every piece is queued
-    first (every stage is per tile: no collective), then each piece's
-    masked pixels are compacted (the compaction syncs) and its saddle edges
-    built, both downloaded, the indices and edge keys offset to the whole
-    stack's order, and the host postprocess runs tile by tile on the first
+    pieces, each on its shard's device (``_detect_pieces``), on the first
     ``n`` tiles (all of them by default).  ``cfg`` is normalised here as
     ``detect_sources_batched`` normalises it."""
-    cfg = _normalize_batched_cfg(cfg)
-    t = timings if timings is not None else {}
-    per_shard, f = pieces[0].shape[0], pieces[0].shape[-1]
-    n = per_shard * len(pieces) if n is None else n
-    devices = list(dict.fromkeys(p.device for p in pieces))
-    with stage_timer(t, "core", devices):
-        cores = [_batched_core(p.to(torch.float32), cfg) for p in pieces]
-        coos = [_compact_masked(labels, filt) for labels, filt, _ in cores]
-        edges = [_stack_edges(labels, filt, cfg) for labels, filt, _ in cores]
-    with stage_timer(t, "download"):
-        parts = [[a.cpu().numpy() for a in coo] for coo in coos]
-        grms = np.concatenate([g.cpu().numpy() for _, _, g in cores])
-        edge_parts = [[a.cpu().numpy() for a in e] for e in edges if e is not None]
-    idx = np.concatenate([p[0] + k * per_shard * f * f for k, p in enumerate(parts)])
-    lab = np.concatenate([p[1] for p in parts])
-    val = np.concatenate([p[2] for p in parts])
-    _count(t, "masked_px", len(idx))
-    stack_edges = None
-    if edge_parts:
-        # each shard's keys number its own tiles: offset them as idx is
-        span = per_shard * (f * f) ** 2
-        if span * len(pieces) >= 2**63:
-            raise ValueError(f"{per_shard * len(pieces)} tiles of {f}^2 overflow the int64 edge keys")
-        stack_edges = (np.concatenate([e[0] + k * span for k, e in enumerate(edge_parts)]),
-                       np.concatenate([e[1] for e in edge_parts]))
-        _count(t, "saddle_pairs", sum(int(e[2]) for e in edge_parts))
-    return _postprocess_stack(idx, lab, val, n, f, grms, cfg, t, want_map, stack_edges)
+    return _detect_pieces(pieces, _batched_core, _normalize_batched_cfg(cfg), timings, want_map, n)
 
 
 def detect_objects(field_image, cfg: DetectionConfig | None = None, device="cuda") -> np.ndarray:

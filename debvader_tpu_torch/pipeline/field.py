@@ -219,16 +219,10 @@ def _crop_canvas(canvas: torch.Tensor, pad: int, out_dtype=None) -> torch.Tensor
     return out if out_dtype is None else out.to(getattr(torch, out_dtype))
 
 
-def _render_finish(field: torch.Tensor, canvas: torch.Tensor, pad: int, out_dtype=None, want_model=False):
-    """field - crop(canvas), at the transfer dtype; with ``want_model``
-    also the cropped model: (residual, model)."""
-    model = _crop_canvas(canvas, pad)
-    residual = field[0] - model
-    if out_dtype is not None:
-        residual = residual.to(getattr(torch, out_dtype))
-        if want_model:
-            model = model.to(getattr(torch, out_dtype))
-    return (residual, model) if want_model else residual
+def _render_finish(field: torch.Tensor, canvas: torch.Tensor, pad: int, out_dtype=None) -> torch.Tensor:
+    """field - crop(canvas), at the transfer dtype."""
+    residual = field[0] - _crop_canvas(canvas, pad)
+    return residual if out_dtype is None else residual.to(getattr(torch, out_dtype))
 
 
 def _model_subtract(residual: torch.Tensor, canvas: torch.Tensor, pad: int, in_place: bool):
@@ -287,7 +281,69 @@ def _weighted_sums(flat: np.ndarray) -> tuple[float, float]:
     return float(cols.sum() + tail.sum()), float(cols @ _CKSUM_W + tail @ _CKSUM_W[: tail.size])
 
 
-class DeblendField:
+class _ServingTail:
+    """The serving tail of both field layouts, ``DeblendField`` on one
+    device and ``ShardedFieldDeblender`` in row bands, written once: the
+    stage dict, the 'deblend_render' stage and its event spans, the
+    empty-field returns, 'field_download', 'catalog' and 'residual_copy'.
+    Each layout gives ``_timings`` (its entry call's stage dict),
+    ``_distinct`` (the devices its stages synchronise), ``_served_field``
+    (the field on its devices, with the layout's own upload stages),
+    ``_serve_stream`` (the chunk loop: catalogue columns, canvases,
+    sources deblended) and ``_download_fields`` (the canvases back to the
+    host, in the layout's own order)."""
+
+    def _serve(self, centers, timings, predict: bool = False, return_model: bool = False, transfer_dtype=None,
+               **stream):
+        """``deblend_and_render`` (its 2- or 3-tuple) or, with ``predict``,
+        ``deblend_and_predict`` (catalogue and fields dict); ``stream``:
+        the stream's own arguments."""
+        transfer_dtype = _check_reduced_dtype("transfer_dtype", transfer_dtype)
+        t = self._timings(timings)
+        self.serving_timings = t
+        pending: list = []
+        want_epi = predict and self.epistemic_uncertainty_estimation
+        field = self._served_field(t)
+        with stage_timer(t, "deblend_render", self._distinct):
+            cols, canvases, n_deblended = self._serve_stream(
+                field, np.asarray(centers, np.float32).reshape(-1, 2), render_std=predict, render_epi=want_epi,
+                timings=t, pending=pending, **stream,
+            )
+        settle_spans(t, pending)
+        if n_deblended == 0:
+            print("No galaxy deblended. End of the iterative procedure.")
+            catalog, residual_field = None, self._residual_field()
+            zero = np.zeros((self.field_size, self.field_size, self.nb_of_bands), np.float32)
+            fields = {"mean": zero}
+            if predict:
+                fields.update(std=zero.copy(), epi=zero.copy() if want_epi else None)
+        else:
+            with stage_timer(t, "field_download", self._distinct):
+                fields = self._download_fields(field, canvases, predict or return_model, transfer_dtype)
+            with stage_timer(t, "catalog"):
+                catalog = _records(cols)
+            with stage_timer(t, "residual_copy"):
+                residual_field = self._residual_field(fields["residual"])
+        if predict:
+            return catalog, {
+                "residual_field": residual_field,
+                "predicted_mean_field": fields["mean"],
+                "predicted_stddev_field": fields["std"],
+                "predicted_epistemic_field": fields.get("epi"),
+            }
+        return (catalog, residual_field, fields["mean"]) if return_model else (catalog, residual_field)
+
+    def _residual_field(self, residual: np.ndarray | None = None) -> np.ndarray:
+        """The host residual field: a copy of the constructor's field with
+        its (F, F, B) field replaced by the downloaded ``residual``; the
+        plain copy when there is none (nothing was deblended)."""
+        out = self.field_image.copy()
+        if residual is not None:
+            out[0] = residual
+        return out
+
+
+class DeblendField(_ServingTail):
     def __init__(
         self,
         net,
@@ -792,47 +848,11 @@ class DeblendField:
         other stages end with the card synchronised.  ``transfer_dtype``:
         'bfloat16' or 'float16' casts the fields on the device before the
         download and widens them on the host; None transfers float32."""
-        transfer_dtype = _check_reduced_dtype("transfer_dtype", transfer_dtype)
-        t = self._timings(timings)
-        self.serving_timings = t
-        pending: list = []
-        field_dev = self._device_field(self.field_image, t)
-        with stage_timer(t, "deblend_render", self.device):
-            cols, canvases, n_deblended = self._stream_deblend(
-                field_dev,
-                galaxy_distances_to_center,
-                optimise_positions=optimise_positions,
-                epistemic_criterion=epistemic_criterion,
-                mse_criterion=mse_criterion,
-                measure=measure,
-                timings=t,
-                pending=pending,
-            )
-        settle_spans(t, pending)
-
-        if n_deblended == 0:
-            print("No galaxy deblended. End of the iterative procedure.")
-            if return_model:
-                return None, self.field_image.copy(), np.zeros_like(self.field_image[0])
-            return None, self.field_image.copy()
-
-        with stage_timer(t, "field_download", self.device):
-            pad = render_pad(self.cutout_size, self.cfg.interp_order)
-            finished = _render_finish(
-                field_dev, canvases["mean"], pad, transfer_dtype, want_model=return_model
-            )
-            if return_model:
-                residual, model = (self._fetch_field(x) for x in finished)
-            else:
-                residual = self._fetch_field(finished)
-        with stage_timer(t, "catalog"):
-            catalog = _records(cols)
-        with stage_timer(t, "residual_copy"):
-            residual_field = self.field_image.copy()
-            residual_field[0] = residual
-        if return_model:
-            return catalog, residual_field, model
-        return catalog, residual_field
+        return self._serve(
+            galaxy_distances_to_center, timings, return_model=return_model, transfer_dtype=transfer_dtype,
+            optimise_positions=optimise_positions, epistemic_criterion=epistemic_criterion,
+            mse_criterion=mse_criterion, measure=measure,
+        )
 
     def deblend_and_predict(
         self,
@@ -858,63 +878,38 @@ class DeblendField:
         extraction.  ``timings`` / ``transfer_dtype`` as in
         ``deblend_and_render``, whose stages these are ('field_download'
         takes the four fields' downloads)."""
-        transfer_dtype = _check_reduced_dtype("transfer_dtype", transfer_dtype)
-        want_epi = self.epistemic_uncertainty_estimation
-        t = self._timings(timings)
-        self.serving_timings = t
-        pending: list = []
-        field_dev = self._device_field(self.field_image, t)
-        with stage_timer(t, "deblend_render", self.device):
-            cols, canvases, n_deblended = self._stream_deblend(
-                field_dev,
-                galaxy_distances_to_center,
-                optimise_positions=optimise_positions,
-                epistemic_criterion=epistemic_criterion,
-                mse_criterion=mse_criterion,
-                measure=measure,
-                render_std=True,
-                render_epistemic=want_epi,
-                # field + mean canvas + std canvas (+ epistemic canvas)
-                resident_fields=3 + int(want_epi),
-                timings=t,
-                pending=pending,
-            )
-        settle_spans(t, pending)
+        return self._serve(
+            galaxy_distances_to_center, timings, predict=True, transfer_dtype=transfer_dtype,
+            optimise_positions=optimise_positions, epistemic_criterion=epistemic_criterion,
+            mse_criterion=mse_criterion, measure=measure,
+        )
 
-        f = self.field_size
-        if n_deblended == 0:
-            print("No galaxy deblended. End of the iterative procedure.")
-            zero = np.zeros((f, f, self.nb_of_bands), np.float32)
-            return None, {
-                "residual_field": self.field_image.copy(),
-                "predicted_mean_field": zero,
-                "predicted_stddev_field": zero.copy(),
-                "predicted_epistemic_field": zero.copy() if want_epi else None,
-            }
+    # the serving tail's layout steps (_ServingTail)
 
-        with stage_timer(t, "field_download", self.device):
-            pad = render_pad(self.cutout_size, self.cfg.interp_order)
-            # one derived full-field buffer at a time, so the peak stays
-            # field + canvases + one derived buffer
-            std = self._fetch_field(_crop_canvas(canvases.pop("std"), pad, transfer_dtype))
-            epi = None
-            if want_epi:
-                epi = self._fetch_field(_crop_canvas(canvases.pop("epi"), pad, transfer_dtype))
-            mean = self._fetch_field(_crop_canvas(canvases["mean"], pad, transfer_dtype))
-            residual = self._fetch_field(
-                _render_finish(field_dev, canvases["mean"], pad, transfer_dtype)
-            )
-        with stage_timer(t, "catalog"):
-            catalog = _records(cols)
-        with stage_timer(t, "residual_copy"):
-            residual_field = self.field_image.copy()
-            residual_field[0] = residual
-        return catalog, {
-            "residual_field": residual_field,
-            "predicted_mean_field": mean,
-            "predicted_stddev_field": std,
-            "predicted_epistemic_field": epi,
-        }
+    @property
+    def _distinct(self) -> list:
+        return [self.device]
+
+    def _served_field(self, timings: dict) -> torch.Tensor:
+        return self._device_field(self.field_image, timings)
+
+    def _serve_stream(self, field_dev, centers, render_std: bool, render_epi: bool, **kw):
+        # the field and the mean canvas, plus the std and epistemic canvases
+        return self._stream_deblend(field_dev, centers, resident_fields=2 + render_std + render_epi,
+                                    render_std=render_std, render_epistemic=render_epi, **kw)
+
+    def _download_fields(self, field_dev, canvases: dict, want_mean: bool, transfer_dtype) -> dict:
+        """The served fields on the host, one derived full-field buffer at a
+        time so the peak stays field + canvases + one derived buffer: the
+        std, then the epistemic canvas (each freed once fetched), then the
+        mean (``want_mean``), then the residual."""
+        pad = render_pad(self.cutout_size, self.cfg.interp_order)
+        out = {k: self._fetch_field(_crop_canvas(canvases.pop(k), pad, transfer_dtype))
+               for k in ("std", "epi") if k in canvases}
+        if want_mean:
+            out["mean"] = self._fetch_field(_crop_canvas(canvases["mean"], pad, transfer_dtype))
+        out["residual"] = self._fetch_field(_render_finish(field_dev, canvases["mean"], pad, transfer_dtype))
+        return out
 
     def _stream_chunk(self, resident_fields: int, optimise_positions: bool = False) -> int:
         """Sources per stream chunk: ``source_chunk``, capped on a card by

@@ -197,13 +197,12 @@ class IterativeDeblendField(DeblendField):
 
         print("converged !")
         if total == 0:
-            return None, self.field_image.copy()
+            return None, self._residual_field()
         catalog = _records(all_cols)
         out_dev = residual_dev[0]
         if transfer_dtype is not None:
             out_dev = out_dev.to(getattr(torch, transfer_dtype))
-        residual_field = self.field_image.copy()
-        residual_field[0] = self._fetch_field(out_dev)
+        residual_field = self._residual_field(self._fetch_field(out_dev))
         self.res_deblend = catalog
         return catalog, residual_field
 

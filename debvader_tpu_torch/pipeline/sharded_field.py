@@ -50,8 +50,15 @@ from debvader_tpu_torch.models.distributions import PixelNormal
 from debvader_tpu_torch.models.quantized import make_quantized_forward
 from debvader_tpu_torch.ops.shift import render_pad
 from debvader_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate_module, require_single_process
-from debvader_tpu_torch.pipeline.field import _append_chunk, _check_field_image, _chunk_step, _records, _stream_columns
-from debvader_tpu_torch.utils.profiling import settle_spans, stage_timer
+from debvader_tpu_torch.pipeline.field import (
+    _append_chunk,
+    _check_field_image,
+    _chunk_step,
+    _records,
+    _ServingTail,
+    _stream_columns,
+)
+from debvader_tpu_torch.utils.profiling import stage_timer
 
 __all__ = ["ShardedFieldDeblender", "band_halo"]
 
@@ -102,7 +109,7 @@ def _band_seed(seed: int, k: int) -> int:
     return int(np.random.SeedSequence([int(seed), int(k)]).generate_state(1, np.uint64)[0] >> 1)
 
 
-class ShardedFieldDeblender:
+class ShardedFieldDeblender(_ServingTail):
     """Survey serving with the field row-band sharded over a device mesh.
 
     ``net``: a DeblenderVAE (on any device: each band device gets a copy).
@@ -317,13 +324,13 @@ class ShardedFieldDeblender:
         return scalars
 
     @torch.no_grad()
-    def _stream(
+    def _serve_stream(
         self,
         shards: list,
         centers: np.ndarray,
         optimise_positions: bool,
         mse_criterion: float,
-        source_chunk_per_band: int | None,
+        source_chunk_per_band: int | None = None,
         epistemic_criterion: float = 100.0,
         measure: bool = False,
         render_std: bool = False,
@@ -422,34 +429,11 @@ class ShardedFieldDeblender:
         upload), 'deblend_render' (with each chunk's 'cutouts', 'forward'
         and 'render' device seconds nested in it), 'field_download',
         'catalog' and 'residual_copy', as on the single-device route."""
-        t = timings if timings is not None else {}
-        self.serving_timings = t
-        pending: list = []
-        f, b = self.field_size, self.nb_of_bands
-        centers = np.asarray(galaxy_distances_to_center, np.float32).reshape(-1, 2)
-        with stage_timer(t, "upload", self._distinct):
-            shards = self._field_shards()
-        with stage_timer(t, "deblend_render", self._distinct):
-            cols, canvases, n_deblended = self._stream(
-                shards, centers, optimise_positions, mse_criterion, source_chunk_per_band,
-                epistemic_criterion=epistemic_criterion, measure=measure, timings=t, pending=pending,
-            )
-        settle_spans(t, pending)
-        if n_deblended == 0:
-            print("No galaxy deblended. End of the iterative procedure.")
-            if return_model:
-                return None, self.field_image.copy(), np.zeros((f, f, b), np.float32)
-            return None, self.field_image.copy()
-        with stage_timer(t, "field_download", self._distinct):
-            resid, model = self._finish(shards, canvases["mean"], return_model)
-        with stage_timer(t, "catalog"):
-            catalog = _records(cols)
-        with stage_timer(t, "residual_copy"):
-            residual_field = self.field_image.copy()
-            residual_field[0] = resid
-        if return_model:
-            return catalog, residual_field, model
-        return catalog, residual_field
+        return self._serve(
+            galaxy_distances_to_center, timings, return_model=return_model, optimise_positions=optimise_positions,
+            epistemic_criterion=epistemic_criterion, mse_criterion=mse_criterion, measure=measure,
+            source_chunk_per_band=source_chunk_per_band,
+        )
 
     def deblend_and_predict(
         self,
@@ -467,44 +451,28 @@ class ShardedFieldDeblender:
         and downloads band by band.  Returns (catalogue, fields) with the
         single-device dict's keys; ``timings`` as in
         ``deblend_and_render``."""
-        want_epi = self.epistemic_uncertainty_estimation
-        t = timings if timings is not None else {}
-        self.serving_timings = t
-        pending: list = []
-        f, b = self.field_size, self.nb_of_bands
-        centers = np.asarray(galaxy_distances_to_center, np.float32).reshape(-1, 2)
-        with stage_timer(t, "upload", self._distinct):
-            shards = self._field_shards()
-        with stage_timer(t, "deblend_render", self._distinct):
-            cols, canvases, n_deblended = self._stream(
-                shards, centers, optimise_positions, mse_criterion, None, epistemic_criterion=epistemic_criterion,
-                measure=measure, render_std=True, render_epi=want_epi, timings=t, pending=pending,
-            )
-        settle_spans(t, pending)
-        if n_deblended == 0:
-            print("No galaxy deblended. End of the iterative procedure.")
-            zero = np.zeros((f, f, b), np.float32)
-            return None, {
-                "residual_field": self.field_image.copy(),
-                "predicted_mean_field": zero,
-                "predicted_stddev_field": zero.copy(),
-                "predicted_epistemic_field": zero.copy() if want_epi else None,
-            }
-        with stage_timer(t, "field_download", self._distinct):
-            std_f = self._crop(canvases.pop("std"))
-            epi_f = self._crop(canvases.pop("epi")) if want_epi else None
-            resid, mean_f = self._finish(shards, canvases["mean"], True)
-        with stage_timer(t, "catalog"):
-            catalog = _records(cols)
-        with stage_timer(t, "residual_copy"):
-            residual_field = self.field_image.copy()
-            residual_field[0] = resid
-        return catalog, {
-            "residual_field": residual_field,
-            "predicted_mean_field": mean_f,
-            "predicted_stddev_field": std_f,
-            "predicted_epistemic_field": epi_f,
-        }
+        return self._serve(
+            galaxy_distances_to_center, timings, predict=True, optimise_positions=optimise_positions,
+            epistemic_criterion=epistemic_criterion, mse_criterion=mse_criterion, measure=measure,
+        )
+
+    # the serving tail's layout steps (_ServingTail; the stream is _serve_stream)
+
+    @staticmethod
+    def _timings(timings) -> dict:
+        return timings if timings is not None else {}
+
+    def _served_field(self, timings: dict) -> list:
+        with stage_timer(timings, "upload", self._distinct):
+            return self._field_shards()
+
+    def _download_fields(self, shards: list, canvases: dict, want_mean: bool, transfer_dtype=None) -> dict:
+        """The served fields on the host, band by band: the std, then the
+        epistemic canvas, then the residual and (``want_mean``) the mean
+        (``_crop``, ``_finish``).  Every field is float32 here."""
+        out = {k: self._crop(canvases.pop(k)) for k in ("std", "epi") if k in canvases}
+        out["residual"], out["mean"] = self._finish(shards, canvases["mean"], want_mean)
+        return out
 
     # ----------------------------------------------------------- detection
 
@@ -518,7 +486,7 @@ class ShardedFieldDeblender:
         further core cuts (the core partition of ``detect_objects_tiled``).
         Returns (N, 2) offsets from the field centre."""
         from debvader_tpu_torch.ops.detection import detect_shards
-        from debvader_tpu_torch.pipeline.tiles import tile_origins
+        from debvader_tpu_torch.pipeline.tiles import _core_bounds, _select_in_cores, tile_origins
 
         det_cfg = det_cfg or DetectionConfig()
         tile = tile or self.cfg.tile_size
@@ -531,7 +499,6 @@ class ShardedFieldDeblender:
             )
         if tile > bh:
             raise ValueError(f"tile size {tile} exceeds the {bh}-row band; use a smaller tile or fewer devices")
-        half = f // 2
         det_band = det_cfg.detection_band if self.nb_of_bands > det_cfg.detection_band else 0
         if shards is None:
             shards = self._field_shards()
@@ -542,46 +509,23 @@ class ShardedFieldDeblender:
             lo, hi = max(0, k * bh - overlap), min(f, (k + 1) * bh + overlap)
             ys_band.append([lo + o for o in tile_origins(hi - lo, tile, overlap)])
         t_rows = max(len(ys) for ys in ys_band)
-        real_rows = [len(ys) for ys in ys_band]
-        for ys in ys_band:  # pad the edge bands to a common count (dummy cores)
-            ys.extend([ys[-1]] * (t_rows - len(ys)))
         xs = tile_origins(f, tile, overlap)
-
-        def core_bounds(origins, lo, hi):
-            cuts = [float(lo)]
-            for a, bb in zip(origins[:-1], origins[1:]):
-                cuts.append(min(max((a + bb + tile) / 2.0, lo), hi))
-            cuts.append(float(hi))
-            return list(zip(cuts[:-1], cuts[1:]))
-
-        x_cores = core_bounds(xs, 0, f)
-        y_cores_band = [core_bounds(ys_band[k][: real_rows[k]], k * bh, min((k + 1) * bh, f)) for k in range(d)]
-        stacks = []
-        for k in range(d):
-            local = [y - (k * bh - halo) for y in ys_band[k]]
+        x_cores = _core_bounds(xs, tile, 0, f)
+        stacks, tiles = [], []
+        for k, ys in enumerate(ys_band):
+            # the edge bands are padded to a common row count with tiles
+            # that have no core
+            y_cores = list(_core_bounds(ys, tile, k * bh, min((k + 1) * bh, f))) + [(0, 0)] * (t_rows - len(ys))
+            ys += [ys[-1]] * (t_rows - len(ys))
+            tiles += [(oy, yb, ox, xb) for oy, yb in zip(ys, y_cores) for ox, xb in zip(xs, x_cores)]
+            local = [y - (k * bh - halo) for y in ys]
             # origins are clipped to the field, so no tile leaves the band
             if min(local) < 0 or max(local) + tile > self.h_pad:
                 raise AssertionError("band tiling escaped the shard extent")
             det2d = shards[k][:, :, det_band]
             stacks.append(torch.stack([det2d[y : y + tile, x : x + tile] for y in local for x in xs]))
         objs = detect_shards(stacks, det_cfg, timings=timings, want_map=False)
-
-        out = []
-        i = 0
-        for k in range(d):
-            for r in range(t_rows):
-                for c in range(len(xs)):
-                    obj = objs[i]
-                    i += 1
-                    if r >= real_rows[k] or len(obj["y"]) == 0:
-                        continue
-                    (y_lo, y_hi), (x_lo, x_hi) = y_cores_band[k][r], x_cores[c]
-                    gy, gx = obj["y"] + ys_band[k][r], obj["x"] + xs[c]
-                    keep = (gy >= y_lo) & (gy < y_hi) & (gx >= x_lo) & (gx < x_hi)
-                    out.extend(zip(np.round(-half + gy[keep]), np.round(-half + gx[keep])))
-        if not out:
-            return np.zeros((0, 2))
-        return np.asarray(out)
+        return _select_in_cores(objs, tiles, f // 2)
 
     # ----------------------------------------------------------- iterative
 
@@ -635,7 +579,7 @@ class ShardedFieldDeblender:
         step's mean square model power.  Returns (catalogue,
         residual_field); ``timings`` accumulates 'upload', 'detect',
         'deblend_render', 'subtract' and 'field_download' seconds."""
-        t = timings if timings is not None else {}
+        t = self._timings(timings)
         self.serving_timings = t
         f = self.field_size
         with stage_timer(t, "upload", self._distinct):
@@ -655,7 +599,7 @@ class ShardedFieldDeblender:
                 print("No more galaxies found")
                 break
             with stage_timer(t, "deblend_render", self._distinct):
-                cols, canvases, n_new = self._stream(
+                cols, canvases, n_new = self._serve_stream(
                     res, centers, optimise_positions, mse_criterion, None,
                     epistemic_criterion=epistemic_criterion, measure=measure,
                 )
@@ -679,9 +623,7 @@ class ShardedFieldDeblender:
 
         print("converged !")
         if total == 0:
-            return None, self.field_image.copy()
-        residual_field = self.field_image.copy()
+            return None, self._residual_field()
         with stage_timer(t, "field_download", self._distinct):
-            residual_field[0] = np.concatenate(
-                [r[self.halo : self.halo + self.band_h].cpu().numpy() for r in res])[:f]
-        return _records(all_cols), residual_field
+            resid = np.concatenate([r[self.halo : self.halo + self.band_h].cpu().numpy() for r in res])[:f]
+        return _records(all_cols), self._residual_field(resid)

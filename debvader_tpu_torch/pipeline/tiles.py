@@ -47,12 +47,30 @@ def tile_origins(field_size: int, tile: int, overlap: int) -> list[int]:
     return starts
 
 
-def _core_bounds(origins: list[int], tile: int, f: int) -> np.ndarray:
+def _core_bounds(origins: list[int], tile: int, lo: int, hi: int) -> np.ndarray:
     """(len(origins), 2) [lo, hi) of each tile's core: an exact partition
-    of [0, f) cut at the midpoints of consecutive tiles' overlaps (robust
-    to the shorter stride of the last tile)."""
-    cuts = [0.0] + [(b + a + tile) / 2.0 for a, b in zip(origins[:-1], origins[1:])] + [float(f)]
+    of the band [lo, hi) (the whole field, or a row band's own rows) cut
+    at the midpoints of consecutive tiles' overlaps, clamped to the band
+    (robust to the shorter stride of the last tile)."""
+    mids = [min(max((a + b + tile) / 2.0, lo), hi) for a, b in zip(origins[:-1], origins[1:])]
+    cuts = [float(lo)] + mids + [float(hi)]
     return np.stack([cuts[:-1], cuts[1:]], -1)
+
+
+def _select_in_cores(objs: list[dict], tiles: list, half: int) -> np.ndarray:
+    """Each tile's detections inside its core, in the order of ``objs``:
+    (N, 2) offsets from the field centre, round(-half + y).  ``tiles``
+    gives each detection dict its (y origin, (y_lo, y_hi), x origin,
+    (x_lo, x_hi)); an empty core keeps nothing."""
+    out = []
+    for obj, (oy, (y_lo, y_hi), ox, (x_lo, x_hi)) in zip(objs, tiles):
+        gy, gx = obj["y"] + oy, obj["x"] + ox
+        keep = (gy >= y_lo) & (gy < y_hi) & (gx >= x_lo) & (gx < x_hi)
+        if keep.any():
+            out.append(np.stack([np.round(-half + gy[keep]), np.round(-half + gx[keep])], -1))
+    if not out:
+        return np.zeros((0, 2))
+    return np.concatenate(out)
 
 
 def _detection_band(field_image, det_cfg: DetectionConfig, dev: torch.device) -> torch.Tensor:
@@ -107,22 +125,12 @@ def detect_objects_tiled(
         origins = tile_origins(f, tile, overlap)
         size = min(tile, f)
         subs = _tile_stack(band, origins, size)
-    half = int(f / 2)
     # catalog only: no tile's dense label map is rebuilt
     objs = detect_sources_batched(subs, det_cfg, mesh=mesh, timings=t, want_map=False, device=dev)
-    cores = _core_bounds(origins, size, f)
+    cores = _core_bounds(origins, size, 0, f)
     tiles = [(oy, yb, ox, xb) for oy, yb in zip(origins, cores) for ox, xb in zip(origins, cores)]
-    out = []
     with stage_timer(t, "tile_select"):
-        for obj, (oy, (y_lo, y_hi), ox, (x_lo, x_hi)) in zip(objs, tiles):
-            gy = obj["y"] + oy
-            gx = obj["x"] + ox
-            keep = (gy >= y_lo) & (gy < y_hi) & (gx >= x_lo) & (gx < x_hi)
-            if keep.any():
-                out.append(np.stack([np.round(-half + gy[keep]), np.round(-half + gx[keep])], -1))
-    if not out:
-        return np.zeros((0, 2))
-    return np.concatenate(out)
+        return _select_in_cores(objs, tiles, int(f / 2))
 
 
 class TiledDeblendField(DeblendField):
@@ -180,6 +188,6 @@ class TiledDeblendField(DeblendField):
         centers = self.detect(timings=t, field=self._device_field(self.field_image, t))
         if len(centers) == 0:
             if kwargs.get("return_model"):
-                return None, self.field_image.copy(), np.zeros_like(self.field_image[0])
-            return None, self.field_image.copy()
+                return None, self._residual_field(), np.zeros_like(self.field_image[0])
+            return None, self._residual_field()
         return self.deblend_and_render(centers, timings=t, **kwargs)

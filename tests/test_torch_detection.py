@@ -179,25 +179,29 @@ def test_merge_roots_equal_jax_merge_segments_py():
     idx = np.flatnonzero(flat >= 0)
     lab = flat[idx].astype(np.int64)
     val = filt[0].numpy().ravel()[idx]
-    lo, hi, h = td._saddle_edges_coo(idx, lab, val, 128)
-    jlo, jhi, jh = jd._saddle_edges_coo(idx, lab, val, 128)
-    np.testing.assert_array_equal(lo, jlo)
-    np.testing.assert_array_equal(h, jh)
+    lo, hi, h = jd._saddle_edges_coo(idx, lab, val, 128)
     labs = np.unique(lab)
     L = len(labs)
     ia, ib = np.searchsorted(labs, lo), np.searchsorted(labs, hi)
     ukey, inv = np.unique(ia * L + ib, return_inverse=True)
     eh = np.full(len(ukey), -np.inf)
     np.maximum.at(eh, inv, h)
+    # the port's merge takes its edges from the dense maps: JAX's COO
+    # edges deduplicated, bit for bit
+    keys, heights, _ = td._dense_saddle_edges(labels, filt)
+    _, dlo, dhi = td._split_edge_keys(keys.numpy(), 128)
+    ea, eb, dh = np.searchsorted(labs, dlo), np.searchsorted(labs, dhi), heights.numpy().astype(np.float64)
+    np.testing.assert_array_equal(ea, ukey // L)
+    np.testing.assert_array_equal(eb, ukey % L)
+    np.testing.assert_array_equal(dh, eh)
     cid = np.searchsorted(labs, lab)
     flux = np.bincount(cid, weights=np.maximum(val, 0.0), minlength=L)
     peak = val[np.searchsorted(idx, labs)].astype(np.float64)
     order = np.argsort(peak, kind="stable")
     thr = 1.5 * float(grms[0])
-    args = (ukey // L, ukey % L, eh, peak)
     for nthr, cont in ((64, 1e-5), (8, 0.05)):
-        want = jd._merge_segments_py(*args, flux.copy(), order, nthr, thr, cont)
-        got = td._merge_segments_py(*args, flux.copy(), order, nthr, thr, cont)
+        want = jd._merge_segments_py(ukey // L, ukey % L, eh, peak, flux.copy(), order, nthr, thr, cont)
+        got = td._merge_segments_py(ea, eb, dh, peak, flux.copy(), order, nthr, thr, cont)
         np.testing.assert_array_equal(got, want)
     assert L > 3
 
@@ -258,11 +262,12 @@ _EDGE_CASES = {
 @pytest.mark.parametrize("case", sorted(_EDGE_CASES))
 def test_dense_saddle_edges_equal_the_coo_merge_edges(case):
     """Detection's dense-map saddle edges (``_dense_saddle_edges``, run on
-    the stack's device) against what the merge built from each field's COO
-    before: the edges of _saddle_edges_coo, deduplicated by unique /
-    maximum.at over the segments' ranks; keys and heights bit for bit, the boundary pairs
-    counted.  _postprocess_coo given those edges returns the same dict as
-    without them (the COO route)."""
+    the stack's device) against what the JAX package's merge builds from
+    each field's COO: the edges of its _saddle_edges_coo, deduplicated by
+    unique / maximum.at over the segments' ranks; keys and heights bit for
+    bit, the boundary pairs counted.  The port's _postprocess_coo given
+    those edges returns the JAX package's _postprocess_coo dict (its COO
+    route)."""
     labels, filt = _EDGE_CASES[case]()
     t, f, _ = labels.shape
     keys, heights, pairs = td._dense_saddle_edges(torch.from_numpy(labels), torch.from_numpy(filt))
@@ -276,7 +281,7 @@ def test_dense_saddle_edges_equal_the_coo_merge_edges(case):
         lab, val = flat[idx].astype(np.int64), filt[k].ravel()[idx]
         mine = field == k
         edges = (lo[mine], hi[mine], heights[mine])
-        wlo, whi, wh = td._saddle_edges_coo(idx, lab, val, f)
+        wlo, whi, wh = jd._saddle_edges_coo(idx, lab, val, f)
         if wlo is None:
             assert not mine.any()
         else:
@@ -289,9 +294,8 @@ def test_dense_saddle_edges_equal_the_coo_merge_edges(case):
             np.testing.assert_array_equal(edges[0], labs[ukey // n])
             np.testing.assert_array_equal(edges[1], labs[ukey % n])
             np.testing.assert_array_equal(edges[2].astype(np.float64).view(np.int64), eh.view(np.int64))
-        cfg = DetectionConfig()
-        got = td._postprocess_coo(idx, lab, val, f, 0.05, cfg, edges=edges)
-        want = td._postprocess_coo(idx, lab, val, f, 0.05, cfg)
+        got = td._postprocess_coo(idx, lab, val, f, 0.05, DetectionConfig(), edges=edges)
+        want = jd._postprocess_coo(idx, lab, val, f, 0.05, JaxDetectionConfig())
         assert got.keys() == want.keys()
         for key in want:
             np.testing.assert_array_equal(got[key], want[key])

@@ -81,13 +81,17 @@ def _coo(img, cfg):
 def test_native_merge_on_a_detection_equals_plain(nthr, cont):
     """The segments of a default-threshold detection (hundreds of touching
     noise peaks): the merged labels of _merge_labels_coo, which runs the
-    native core, equal the plain loop's."""
+    native core on the saddle edges of the dense maps, equal the plain
+    loop's on the JAX package's COO edges."""
     img = _field(128, 21, nsrc=16)
     cfg = DetectionConfig(deblend_nthresh=nthr, deblend_cont=cont)
     idx, lab, val, grms = _coo(img, cfg)
     thr = cfg.thresh * grms
-    got = td._merge_labels_coo(idx, lab, val, 128, thr, cfg)
-    lo, hi, h = td._saddle_edges_coo(idx, lab, val, 128)
+    labels, filt, _ = td.detect_core_stack(torch.from_numpy(img)[None], cfg)
+    keys, heights, _ = td._dense_saddle_edges(labels, filt)
+    _, elo, ehi = td._split_edge_keys(keys.numpy(), 128)
+    got = td._merge_labels_coo(idx, lab, val, thr, cfg, (elo, ehi, heights.numpy()))
+    lo, hi, h = jd._saddle_edges_coo(idx, lab, val, 128)
     labs = np.unique(lab)
     L = len(labs)
     ia, ib = np.searchsorted(labs, lo), np.searchsorted(labs, hi)

@@ -146,8 +146,11 @@ def test_detect_sources_batched_at_the_default_threshold(fused):
     print(f"default threshold, {'fused' if fused else 'chain'}: largest flux difference {worst} (relative)")
     cfg = DetectionConfig(use_pallas_fused=fused)
     labels, filt, grms = td._batched_core(torch.from_numpy(tiles), cfg)
-    idx, lab, val = td._compact_masked(labels, filt.to(torch.bfloat16).float())
-    control = td._postprocess_stack(idx.numpy(), lab.numpy(), val.numpy(), 3, 128, grms.numpy(), cfg, None, True)
+    filt = filt.to(torch.bfloat16).float()
+    idx, lab, val = td._compact_masked(labels, filt)
+    keys, heights, _ = td._dense_saddle_edges(labels, filt)
+    control = td._postprocess_stack(idx.numpy(), lab.numpy(), val.numpy(), 3, 128, grms.numpy(), cfg, {}, True,
+                                    (keys.numpy(), heights.numpy()))
     with pytest.raises(AssertionError):
         _catalogs_equal(control, want, flux_rtol=FLUX_RTOL_DEFAULT)
 
@@ -193,13 +196,14 @@ def test_batched_detection_validates_its_arguments():
             td.detect_sources_batched(_stack())
 
 
-@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("shards", [1, 4, 8])
 @pytest.mark.parametrize("core", ["fused", "chain"])
 def test_batched_detection_on_a_mesh_equals_jax(core, shards):
     """detect_sources_batched(mesh=): the 3-tile stack padded to the data
     axis by a cyclic repeat (5 pad tiles on 8 shards), each shard's core on
-    its own, the labels and catalogues of every tile equal to JAX's on its
-    mesh and to the port's without a mesh."""
+    its own (one piece of detection's route on 1 shard, four on 4), the
+    labels and catalogues of every tile equal to JAX's on its mesh and to
+    the port's without a mesh, with the same stages and counters."""
     from debvader_tpu.parallel import make_mesh as jax_make_mesh
 
     from debvader_tpu_torch.parallel import make_mesh
@@ -207,11 +211,11 @@ def test_batched_detection_on_a_mesh_equals_jax(core, shards):
     tiles = _stack()
     kw = dict(SERVING, **CORES[core])
     mesh = make_mesh(shards, devices=["cpu"] * shards)
-    t = {}
+    t, alone = {}, {}
     got = td.detect_sources_batched(tiles, DetectionConfig(**kw), mesh=mesh, timings=t)
     _catalogs_equal(got, jd.detect_sources_batched(tiles, _jcfg(**kw), mesh=jax_make_mesh(shards)))
-    _catalogs_equal(got, td.detect_sources_batched(tiles, DetectionConfig(**kw), device="cpu"))
-    assert {"core", "download", "merge"} <= set(t)
+    _catalogs_equal(got, td.detect_sources_batched(tiles, DetectionConfig(**kw), device="cpu", timings=alone))
+    assert {"core", "download", "merge"} <= set(t) and set(t) == set(alone)
 
 
 @pytest.mark.parametrize(
