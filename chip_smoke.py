@@ -250,8 +250,17 @@ without printing its last line):
    torch.equal to the plain composition, the same forward recorded by
    autograd, which launches none, and set beside the same forward with
    every pad copied (the pad_route_gap, reported); the kernel route
-   timed, one profiled call each; an artifact exported on the card bit for
-   bit the live model (the bias_prelu line).  The record-array (phase 4),
+   timed, one profiled call each; each forward's convolution inputs
+   counted by layout (models/layers.py conv_input: float32 17 NCHW and 2
+   copies, bfloat16 17 channels-last, the f32-stages model 5 and 12), the
+   recorded forward's the same; an artifact exported on the card bit for
+   bit the live model (the bias_prelu line); the float32 forward's 17
+   convolutions at 4,096 stamps with their input NCHW-dense and
+   channels-last (ms, cuDNN's kernels, the transposed convs' bias and
+   PReLU on either crop view), and its whole forward with the layout rule
+   against without and with cuDNN's deterministic algorithms on against
+   off, in turns (the conv_layouts and stamp_forward_layouts lines; alone:
+   ``python3 chip_smoke.py --conv-layouts [OUT.json]``).  The record-array (phase 4),
    streaming (6), tiled (16) and bfloat16-model (20) paths each require
    the kernel's 18 launches a forward chunk;
 26. one {"kernels": [...]} line, the nvidia-smi line, and the last line
@@ -4645,10 +4654,10 @@ def check_bias_prelu_layers(torch, bp, net, batch: int = 4096) -> dict:
     shape, in both layouts (NCHW, and channels-last as the forward's
     convolutions write it) and, for the transposed convs, as the crop view
     of either, bit for bit (NaN as a class) and in the plain result's
-    layout; each layer timed on the forward's own layout (channels-last,
-    cropped for a transposed conv) with its bound (bytes: y read and the
-    result written once, alpha and the bias read once) and its plain
-    version."""
+    layout; each layer timed on the forward's own layout (layers.conv_input:
+    NCHW-dense in float32, channels-last in bfloat16; cropped for a
+    transposed conv) with its bound (bytes: y read and the result written
+    once, alpha and the bias read once) and its plain version."""
     gen = torch.Generator(device="cuda").manual_seed(25)
     rows, totals = [], {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name, layer, act, crop in bias_prelu_layers(net):
@@ -4682,14 +4691,17 @@ def check_bias_prelu_layers(torch, bp, net, batch: int = 4096) -> dict:
         launched = bp.bias_prelu.launches + bp.bias_prelu.launches_bf16 - before
         if launched != len(cases):
             raise AssertionError(f"bias_prelu {name}: {launched} launches for {len(cases)}")
-        x = cases.get("crop_view", cases.get("channels_last", y))
+        nchw = ydt != torch.bfloat16
+        key = next(k for k in (("crop_view_nchw", "contiguous") if nchw else ("crop_view", "channels_last", "contiguous"))
+                   if k in cases)
+        x = cases[key]
         nbytes = 2 * y.numel() * y.element_size() + 4 * alpha.numel() + 4 * bias.numel()
         bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         ms = cuda_ms(torch, lambda: bp.bias_prelu(x, bias, alpha))
         device_ms = profiled_device_ms(torch, lambda: bp.bias_prelu(x, bias, alpha), "bias_prelu")
         plain_ms = cuda_ms(torch, lambda: bp.bias_prelu_plain(x, bias, alpha), reps=5, warmup=1)
         rows.append({"layer": name, "shape": [batch, *shape], "dtype": str(ydt).split(".")[-1],
-                     "input": "crop_view" if crop is not None else ("channels_last" if y.ndim == 4 else "dense"),
+                     "input": key if y.ndim == 4 else "dense",
                      "cases": list(cases), "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bytes": nbytes,
                      "roofline_share": bound_ms / device_ms if device_ms else None})
@@ -4713,7 +4725,12 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
     calibrates; the kernel route timed and profiled once; an artifact
     exported on the card bit for bit the live model on the batch's first
     295 stamps.  Each forward also counts conv2d_same's TF-SAME pads by
-    route and is set beside the same forward with every pad copied."""
+    route and is set beside the same forward with every pad copied, and
+    counts its convolutions' inputs by layout (layers.conv_input), the
+    recorded forward's the same; then the float32 forward's 17
+    convolutions in both layouts (conv_layout_rows) and its whole forward
+    with the layout rule against without, and with cuDNN's deterministic
+    algorithms on against off (forward_layouts_and_determinism)."""
     import torch.nn.functional as F
 
     import debvader_tpu_torch as dt
@@ -4745,6 +4762,21 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
 
     def padded():
         return model_layers.conv2d_same.in_conv, model_layers.conv2d_same.pad_copies
+
+    def laid_out():
+        c = model_layers.conv_input
+        return c.nchw, c.channels_last, c.copies
+
+    def layout_count(run):
+        """run()'s result and its convolutions' inputs by layout."""
+        before = laid_out()
+        got = run()
+        return got, dict(zip(("nchw", "channels_last", "copies"), (a - b for a, b in zip(laid_out(), before))))
+
+    # NCHW-dense float32, channels-last bfloat16; the copies the rule adds
+    # (a cast to float32 lays out in the same copy)
+    want_layouts = {"float32": (17, 0, 2), "bfloat16": (0, 17, 0), "float32_subpixel": (17, 0, 2),
+                    "bfloat16_f32_stages_2": (5, 12, 0)}
 
     def explicit_pad(xx, w, stride, b=None):
         """conv2d_same as it was: every SAME pad materialised with F.pad."""
@@ -4782,9 +4814,11 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
     forward_rows = {}
     for name, net in nets.items():
         before, pads_before = launched(), padded()
-        got = served(net)()
+        got, layouts = layout_count(served(net))
         torch.cuda.synchronize()
         launches = launched() - before
+        if tuple(layouts.values()) != want_layouts[name]:
+            raise AssertionError(f"conv_input, {name}: {layouts} a forward, {want_layouts[name]} expected")
         if launches != 18:
             raise AssertionError(f"bias_prelu route, {name}: {launches} launches a forward, 18 expected")
         # the SAME pads: seven symmetric ones inside the convolution (six
@@ -4802,8 +4836,11 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
                          "bit_equal": bool(torch.equal(got.loc, old.loc) and torch.equal(got.scale, old.scale))}
         del old
         torch.cuda.empty_cache()
-        want = recorded(net)
+        want, recorded_layouts = layout_count(lambda: recorded(net))
         torch.cuda.empty_cache()
+        if recorded_layouts != layouts:
+            raise AssertionError(f"conv_input, {name}: the recorded forward's layouts {recorded_layouts}, "
+                                 f"the served one's {layouts}")
         equal = {"loc": bool(torch.equal(got.loc, want.loc)), "scale": bool(torch.equal(got.scale, want.scale))}
         if not all(equal.values()):
             d = float((got.loc - want.loc).abs().max())
@@ -4813,7 +4850,7 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
         ms = [cuda_ms(torch, served(net), reps=5, warmup=1) for _ in range(2)]
         prof = profile_run(torch, served(net))
         forward_rows[name] = {
-            "stamps": int(x.shape[0]), "launches": launches, "equal": equal, "same_pads": pads,
+            "stamps": int(x.shape[0]), "launches": launches, "equal": equal, "same_pads": pads, "layouts": layouts,
             "pad_route_gap": pad_route_gap,
             "ms": float(np.median(ms)), "ms_runs": ms, "device_kernels": prof["device_kernels"],
             "device_busy_ms": prof["device_busy_ms"], "top_device_events": prof["top_device_events"][:8],
@@ -4846,7 +4883,176 @@ def run_bias_prelu(torch, cutouts: np.ndarray) -> tuple[list, dict]:
             "launches": None, "max_abs_err": 0.0, "ms": rec["ms"], "device_ms": rec["device_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": "bytes", "library_ms": None,
         })
-    return records, {"layers": layers, "forward": forward_rows, "artifact": artifact}
+    conv_layouts = conv_layout_rows(torch, bp, nets["float32"])
+    forward_layouts = forward_layouts_and_determinism(torch, nets["float32"], x)
+    return records, {"layers": layers, "forward": forward_rows, "artifact": artifact, "conv_layouts": conv_layouts,
+                     "forward_layouts": forward_layouts}
+
+
+def conv_layout_rows(torch, bp, net, batch: int = 4096) -> dict:
+    """Phase 25 and ``--conv-layouts``: each of the float32 forward's 17
+    convolutions (enc/Conv_0-7, dec/ConvT_0-7, the band head) at ``batch``
+    stamps inside fp32_math, its input NCHW-dense and channels-last: the
+    convolution without its bias, as the one-pass route runs it (median ms
+    between CUDA events; the kernels cuDNN ran and their device ms from
+    one profiled call; the two outputs bit for bit or not), and for the
+    transposed convs the one-pass bias and PReLU on the output's crop
+    view in either layout."""
+    from debvader_tpu_torch.device import fp32_math
+    from debvader_tpu_torch.models import layers as model_layers
+
+    enc, dec = net.encoder, net.decoder
+    convs = [(f"enc/Conv_{i}", c, a) for i, (c, a) in enumerate(zip(enc.convs, enc.prelus))]
+    convs += [(f"dec/ConvT_{j}", c, a) for j, (c, a) in enumerate(zip(dec.convts, dec.prelus))]
+    convs.append(("dec/Conv_0", dec.head, None))
+    shapes = {}
+
+    def caught(name):
+        def hook(module, args):
+            shapes[name] = tuple(args[0].shape[1:])
+        return hook
+
+    hooks = [layer.register_forward_pre_hook(caught(name)) for name, layer, _ in convs]
+    with torch.no_grad(), fp32_math():
+        net(torch.zeros((1, net.cfg.stamp_size, net.cfg.stamp_size, net.cfg.nb_of_bands), device="cuda"),
+            z_mode="mean")
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    layouts = {"nchw": torch.contiguous_format, "channels_last": torch.channels_last}
+    rows, totals = [], {f"{k}_{t}": 0.0 for k in layouts for t in ("ms", "bias_prelu_ms")}
+    for name, layer, act in convs:
+        transposed = isinstance(layer, model_layers.ConvTranspose2dTF)
+        conv = model_layers.conv_transpose2d_tf if transposed else model_layers.conv2d_same
+        w, stride = layer.weight.detach(), layer.stride
+        x = torch.randn((batch, *shapes[name]), generator=gen, device="cuda")
+        row, outs = {"layer": name, "in_shape": [batch, *shapes[name]]}, {}
+        for tag, fmt in layouts.items():
+            xx = x.contiguous(memory_format=fmt)
+            with torch.no_grad(), fp32_math():
+                ms = cuda_ms(torch, lambda: conv(xx, w, stride), reps=10, warmup=2)
+                prof = profile_run(torch, lambda: conv(xx, w, stride))
+                outs[tag] = y = conv(xx, w, stride)
+            row[tag] = {"ms": ms, "kernels": [(e["name"], e["device_ms"]) for e in prof["top_device_events"][:6]],
+                        "out_strides": list(y.stride())}
+            totals[f"{tag}_ms"] += ms
+            if transposed:
+                bias, alpha = layer.bias.detach(), act.alpha.detach()
+                row[tag]["bias_prelu_ms"] = bp_ms = cuda_ms(torch, lambda: bp.bias_prelu(y, bias, alpha))
+                totals[f"{tag}_bias_prelu_ms"] += bp_ms
+            del xx, y
+        row["bit_equal"] = bool(torch.equal(outs["nchw"], outs["channels_last"]))
+        rows.append(row)
+        del x, outs
+        torch.cuda.empty_cache()
+    return {"batch": batch, "layers": rows, **totals}
+
+
+def forward_layouts_and_determinism(torch, net, x, pairs: int = 3) -> dict:
+    """Phase 25 and ``--conv-layouts``: the float32 forward through
+    api.deblend_tensor on the batch x, timed in ``pairs`` turns (median ms
+    of 5 calls between CUDA events, the order alternating from pair to
+    pair): with layers.conv_input's layout rule against a cast-only
+    conv_input, which hands every convolution its input as it comes
+    (channels-last, the forward's layout before the rule); and with
+    cuDNN's deterministic algorithms on against off
+    (device._CUDNN_DETERMINISTIC, which only this script sets).  For each:
+    every setting's median ms, the median of the pairs' ratios, the
+    kernels of one profiled call, and whether the two outputs are bit for
+    bit equal."""
+    from debvader_tpu_torch import device as dv
+    from debvader_tpu_torch.api import deblend_tensor
+    from debvader_tpu_torch.models import layers as model_layers
+
+    rule = model_layers.conv_input
+
+    def cast_only(xx, dtype, param):
+        return xx.to(param.dtype if dtype == torch.float32 else dtype)
+
+    def layout(tag):
+        model_layers.conv_input = rule if tag == "nchw" else cast_only
+
+    def determinism(tag):
+        dv._CUDNN_DETERMINISTIC = tag == "on"
+
+    def run():
+        with torch.no_grad():
+            return deblend_tensor(net, x, z_mode="mean")
+
+    out = {}
+    try:
+        for what, tags, setter in (("layout", ("nchw", "channels_last"), layout),
+                                   ("cudnn_deterministic", ("on", "off"), determinism)):
+            ms, dists, kernels = {t: [] for t in tags}, {}, {}
+            for t in tags:
+                setter(t)
+                dists[t] = run()
+                prof = profile_run(torch, run)
+                kernels[t] = {"device_kernels": prof["device_kernels"], "device_busy_ms": prof["device_busy_ms"],
+                              "top": [(e["name"], e["device_ms"]) for e in prof["top_device_events"][:10]]}
+            for i in range(pairs):
+                for t in (tags if i % 2 == 0 else tags[::-1]):
+                    setter(t)
+                    ms[t].append(cuda_ms(torch, run, reps=5, warmup=1))
+            a, b = tags
+            out[what] = {
+                **{t: {"median_ms": float(np.median(v)), "ms": v, **kernels[t]} for t, v in ms.items()},
+                f"median_{b}_over_{a}": float(np.median(np.array(ms[b]) / np.array(ms[a]))),
+                "bit_equal": bool(torch.equal(dists[a].loc, dists[b].loc)
+                                  and torch.equal(dists[a].scale, dists[b].scale)),
+                "pairs": pairs,
+            }
+            layout("nchw")
+            determinism("on")
+            del dists
+            torch.cuda.empty_cache()
+    finally:
+        layout("nchw")
+        determinism("on")
+    return out
+
+
+def print_conv_layouts(table: dict, forward: dict, smi: str) -> None:
+    """The conv_layouts and stamp_forward_layouts lines and a row a layer."""
+    print(json.dumps({"conv_layouts": {k: v for k, v in table.items() if k != "layers"},
+                      "stamp_forward_layouts": forward}))
+    for r in table["layers"]:
+        a, b = r["nchw"], r["channels_last"]
+        print(f"  {r['layer']:11s} {str(r['in_shape']):22s} nchw {a['ms']:.3f} ms, channels-last {b['ms']:.3f} ms"
+              + (f"; bias_prelu {a['bias_prelu_ms']:.3f} / {b['bias_prelu_ms']:.3f} ms" if "bias_prelu_ms" in a
+                 else "") + f"; bit for bit {r['bit_equal']}")
+        for tag in ("nchw", "channels_last"):
+            print(f"    {tag:13s} " + "; ".join(f"{n[:90]} {ms:.3f}" for n, ms in r[tag]["kernels"]))
+    print(f"float32 forward at {table['batch']} stamps on {smi}: conv_input's NCHW "
+          f"{forward['layout']['nchw']['median_ms']:.2f} ms, channels-last "
+          f"{forward['layout']['channels_last']['median_ms']:.2f} ms; cuDNN deterministic on "
+          f"{forward['cudnn_deterministic']['on']['median_ms']:.2f} ms, off "
+          f"{forward['cudnn_deterministic']['off']['median_ms']:.2f} ms")
+
+
+def conv_layouts_main(out: str | None = None) -> int:
+    """``python3 chip_smoke.py --conv-layouts [OUT]``: phase 25's layout
+    table and forward timings alone, on seeded blended stamps (4,096 of
+    them), printed, and written as JSON to the path OUT when given."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    import debvader_tpu_torch as dt
+    from debvader_tpu_torch.data.simulate import simulate_batch
+    from debvader_tpu_torch.kernels import bias_prelu as bp
+
+    smi = nvidia_smi_line()
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
+    net = dt.load_deblender("sim_demo", device="cuda")
+    x = torch.as_tensor(simulate_batch(np.random.default_rng(28), 4096)[0], device="cuda")
+    table = conv_layout_rows(torch, bp, net)
+    forward = forward_layouts_and_determinism(torch, net, x)
+    print_conv_layouts(table, forward, smi)
+    if out:
+        Path(out).write_text(json.dumps({"card": smi, "table": table, "forward": forward}, indent=1))
+    return 0
 
 
 def stamp_mask(field_size: int, centers: np.ndarray, size: int = 59) -> np.ndarray:
@@ -5389,10 +5595,12 @@ def main() -> int:
                   f"{r['device_ms']}), bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms")
     for name, r in bias_prelu["forward"].items():
         print(f"stamp forward {name}, {r['stamps']} stamps through deblend_tensor: {r['ms']:.2f} ms "
-              f"({r['device_kernels']} kernels), equal to the recorded forward {r['equal']}; SAME pads "
+              f"({r['device_kernels']} kernels), equal to the recorded forward {r['equal']}; conv inputs "
+              f"{r['layouts']}; SAME pads "
               f"{r['same_pads']}; against every pad materialised: bit for bit {r['pad_route_gap']['bit_equal']}, "
               f"loc off by {r['pad_route_gap']['loc']['max_abs_err']:.3g} of "
               f"{r['pad_route_gap']['loc']['scale']:.3g}")
+    print_conv_layouts(bias_prelu["conv_layouts"], bias_prelu["forward_layouts"], smi)
     mark("bias_prelu")
     report["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
@@ -5433,4 +5641,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cross-process-worker"]:
         sys.exit(cross_process_worker(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--conv-layouts"]:
+        sys.exit(conv_layouts_main(sys.argv[2] if len(sys.argv) > 2 else None))
     sys.exit(main())

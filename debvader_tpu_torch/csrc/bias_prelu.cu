@@ -31,14 +31,14 @@
 // alpha, its bias and where y holds it, then walks the batch (blockIdx.y,
 // then gridDim.y apart), kUnroll samples in flight, with 16-byte stores.
 // out is dense in any order of its dims: the convolutions' outputs are
-// channels-last in the stamp forward (the encoder's input is a permuted
-// NHWC batch, the decoder's a reshaped dense output), and the result keeps
-// the layout the plain ops would give it, so the next convolution runs the
-// same cuDNN algorithm.  A dense y is overwritten in place.  A strided y
-// (the crop view of a TF transposed conv) is read where it lies: 16-byte
-// loads where a thread's elements are consecutive and aligned there (the
-// channels-last crop), else one element at a time.  Shapes V does not
-// divide take V = 1.
+// NCHW in the float32 stamp forward and channels-last in the bfloat16 one
+// (models/layers.py conv_input), and the result keeps the layout the plain
+// ops would give it, so the next convolution runs the same cuDNN
+// algorithm.  A dense y is overwritten in place.  A strided y (the crop
+// view of a TF transposed conv) is read where it lies: 16-byte loads where
+// a thread's elements are consecutive and aligned there (the channels-last
+// crop), else one element at a time (the NCHW crop, whose rows start off
+// the 16-byte grid).  Shapes V does not divide take V = 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

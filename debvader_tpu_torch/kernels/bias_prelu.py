@@ -19,10 +19,11 @@ package's convolutions.
 CPU tensors take the plain version.  CUDA tensors launch
 csrc/bias_prelu.cu (``dvt_bias_prelu``).  The result has the layout the
 plain ops give it (``output_like``): a y whose samples are dense blocks, in
-any order of its dims (the stamp forward's convolutions write
-channels-last), is overwritten in place; a strided y (the crop view of a TF
-transposed conv) is read where it lies and the result written to a new
-tensor, dense in the order of y's dims.
+any order of its dims (the stamp forward's convolutions write NCHW in
+float32 and channels-last in bfloat16, ``layers.conv_input``), is
+overwritten in place; a strided y (the crop view of a TF transposed conv)
+is read where it lies and the result written to a new tensor, dense in the
+order of y's dims.
 """
 
 from __future__ import annotations

@@ -23,8 +23,11 @@ state dict serves every precision configuration.
 Without a scheme they take a compute ``dtype``, as flax's ``nn.Conv`` /
 ``nn.Dense`` do: the input is cast to it (``_compute_in``; "float32" means
 the parameters' own dtype, so a model cast with ``.double()`` computes in
-float64).  In float32 the bias joins the contraction.  In bfloat16 the input and the weight are cast to bfloat16,
-the contraction's bfloat16 result (rounded once from a float32
+float64).  A convolution's input is also laid out for its engines
+(``conv_input``): on a card NCHW-dense in float32, as it comes (the
+forward's channels-last) in bfloat16 and on the CPU.  In float32 the bias
+joins the contraction.  In bfloat16 the input and the weight are cast to
+bfloat16, the contraction's bfloat16 result (rounded once from a float32
 accumulation) and the bias cast to bfloat16 are added in bfloat16: two
 roundings, where ``F.conv2d(bias=...)`` would round once.  A forward
 called with ``bias=False`` leaves the bias out, for models/vae.py's
@@ -51,6 +54,7 @@ from debvader_tpu_torch.models.precision import SCHEMES, apply_scheme
 
 __all__ = [
     "tf_same_pads",
+    "conv_input",
     "conv2d_same",
     "conv_transpose2d_tf",
     "Conv2dSame",
@@ -78,13 +82,57 @@ def _compute_in(x: torch.Tensor, dtype: torch.dtype, param: torch.Tensor) -> tor
     return x.to(param.dtype if dtype == torch.float32 else dtype)
 
 
+def _nchw_engines(x: torch.Tensor) -> bool:
+    """Whether x's convolutions in a dtype other than bfloat16 run on
+    engines that take NCHW: cuDNN's, on a card.  The CPU's convolutions
+    take the forward's channels-last as it comes, and there sum as the
+    JAX package's XLA convolutions do on the CPU (NCHW would sum in
+    another order, one that also depends on the batch)."""
+    return x.is_cuda
+
+
+def conv_input(x: torch.Tensor, dtype: torch.dtype, param: torch.Tensor) -> torch.Tensor:
+    """A 4-D convolution's input cast to its compute dtype
+    (``_compute_in``), in the layout its engines take.
+
+    bfloat16 keeps the input's layout: the forward's activations are
+    channels-last, as the sm90 bf16 tensor-core kernels want them.  On a
+    card every other dtype gets an NCHW-dense input, since cuDNN's float32
+    engines are NCHW ones: a channels-last input would be transposed to
+    NCHW and the output back around every convolution.  The output follows
+    the input's layout, so in an all-float32 forward only the encoder's
+    first input and the decoder's reshaped dense output are copied
+    (``conv_input.copies``: inputs already in the compute dtype whose
+    layout changes); a cast changes the layout in the same copy.  CPU
+    tensors keep their layout (``_nchw_engines``).  Each convolution's
+    input is counted by layout in ``conv_input.nchw`` and
+    ``conv_input.channels_last``."""
+    dt = param.dtype if dtype == torch.float32 else dtype
+    if dt == torch.bfloat16 or not _nchw_engines(x):
+        y = x.to(dt)
+    else:
+        conv_input.copies += int(x.dtype == dt and not x.is_contiguous())
+        y = x.to(dt, memory_format=torch.contiguous_format)
+    if y.is_contiguous():
+        conv_input.nchw += 1
+    elif y.is_contiguous(memory_format=torch.channels_last):
+        conv_input.channels_last += 1
+    return y
+
+
+conv_input.nchw = 0
+conv_input.channels_last = 0
+conv_input.copies = 0
+
+
 def _contract(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype, fn):
-    """fn(x, weight, bias) in ``dtype``: float32 folds the bias into the
-    contraction; bfloat16 adds it to the bfloat16 result after.  A None
-    bias is left out."""
+    """fn(x, weight, bias) of a convolution in ``dtype``, x laid out by
+    ``conv_input``: float32 folds the bias into the contraction; bfloat16
+    adds it to the bfloat16 result after.  A None bias is left out."""
+    x = conv_input(x, dtype, weight)
     if dtype == torch.float32:
-        return fn(_compute_in(x, dtype, weight), weight, bias)
-    y = fn(x.to(dtype), weight.to(dtype), None)
+        return fn(x, weight, bias)
+    y = fn(x, weight.to(dtype), None)
     return y if bias is None else y + bias.to(dtype).view((-1,) + (1,) * (y.ndim - 2))
 
 
@@ -202,7 +250,7 @@ class ConvTranspose2dTF(nn.Module):
             # the packed contraction leaves the bias out in float32 too,
             # as the JAX layer adds it after the depth-to-space
             w = _compute_in(self.weight, self.dtype, self.weight)
-            y = sub(_compute_in(x, self.dtype, self.weight), w, None)
+            y = sub(conv_input(x, self.dtype, self.weight), w, None)
             return y if b is None else y + b.to(w.dtype).view(1, -1, 1, 1)
         # the bias joins after the limb terms are summed: inside the
         # contraction it would be added once a term
@@ -385,7 +433,7 @@ class SubpixelConv2d(Conv2dSame):
         super().__init__(cin, cout, 3, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xd, w = _compute_in(x, self.dtype, self.weight), _compute_in(self.weight, self.dtype, self.weight)
+        xd, w = conv_input(x, self.dtype, self.weight), _compute_in(self.weight, self.dtype, self.weight)
         if x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
             packed = _torch_conv_weight(pack_subpixel_kernel_fwd(w.permute(2, 3, 1, 0)))
             y = _depth_to_space(F.conv2d(F.pad(xd, (1, 1, 1, 1)), packed, None, stride=2))

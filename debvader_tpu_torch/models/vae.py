@@ -13,8 +13,13 @@ Same graph as debvader_tpu.models.vae (the reference Keras model):
 
 Inputs and outputs are NHWC like the JAX package; the convolutions run
 NCHW.  Flatten and Reshape go through NHWC order so the Dense kernels of
-the checkpoint line up.  Parameters and buffers: 8,318,452 for the default
-configuration.
+the checkpoint line up.  In memory, bfloat16 activations stay
+channels-last (the encoder's input is a permuted NHWC batch, the
+decoder's a reshaped dense output), and so do float32 ones on the CPU;
+on a card float32 ones are NCHW-dense: each convolution lays out its
+input for its engines (``layers.conv_input``).  The cropped output is
+made dense in NHWC order.  Parameters and buffers: 8,318,452 for the
+default configuration.
 
 ``init_vae`` draws a fresh model with the JAX package's initializers
 (flax's, not torch's): lecun_normal (truncated normal) for the conv and
@@ -218,7 +223,7 @@ class Decoder(nn.Module):
             lo = crop // 2
             hi = h.shape[-1] - (crop - lo)
             h = h[:, :, lo:hi, lo:hi]
-        h = _widened(h.permute(0, 2, 3, 1))
+        h = _widened(h.permute(0, 2, 3, 1)).contiguous()
         loc = h[..., : cfg.nb_of_bands]
         scale = cfg.scale_floor + h[..., cfg.nb_of_bands :]
         return PixelNormal(loc, scale)
